@@ -1,0 +1,559 @@
+"""Continuous-batching LLM engine over the paged KV pool.
+
+Counterpart of ``ray_tpu/llm/engine.py`` in paged mode: requests join and
+leave a fixed set of decode SLOTS at token granularity; prompts prefill
+into the block pool through shape buckets (long prompts and prefix hits
+through chunked prefill over a gathered accumulator); every decode block
+runs ``steps_per_sync`` chained steps on the device with one host sync.
+
+The engine is asyncio-native; device work runs on executor threads, one
+admit or decode block at a time, so pool mutation stays serialized. Each
+thread launches on its own current CUDA stream, and the host syncs only
+where it needs the tokens.
+
+Not ported in this slice, and rejected with an error rather than
+ignored: the monolithic cache (``kv_block_size=0``), speculative decoding
+(``spec=True``), the prefill/decode handoff (``prefilled=``),
+tensor-parallel meshes (``mesh=``), and the metrics, tracing and device
+monitoring hooks.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import math
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.llm import kvcache, model as lm
+from ray_tpu_torch.models.llama import Llama, LlamaConfig
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's deadline budget was spent: before submission, while
+    queued, or mid-generation (the engine then reclaims the slot)."""
+
+
+@dataclass
+class _Request:
+    tokens: List[int]                       # prompt (token ids)
+    max_new_tokens: int
+    temperature: float
+    eos_id: Optional[int]
+    top_p: float = 1.0                      # 1.0 = disabled
+    top_k: int = 0                          # 0 = disabled
+    # stop sequences (token-id lists); on a suffix match generation ends
+    # and the matched suffix is trimmed from the result
+    stop: Optional[List[List[int]]] = None
+    out: List[int] = field(default_factory=list)
+    fut: Optional[asyncio.Future] = None
+    stream: Optional[asyncio.Queue] = None
+    submitted: float = field(default_factory=time.monotonic)
+    # absolute wall-clock deadline: an expired request is refused at
+    # admission and an active one is cancelled at the next block boundary
+    deadline_ts: Optional[float] = None
+    first_token_at: Optional[float] = None
+    # paged-KV state: engine-unique sequence id, the block allocation
+    # handed out at admission, and the prompt tokens served from cached
+    # prefix blocks
+    seq: int = 0
+    kv_alloc: Optional[dict] = None
+    prefix_hit: int = 0
+    kv_written: bool = False    # prefill scatter reached the pool
+
+
+class LLMEngine:
+    def __init__(self, cfg: LlamaConfig, params: Llama, *,
+                 max_slots: int = 8, max_len: int = 1024,
+                 prefill_buckets: Sequence[int] = (64, 128, 256, 512),
+                 cache_dtype="bfloat16", seed: int = 0,
+                 steps_per_sync: int = 8,
+                 kv_block_size: int = 16,
+                 kv_pool_blocks: int = 0,
+                 prefix_cache: bool = True,
+                 kv_impl: str = "auto",
+                 device=None,
+                 mesh=None, spec: bool = False,
+                 detokenize: Optional[Callable[[List[int]], str]] = None):
+        """``params`` is the port's ``Llama`` module, already on
+        ``device``. ``device=None`` means the CUDA device and raises when
+        none is available; tests pass ``device="cpu"`` explicitly, which
+        runs every kernel's plain version."""
+        if kv_block_size <= 0:
+            raise NotImplementedError(
+                "the monolithic KV cache (kv_block_size=0) is not ported; "
+                "the port serves from the paged pool only")
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh=) is not ported yet")
+        if spec:
+            raise NotImplementedError(
+                "speculative decoding (spec=True) is not ported yet")
+        self.device = resolve_device(device)
+        if params.device != self.device:
+            raise ValueError(f"params live on {params.device}, the engine "
+                             f"on {self.device}: move them first")
+        self.cfg = cfg
+        self.params = params
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.buckets = tuple(sorted(b for b in prefill_buckets
+                                    if b <= max_len)) or (max_len,)
+        self.detokenize = detokenize
+        cdt = getattr(torch, cache_dtype) if isinstance(cache_dtype, str) \
+            else cache_dtype
+        self._kv_impl = kvcache.resolve_attn_impl(kv_impl, self.device)
+        # the effective block size divides every prefill bucket and
+        # max_len (prefill writes land block-aligned)
+        b = kv_block_size
+        for v in (*self.buckets, max_len):
+            b = math.gcd(b, v)
+        self._block = max(1, b)
+        self._table_w = max_len // self._block
+        itemsize = torch.empty((), dtype=cdt).element_size()
+        per_tok = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * itemsize
+        nb = kvcache.auto_pool_blocks(max_slots, self._table_w,
+                                      per_tok * self._block, kv_pool_blocks,
+                                      self.device)
+        self._cache_len = max_len     # no growth: tables span it
+        self._pool = kvcache.init_pool(cfg, nb, self._block, cdt,
+                                       self.device)
+        self._kv = kvcache.KVBlockManager(
+            nb, self._block, table_width=self._table_w,
+            prefix_cache=prefix_cache)
+        self._tables = np.full((max_slots, self._table_w), kvcache.TRASH,
+                               np.int32)
+        self._blocked: deque = deque()   # admits parked on the pool
+        self._seq_counter = 0
+        self._slots: List[Optional[_Request]] = [None] * max_slots
+        self._waiting: "asyncio.Queue[_Request]" = asyncio.Queue()
+        self._rng = np.random.default_rng(seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.steps_per_sync = max(1, steps_per_sync)
+        self._loop_task: Optional[asyncio.Task] = None
+        self._stopped = False
+        self._requests = 0
+        self._tokens_generated = 0
+        self._ttft_sum = 0.0
+        self._ttft_count = 0
+
+    @property
+    def stats(self) -> dict:
+        return {"requests": self._requests,
+                "tokens_generated": self._tokens_generated,
+                "ttft_sum": self._ttft_sum,
+                "ttft_count": self._ttft_count,
+                "cache_len": self._cache_len,
+                "paged": True,
+                "block_size": self._block,
+                "blocks_used": self._kv.used_blocks(),
+                "blocks_cached": self._kv.cached_blocks(),
+                "blocks_free": self._kv.free_blocks(),
+                "prefix_hit_tokens": self._kv.hit_tokens_total,
+                "kv_impl": self._kv_impl,
+                "device": str(self.device)}
+
+    # --- public API -----------------------------------------------------
+
+    async def generate(self, tokens: Sequence[int], *,
+                       max_new_tokens: int = 64,
+                       temperature: float = 0.0,
+                       eos_id: Optional[int] = None,
+                       top_p: float = 1.0, top_k: int = 0,
+                       stop: Optional[Sequence[Sequence[int]]] = None,
+                       prefilled: Optional[dict] = None,
+                       deadline_ts: Optional[float] = None) -> dict:
+        """Generate up to ``max_new_tokens`` after ``tokens``. ``top_p``/
+        ``top_k`` filter the sampler (1.0/0 disable); ``stop`` is a list
+        of token-id sequences that end generation (matched suffix
+        trimmed); ``deadline_ts`` (absolute wall clock) cancels the
+        request, freeing its slot, with ``DeadlineExceeded``."""
+        r = self._submit(tokens, max_new_tokens, temperature, eos_id,
+                         top_p=top_p, top_k=top_k, stop=stop,
+                         prefilled=prefilled, deadline_ts=deadline_ts)
+        r.fut = asyncio.get_running_loop().create_future()
+        await r.fut
+        return self._result(r)
+
+    async def generate_stream(self, tokens: Sequence[int], *,
+                              max_new_tokens: int = 64,
+                              temperature: float = 0.0,
+                              eos_id: Optional[int] = None,
+                              top_p: float = 1.0, top_k: int = 0,
+                              stop: Optional[Sequence[Sequence[int]]] = None,
+                              prefilled: Optional[dict] = None,
+                              deadline_ts: Optional[float] = None):
+        """Async generator of token ids as they are produced. Tokens of a
+        stop sequence may be yielded before the match completes."""
+        r = self._submit(tokens, max_new_tokens, temperature, eos_id,
+                         top_p=top_p, top_k=top_k, stop=stop,
+                         prefilled=prefilled, deadline_ts=deadline_ts)
+        r.stream = asyncio.Queue()
+        while True:
+            t = await r.stream.get()
+            if t is None:
+                return
+            if isinstance(t, BaseException):
+                raise t
+            yield t
+
+    def _submit(self, tokens, max_new_tokens, temperature, eos_id,
+                top_p=1.0, top_k=0, stop=None, prefilled=None,
+                deadline_ts=None):
+        if self._stopped:
+            raise RuntimeError("engine is stopped")
+        if prefilled is not None:
+            raise NotImplementedError(
+                "prefilled KV (prefill/decode handoff) is not ported yet")
+        if deadline_ts is not None and time.time() > deadline_ts:
+            raise DeadlineExceeded("budget spent before submission")
+        tokens = list(map(int, tokens))
+        if not tokens:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if len(tokens) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt+generation ({len(tokens)}+{max_new_tokens}) "
+                f"exceeds max_len {self.max_len}")
+        stop = [list(map(int, s)) for s in stop] if stop else None
+        if stop and any(not s for s in stop):
+            raise ValueError("empty stop sequence")
+        r = _Request(tokens, max_new_tokens, temperature, eos_id,
+                     top_p=float(top_p), top_k=int(top_k), stop=stop,
+                     deadline_ts=deadline_ts)
+        self._seq_counter += 1
+        r.seq = self._seq_counter
+        self._waiting.put_nowait(r)
+        self._requests += 1
+        self._ensure_loop()
+        return r
+
+    def _result(self, r: _Request) -> dict:
+        out = {"tokens": r.out,
+               "ttft_s": (r.first_token_at or 0) - r.submitted,
+               "prefix_hit_tokens": r.prefix_hit}
+        if self.detokenize is not None:
+            out["text"] = self.detokenize(r.out)
+        return out
+
+    async def stop(self):
+        self._stopped = True
+        if self._loop_task is not None:
+            self._loop_task.cancel()
+            try:
+                await self._loop_task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+
+    # --- scheduler loop -------------------------------------------------
+
+    def _ensure_loop(self):
+        if self._loop_task is None or self._loop_task.done():
+            self._loop_task = asyncio.ensure_future(self._run())
+
+    def _bucket_for(self, n: int) -> int:
+        return lm.bucket_for(self.buckets, n)
+
+    def _pop_candidate(self) -> Optional[_Request]:
+        """Next admissible request: pool-parked admits first (FIFO), then
+        the waiting queue. Deadline-expired candidates fail fast here."""
+        while self._blocked:
+            cand = self._blocked.popleft()
+            if cand.deadline_ts is not None and \
+                    time.time() > cand.deadline_ts:
+                self._expire(cand, None)
+                continue
+            return cand
+        while not self._waiting.empty():
+            cand = self._waiting.get_nowait()
+            if cand.deadline_ts is not None and \
+                    time.time() > cand.deadline_ts:
+                self._expire(cand, None)
+                continue
+            return cand
+        return None
+
+    async def _run(self):
+        loop = asyncio.get_running_loop()
+        try:
+            while not self._stopped:
+                # 1) admit waiting requests into free slots (prefill)
+                #    before the decode block, for low TTFT
+                for slot in range(self.max_slots):
+                    if self._slots[slot] is not None:
+                        continue
+                    r = self._pop_candidate()
+                    if r is None:
+                        continue
+                    if r.kv_alloc is None:
+                        # full-horizon block reservation at admission:
+                        # decode never fails mid-flight on pool pressure;
+                        # overload parks the admit (FIFO) instead
+                        try:
+                            alloc = self._kv.alloc_seq(
+                                r.seq, r.tokens, r.max_new_tokens)
+                        except kvcache.BlockPoolExhausted as e:
+                            self._fail(r, None, e)
+                            continue
+                        if alloc is None:
+                            self._blocked.appendleft(r)
+                            break
+                        r.kv_alloc = alloc
+                        r.prefix_hit = alloc["hit_tokens"]
+                    try:
+                        tok = await loop.run_in_executor(
+                            None, self._admit_paged, slot, r)
+                    except BaseException as e:  # noqa: BLE001
+                        # the candidate is in no queue and no slot yet:
+                        # fail it here or its caller waits forever
+                        self._fail(r, slot, e)
+                        raise
+                    self._emit_token(r, tok, slot)
+                # deadline-cancel active slots at the block boundary
+                now = time.time()
+                for i, r in enumerate(self._slots):
+                    if r is not None and r.deadline_ts is not None \
+                            and now > r.deadline_ts:
+                        self._expire(r, i)
+                active = [i for i, r in enumerate(self._slots)
+                          if r is not None]
+                if not active:
+                    if self._blocked:
+                        # parked admits with nothing running wait only on
+                        # eviction: re-try shortly
+                        await asyncio.sleep(0.01)
+                        continue
+                    if self._waiting.empty():
+                        r = await self._waiting.get()
+                        self._waiting.put_nowait(r)
+                    continue
+                # 2) a block of decode steps for every active slot, one
+                #    host sync per block, bounded by each slot's budget
+                block = self.steps_per_sync
+                for i in active:
+                    r = self._slots[i]
+                    block = min(block, r.max_new_tokens - len(r.out),
+                                self._cache_len - len(r.tokens)
+                                - len(r.out))
+                block = 1 << (max(1, block).bit_length() - 1)  # pow2 down
+                tokens = np.zeros((self.max_slots,), np.int32)
+                temps = np.zeros((self.max_slots,), np.float32)
+                top_ps = np.ones((self.max_slots,), np.float32)
+                top_ks = np.zeros((self.max_slots,), np.int32)
+                for i in active:
+                    tokens[i] = self._slots[i].out[-1]
+                    temps[i] = self._slots[i].temperature
+                    top_ps[i] = self._slots[i].top_p
+                    top_ks[i] = self._slots[i].top_k
+                out = await loop.run_in_executor(
+                    None, self._decode_impl, tokens, temps, top_ps,
+                    top_ks, block)
+                for step in range(block):
+                    for i in active:
+                        r = self._slots[i]
+                        if r is None:   # finished earlier in this block
+                            continue
+                        self._emit_token(r, int(out[step, i]), i)
+                await asyncio.sleep(0)
+        except BaseException as e:  # noqa: BLE001 — fail all requests
+            for i, r in enumerate(self._slots):
+                if r is not None:
+                    self._fail(r, i, e)
+            while self._blocked:
+                self._fail(self._blocked.popleft(), None, e)
+            while not self._waiting.empty():
+                self._fail(self._waiting.get_nowait(), None, e)
+            raise
+        finally:
+            for i, r in enumerate(self._slots):
+                if r is not None:
+                    self._finish(r, i)
+
+    def _to_dev(self, x: np.ndarray) -> torch.Tensor:
+        """A copy of a host array on the engine's device (never a view
+        of host state the scheduler goes on mutating)."""
+        return torch.tensor(x, device=self.device)
+
+    def _acc_len(self) -> int:
+        """Accumulator length for block-table prefill: the table span
+        rounded up to a chunk multiple plus one slack chunk, so a padded
+        piece never overruns it."""
+        chunk = self.buckets[-1]
+        span = self._table_w * self._block
+        return ((span + chunk - 1) // chunk) * chunk + chunk
+
+    def _prefill_start(self, hit: int) -> int:
+        """First position the suffix prefill computes for a ``hit``-token
+        prefix hit. Where the flash kernel runs, the start rounds down to
+        the chunk grid, so cold and hit requests compute every suffix row
+        on the same grid; the recomputed rows land in full hit blocks,
+        whose scatter targets are trash."""
+        if hit == 0 or not lm.flash_capable(self.cfg, self.device):
+            return hit
+        chunk = self.buckets[-1]
+        return (hit // chunk) * chunk
+
+    @torch.no_grad()
+    def _admit_paged(self, slot: int, r: _Request) -> int:
+        """Paged prefill (executor thread): the scheduler already reserved
+        the block table; write the prompt's KV through it. Cold short
+        prompts take one bucketed ``prefill`` and a scatter; prefix hits
+        and long prompts take chunked prefill over a gathered
+        accumulator. Returns the first sampled token."""
+        n = len(r.tokens)
+        table = r.kv_alloc["table"]
+        hit = r.prefix_hit
+        B = self._block
+        self._tables[slot] = table
+        if hit == 0 and n <= self.buckets[-1]:
+            b = self._bucket_for(n)
+            padded = self._to_dev(lm.pad_prompt(r.tokens, b))
+            logits, kv = lm.prefill(self.params, padded, n, self.cfg, b)
+            nb = b // B
+            phys = np.full((nb,), kvcache.TRASH, np.int32)
+            phys[:min(nb, self._table_w)] = table[:min(nb, self._table_w)]
+            kvcache.scatter_bucket(self._pool, kv, phys, nb)
+        else:
+            logits = self._prefill_into_blocks(r, table, hit)
+        logits_np = logits.float().cpu().numpy()   # host sync
+        r.kv_written = True
+        self._slots[slot] = r
+        return self._sample_one(logits_np, r)
+
+    def _prefill_into_blocks(self, r: _Request, table: np.ndarray,
+                             hit: int) -> torch.Tensor:
+        """Prefix-hit (and long-prompt) prefill: gather the table's cached
+        blocks into a contiguous accumulator, run the suffix through
+        ``prefill_chunk`` in pieces aligned to the absolute chunk grid,
+        then scatter the new positions' KV back into the request's own
+        blocks (shared prefix blocks target trash)."""
+        n = len(r.tokens)
+        chunk = self.buckets[-1]
+        acc = kvcache.gather_table(self._pool, table, self._acc_len())
+        off = self._prefill_start(hit)
+        logits = None
+        while off < n:
+            end = min(n, ((off // chunk) + 1) * chunk)
+            part = r.tokens[off:end]
+            b = self._bucket_for(len(part))
+            padded = self._to_dev(lm.pad_prompt(part, b))
+            logits, acc = lm.prefill_chunk(self.params, padded, len(part),
+                                           off, acc, self.cfg)
+            off = end
+        targets = table.copy()
+        targets[:hit // self._block] = kvcache.TRASH
+        kvcache.scatter_table(self._pool, acc, targets)
+        return logits
+
+    @torch.no_grad()
+    def _decode_impl(self, tokens: np.ndarray, temps: np.ndarray,
+                     top_ps: np.ndarray, top_ks: np.ndarray,
+                     block: int) -> np.ndarray:
+        """Returns (block, slots) int32 sampled tokens. Per-slot write
+        positions are host-derived (prompt + emitted - 1: the last
+        emitted token's KV lands this step); empty slots write into the
+        trash block."""
+        # decided on the host, so the device loop never syncs to branch:
+        # all-greedy blocks skip the sampler, filters cost sorts only when
+        # some active request enabled one
+        sampled = bool((temps > 0).any())
+        filters_on = bool((top_ps < 1.0).any() or (top_ks > 0).any())
+        tv = self._to_dev(temps) if sampled else None
+        tp = self._to_dev(top_ps) if filters_on else None
+        tk = self._to_dev(top_ks) if filters_on else None
+        lengths = np.zeros((self.max_slots,), np.int32)
+        for i, r in enumerate(self._slots):
+            if r is not None:
+                lengths[i] = len(r.tokens) + len(r.out) - 1
+        out, self._pool = kvcache.paged_decode_steps(
+            self.params, self._pool, self._to_dev(self._tables),
+            self._to_dev(lengths), self._to_dev(tokens),
+            tv, self._gen, self.cfg, block, tp, tk,
+            impl=self._kv_impl)
+        return out.cpu().numpy()   # the block's one host sync
+
+    def _sample_one(self, logits: np.ndarray, r: _Request) -> int:
+        """Host-side sampling of the first token (prefill output is one
+        logits vector), through the same ``filter_logits`` the device
+        sampler uses."""
+        if r.temperature <= 0:
+            return int(np.argmax(logits))
+        scaled = (np.asarray(logits, np.float32)
+                  / max(float(r.temperature), 1e-6))[None]
+        masked = lm.filter_logits(
+            scaled, np.asarray([r.top_k], np.int32),
+            np.asarray([r.top_p], np.float32))[0].astype(np.float64)
+        e = np.exp(masked - masked.max())
+        return int(self._rng.choice(len(e), p=e / e.sum()))
+
+    def _emit_token(self, r: _Request, tok: int, slot: int):
+        """Append one sampled token; finish the request if done."""
+        if r.first_token_at is None:
+            r.first_token_at = time.monotonic()
+            self._ttft_sum += r.first_token_at - r.submitted
+            self._ttft_count += 1
+        r.out.append(tok)
+        self._tokens_generated += 1
+        if r.stream is not None:
+            r.stream.put_nowait(tok)
+        if r.stop:
+            for seq in r.stop:
+                if len(r.out) >= len(seq) and r.out[-len(seq):] == seq:
+                    del r.out[-len(seq):]   # trim the stop sequence
+                    self._finish(r, slot)
+                    return
+        if (len(r.out) >= r.max_new_tokens
+                or (r.eos_id is not None and tok == r.eos_id)):
+            self._finish(r, slot)
+
+    def _free_kv(self, r: _Request, slot: Optional[int]) -> None:
+        """Return a finished/failed request's blocks to the pool; its
+        prompt+output block chain enters the prefix index, except the
+        final sampled token, whose KV was never written. A request that
+        failed before its prefill scatter caches nothing. The slot's
+        table row reverts to trash."""
+        if r.kv_alloc is None:
+            return
+        stream = list(r.tokens) + list(r.out)
+        if r.out:
+            stream = stream[:-1]
+        self._kv.free_seq(r.seq, stream, cache=r.kv_written)
+        r.kv_alloc = None
+        if slot is not None:
+            self._tables[slot] = kvcache.TRASH
+
+    def _finish(self, r: _Request, slot: Optional[int]):
+        self._free_kv(r, slot)
+        if slot is not None and self._slots[slot] is r:
+            self._slots[slot] = None
+        if r.stream is not None:
+            r.stream.put_nowait(None)
+        if r.fut is not None and not r.fut.done():
+            r.fut.set_result(True)
+
+    def _expire(self, r: _Request, slot: Optional[int]):
+        self._fail(r, slot, DeadlineExceeded(
+            f"generation cancelled at the deadline after "
+            f"{len(r.out)} token(s)"))
+
+    def _fail(self, r: _Request, slot: Optional[int], e: BaseException):
+        self._free_kv(r, slot)
+        err = e if isinstance(e, DeadlineExceeded) else RuntimeError(
+            f"llm engine failed: {e}")
+        if slot is not None and self._slots[slot] is r:
+            self._slots[slot] = None
+        if r.stream is not None:
+            r.stream.put_nowait(err)
+        if r.fut is not None and not r.fut.done():
+            r.fut.set_exception(err)

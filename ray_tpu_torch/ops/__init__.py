@@ -1,0 +1,2 @@
+"""Attention ops of the port: hand-written CUDA kernels and their plain
+PyTorch versions."""

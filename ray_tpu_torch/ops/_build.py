@@ -1,0 +1,158 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source in ``ray_tpu_torch/csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, then loaded
+with ctypes. The build runs at first use, into ``ray_tpu_torch/_build/``
+(listed in ``.gitignore``), and is reused while the source's hash is
+unchanged. Nothing here runs at import time: a CPU-only install imports
+the port without a CUDA toolkit, and only a kernel launch on a CUDA
+tensor reaches the build. A build that fails raises; there is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH = "arch=compute_90a,code=sm_90a"
+
+# the kernels' C entry points: (name, argtypes as ctypes types)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+SIGNATURES = {
+    "flash_attention_fwd": (
+        "ray_flash_attention_fwd",
+        # q, k, v, o, b, sq, sk, h, kvh, d, offset, causal, scale, dtype, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+         _I, _P]),
+    "paged_attention": (
+        "ray_paged_attention",
+        # q, k_pool, v_pool, tables, lengths, out, slots, kvh, g, hd, bs,
+        # width, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    """Where the build of ``name`` lives: keyed by the source's hash and
+    the target, so an edited source never reuses a stale library."""
+    h = hashlib.sha256(source(name).read_bytes())
+    h.update(ARCH.encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(name: str, out: Path) -> List[str]:
+    """The compile command for one kernel source (sm_90a, -O3, a shared
+    library with a plain C interface)."""
+    return [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(out),
+            str(source(name))]
+
+
+class _Loader:
+    """Process-wide cache of loaded kernel libraries; thread-safe (the
+    engine launches kernels from executor threads)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._libs: Dict[str, ctypes.CDLL] = {}
+
+    def build(self, names: Iterable[str]) -> Dict[str, str]:
+        """Compile every listed kernel whose library is missing, all
+        nvcc processes started together. Returns each name's ptxas
+        report (empty when the build was reused)."""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        reports = {}
+        for name in names:
+            out = library_path(name)
+            reports[name] = ""
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = nvcc_command(name, tmp)
+            try:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            except FileNotFoundError as e:
+                for _, _, p in procs.values():
+                    p.kill()
+                    p.wait()
+                raise KernelBuildError(
+                    f"nvcc not found ({cmd[0]}): the CUDA kernels need "
+                    "the CUDA toolkit") from e
+            procs[name] = (out, tmp, proc)
+        failed = []
+        for name, (out, tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            reports[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+        return reports
+
+    def load(self, name: str) -> ctypes.CDLL:
+        lib = self._libs.get(name)
+        if lib is not None:
+            return lib
+        with self._lock:
+            lib = self._libs.get(name)
+            if lib is None:
+                self.build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                sym, argtypes = SIGNATURES[name]
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                self._libs[name] = lib
+        return lib
+
+
+LOADER = _Loader()
+
+
+def kernel(name: str):
+    """The C entry point of kernel ``name``, built and loaded on first
+    use."""
+    return getattr(LOADER.load(name), SIGNATURES[name][0])
+
+
+def build_all() -> Dict[str, str]:
+    """Build every kernel source in parallel (one nvcc each)."""
+    return LOADER.build(SIGNATURES)
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t from a kernel's C entry point."""
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError_t {err}")

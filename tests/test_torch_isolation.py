@@ -1,0 +1,150 @@
+"""The port stands alone: importing it loads neither jax nor any
+``ray_tpu`` module, its entry points default to the CUDA device and
+refuse to run on the CPU silently, and a kernel wrapper given a
+non-CPU tensor launches its kernel or raises; it never falls back to its
+plain version."""
+
+import ast
+import inspect
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ray_tpu_torch import bridge
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.llm import kvcache
+from ray_tpu_torch.llm.engine import LLMEngine
+from ray_tpu_torch.models import llama
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.paged_attention import paged_attention
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
+                "ray_tpu_torch.models.llama", "ray_tpu_torch.ops.attention",
+                "ray_tpu_torch.ops.flash_attention",
+                "ray_tpu_torch.ops.paged_attention",
+                "ray_tpu_torch.llm.model", "ray_tpu_torch.llm.kvcache",
+                "ray_tpu_torch.llm.engine"]
+
+
+def test_import_leaves_jax_and_ray_tpu_out():
+    code = (
+        "import sys, importlib\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'ray_tpu' or "
+        "m.startswith('ray_tpu.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    [ROOT / "chip_smoke.py", *(ROOT / "ray_tpu_torch").rglob("*.py")]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_ray_tpu_import_in_source(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "ray_tpu", "optax"), \
+            f"{path.name} imports {name}"
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no.*available|none is"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    cfg = llama.tiny(dtype="float32")
+    model = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMEngine(cfg, model)
+
+
+def test_model_entry_points_default_to_cuda(monkeypatch):
+    """``init_params`` and ``params_from_numpy`` without ``device=`` build
+    on the card, so with no CUDA they raise instead of building a CPU
+    model; a generator on another kind of device than the weights is
+    refused."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.tiny(dtype="float32", n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_params(torch.Generator().manual_seed(0), cfg)
+    tree = bridge.params_to_numpy(
+        llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.params_from_numpy(tree, cfg)
+    with pytest.raises(ValueError, match="generator"):
+        llama.init_params(torch.Generator().manual_seed(0), cfg, "meta")
+
+
+def test_paged_decode_default_impl_is_the_kernel_on_cuda():
+    for fn in (kvcache.paged_decode_steps, kvcache._paged_decode_core):
+        assert inspect.signature(fn).parameters["impl"].default == "auto"
+    assert kvcache.resolve_attn_impl("auto", "cuda") == "paged_flash"
+    assert kvcache.resolve_attn_impl("auto", "cpu") == "gather"
+    assert kvcache.resolve_attn_impl("gather", "cuda") == "gather"
+
+
+def test_build_command_targets_sm_90a():
+    for name in _build.SIGNATURES:
+        cmd = _build.nvcc_command(name, pathlib.Path("out.so"))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-O3" in cmd and "-shared" in cmd
+        assert str(_build.source(name)) == cmd[-1]
+        assert _build.source(name).exists()
+        assert _build.library_path(name).parent == _build.BUILD_DIR
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "ray_tpu_torch/_build/" in ignored
+
+
+def test_wrappers_never_fall_back_off_cpu(monkeypatch, tmp_path):
+    """A tensor that is not on the CPU goes to the kernel: with no nvcc
+    the build raises instead of the plain version answering."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    q = torch.empty((1, 8, 2, 64), device="meta")
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        flash_attention(q, q, q)
+    before = paged_attention.launches
+    qd = torch.empty((1, 2, 2, 64), device="meta")
+    pool = torch.empty((4, 16, 2, 64), device="meta")
+    tables = torch.empty((1, 4), dtype=torch.int32, device="meta")
+    lengths = torch.empty((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(_build.KernelBuildError):
+        paged_attention(qd, pool, pool, tables, lengths)
+    assert paged_attention.launches == before
+
+
+def test_wrapper_checks_shapes_and_dtypes():
+    q = torch.empty((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(torch.empty((1, 8, 2, 48), device="meta"),
+                        torch.empty((1, 8, 2, 48), device="meta"),
+                        torch.empty((1, 8, 2, 48), device="meta"))
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q.half(), q.half(), q.half())
+    qd = torch.empty((1, 2, 2, 64), device="meta")
+    pool = torch.empty((4, 12, 2, 64), device="meta")
+    tables = torch.empty((1, 4), dtype=torch.int32, device="meta")
+    lengths = torch.empty((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="block_size"):
+        paged_attention(qd, pool, pool, tables, lengths)
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention(qd, pool, pool, tables.long(), lengths)

@@ -1,21 +1,31 @@
-"""Drive ray_tpu_torch's serving path on one CUDA card and check it.
+"""Drive ray_tpu_torch's serving path and training step on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ray_tpu_torch/csrc with nvcc, in parallel;
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes, with its time beside the plain version's, a
-     library call's where one computes the same function, and the least
-     time the card could take (its bound);
+  3. each serving kernel (K1, K4) against its plain PyTorch version on
+     the card, at the serving path's shapes, with its time beside the
+     plain version's, a library call's where one computes the same
+     function, and the least time the card could take (its bound);
   4. LLMEngine serving Llama-3-8B at full width (32 layers, random bf16
      weights from a fixed seed): concurrent greedy requests, a chunked
      long prompt and a prefix hit, with the kernels' launch counts over
      that phase; then a steady-state decode step and prefill, timed and
      traced for the device's busy share;
-  5. one JSON line with every kernel's numbers;
-  6. the last line, {"ok": true, "device": {...}}.
+  5. the training kernels (K1 with lse, K2, K3) against their plain
+     versions at the training shapes (s 4096, a ragged 1000, non-causal),
+     timed beside the plain versions, SDPA and their bounds;
+  6. a 2-layer full-width model's loss and gradients through the kernels
+     against the same through plain attention;
+  7. make_train_step on Llama-3-8B at full width cut to 8 layers (bf16,
+     full remat, batch 2 x 4096): 2 warm-up and 5 timed steps with the
+     kernels' launch counts, step time, tok/s and MFU, then one step
+     traced for the device's busy share;
+  8. one JSON line with every kernel's numbers;
+  9. the last line, {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -41,6 +52,23 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
 K1_ROW_REL_TOL = 1e-2
 K4_TOL = dict(atol=1e-4, rtol=0.0)    # f32 math on identical bf16 values
 LOGITS_REL_TOL = 5e-2                 # 32 bf16 layers, kernel vs plain
+# K1's lse against the plain forward's: both fold q' the same way and sum
+# exp in f32, so they differ by summation order (~1e-6 at lse ~ 10); a
+# dropped or doubled 64-key tile moves a row's lse by >= ~1e-2.
+LSE_ABS_TOL = 1e-3
+# K2/K3, bf16: |kernel - plain|_2 / |plain|_2 per (query row, head) for
+# dQ and per (key row, kv head) for dK/dV. Both keep p, dS and every sum
+# in f32 and round the output to bf16 once (<= 2^-8 each), so they differ
+# by a few 1e-3 at most; a dropped tile or head moves a row by percents.
+BWD_ROW_REL_TOL = 1e-2
+# 2 bf16 layers at full width, loss and gradients through K1/K2/K3 vs the
+# same through plain attention: bf16 rounds every matmul output (2^-8)
+# and the two attention paths round at other points (q' before the
+# scores vs the scores in f32), which moves the loss by ~1e-4 relative,
+# the gradients' norm by ~1e-3 and each gradient's direction by ~1e-3.
+TRAIN_LOSS_REL_TOL = 2e-3
+TRAIN_GNORM_REL_TOL = 2e-2
+TRAIN_GRAD_COS_MIN = 0.99
 
 
 def card_line() -> str:
@@ -70,6 +98,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.mean([s.elapsed_time(e) for s, e in times]))
+
+
+def row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst |got - want|_2 / |want|_2 over the last dim (a row of one
+    head). A row whose reference norm is below 1e-3 of the mean row norm
+    (the first query's dQ, zero in exact arithmetic: it keeps one key, so
+    dS = 0) is measured against 1e-3 of the mean instead."""
+    diff = torch.linalg.vector_norm(got.float() - want.float(), dim=-1)
+    ref = torch.linalg.vector_norm(want.float(), dim=-1)
+    return (diff / ref.clamp_min(1e-3 * ref.mean().item() + 1e-30)
+            ).max().item()
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want|_2 / |want|_2 over the whole tensor."""
+    return (torch.linalg.vector_norm(got.float() - want.float())
+            / torch.linalg.vector_norm(want.float())).item()
 
 
 def bound_ms(work: dict):
@@ -237,10 +282,14 @@ def run_engine(card: str):
         return first, wall, hit, stats
 
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.lse_launches = 0
     pa.paged_attention.launches = 0
     first, wall, hit, stats = asyncio.run(drive())
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "paged_attention": pa.paged_attention.launches}
+    if fa.flash_attention_fwd.lse_launches:
+        raise SystemExit("the serving path wrote lse "
+                         f"{fa.flash_attention_fwd.lse_launches} times")
     for out, _, _ in first + [hit]:
         toks = out["tokens"]
         if len(toks) != new or not all(0 <= t < cfg.vocab_size
@@ -328,6 +377,300 @@ def breakdown(model, cfg, card: str) -> None:
               + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
 
 
+def check_train_kernels(fa, gen) -> dict:
+    """K1 with lse, K2 and K3 at the training path's shapes: Llama-3-8B
+    heads (32 query, 8 kv, head_dim 128), bf16, batch 1; s 4096 causal
+    (timed), a ragged 1000 causal and 1000 non-causal (checked). Each
+    kernel gets the same inputs as its plain version (K2/K3 the kernel
+    forward's lse and delta)."""
+    b, h, kvh, d = 1, 32, 8, 128
+    worst = {"fwd": [0.0, 0.0, 0.0], "dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
+    timed = {}
+    for s_, causal in ((4096, True), (1000, True), (1000, False)):
+        q, do = (torch.randn((b, s_, h, d), generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, s_, kvh, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        kw = dict(causal=causal)
+
+        def k1():
+            return fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+
+        def k1_plain():
+            return fa.flash_attention_fwd_reference(q, k, v, **kw)
+
+        (o, lse), (o_r, lse_r) = k1(), k1_plain()
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta)
+
+        def k2():
+            return fa.flash_attention_bwd_dkv(*args, **kw)
+
+        def k2_plain():
+            return fa.flash_attention_bwd_dkv_reference(*args, **kw)
+
+        def k3():
+            return fa.flash_attention_bwd_dq(*args, **kw)
+
+        def k3_plain():
+            return fa.flash_attention_bwd_dq_reference(*args, **kw)
+
+        (dk, dv), (dk_r, dv_r) = k2(), k2_plain()
+        dq, dq_r = k3(), k3_plain()
+        torch.cuda.synchronize()
+        errs = {
+            "fwd": (row_rel(o, o_r), (lse - lse_r).abs().max().item(),
+                    (o.float() - o_r.float()).abs().max().item()),
+            "dkv": (max(row_rel(dk, dk_r), row_rel(dv, dv_r)),
+                    max((dk.float() - dk_r.float()).abs().max().item(),
+                        (dv.float() - dv_r.float()).abs().max().item())),
+            "dq": (row_rel(dq, dq_r),
+                   (dq.float() - dq_r.float()).abs().max().item()),
+        }
+        ok = (errs["fwd"][0] <= K1_ROW_REL_TOL
+              and errs["fwd"][1] <= LSE_ABS_TOL
+              and errs["dkv"][0] <= BWD_ROW_REL_TOL
+              and errs["dq"][0] <= BWD_ROW_REL_TOL)
+        print(f"train kernels s={s_} causal={causal}: K1+lse worst row "
+              f"rel {errs['fwd'][0]:.3e} (tol {K1_ROW_REL_TOL}), lse max "
+              f"abs {errs['fwd'][1]:.3e} (tol {LSE_ABS_TOL}); K2 dK/dV "
+              f"worst row rel {errs['dkv'][0]:.3e}, K3 dQ worst row rel "
+              f"{errs['dq'][0]:.3e} (tol {BWD_ROW_REL_TOL}); max abs dK/dV "
+              f"{errs['dkv'][1]:.3e} dQ {errs['dq'][1]:.3e} (grad rms "
+              f"{dq_r.float().pow(2).mean().sqrt().item():.3e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("a training kernel disagrees with its plain "
+                             "version")
+        for name, e in errs.items():
+            worst[name] = [max(a, b_) for a, b_ in zip(worst[name], e)]
+        if s_ != 4096:
+            continue
+        f = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        out = f(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return f(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def lib_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib = lib_bwd()
+        lib_err = max(rel_l2(lib[0].transpose(1, 2), dq_r),
+                      rel_l2(lib[1].transpose(1, 2), dk_r))
+        if lib_err > 0.1:
+            raise SystemExit(f"SDPA yardstick disagrees: {lib_err}")
+        w1 = fa.work(b, s_, s_, h, kvh, d, 2, with_lse=True)
+        wb = fa.work_bwd(b, s_, s_, h, kvh, d, 2)
+        sdpa_bwd = time_ms(lib_bwd, iters=5)
+        timed["fwd"] = dict(ms=time_ms(k1, iters=5),
+                            plain_ms=time_ms(k1_plain, iters=5),
+                            library_ms=time_ms(lib_fwd, iters=5))
+        timed["dkv"] = dict(ms=time_ms(k2, iters=5),
+                            plain_ms=time_ms(k2_plain, iters=5),
+                            library_ms=sdpa_bwd)
+        timed["dq"] = dict(ms=time_ms(k3, iters=5),
+                           plain_ms=time_ms(k3_plain, iters=5),
+                           library_ms=sdpa_bwd)
+        for name, w in (("fwd", w1), ("dkv", wb["dkv"]), ("dq", wb["dq"])):
+            bms, by = bound_ms(w)
+            timed[name].update(bound_ms=bms, bound_by=by)
+            t = timed[name]
+            print(f"train kernel {name} b=1 s=4096 causal: kernel "
+                  f"{t['ms']:.4f} ms ({w['flops'] / t['ms'] / 1e9:.1f} "
+                  f"TF/s), plain {t['plain_ms']:.4f} ms, SDPA "
+                  f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        print(f"  SDPA backward (dQ, dK, dV together) {sdpa_bwd:.4f} ms vs "
+              f"K2 + K3 {timed['dkv']['ms'] + timed['dq']['ms']:.4f} ms; "
+              f"SDPA vs plain dQ/dK relative L2 {lib_err:.3e}")
+        del out, lib, qt, kt, vt
+    out = {name: dict(max_abs_err=worst[name][-1],
+                      max_row_rel_err=worst[name][0], **timed[name])
+           for name in worst}
+    out["fwd"]["lse_max_abs_err"] = worst["fwd"][1]
+    return out
+
+
+def check_train_parity(fa, card: str) -> None:
+    """Llama-3-8B at full width cut to 2 layers (bf16, random weights
+    from seed 1), batch 2 x 1024: one loss_fn + backward through the
+    kernels and one through plain attention (attn_impl="reference") on
+    the same weights and batch."""
+    from ray_tpu_torch.models import llama
+    cfg = llama.llama3_8b(n_layers=2, dtype="bfloat16")
+    model = llama.init_params(torch.Generator(device="cuda").manual_seed(1),
+                              cfg, trainable=True)
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 1025)), device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    names = [n for n, _ in model.named_parameters()]
+    runs = {}
+    for impl in ("auto", "reference"):
+        model.zero_grad(set_to_none=True)
+        before = fa.flash_attention_bwd_dq.launches
+        loss = llama.loss_fn(model, batch,
+                             dataclasses.replace(cfg, attn_impl=impl))
+        loss.backward()
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        runs[impl] = (loss.item(), grads,
+                      fa.flash_attention_bwd_dq.launches - before)
+    (lk, gk, nk), (lr, gr, nr) = runs["auto"], runs["reference"]
+    if (nk, nr) != (cfg.n_layers, 0):
+        raise SystemExit(f"K3 launches kernel/plain runs: {nk}/{nr}")
+    norm_k = torch.sqrt(sum(g.float().pow(2).sum() for g in gk)).item()
+    norm_r = torch.sqrt(sum(g.float().pow(2).sum() for g in gr)).item()
+    cos = {n: torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+        for n, a, b in zip(names, gk, gr)}
+    worst = min(cos, key=cos.get)
+    loss_rel = abs(lk - lr) / abs(lr)
+    norm_rel = abs(norm_k - norm_r) / norm_r
+    ok = (np.isfinite(lk) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and norm_rel <= TRAIN_GNORM_REL_TOL
+          and cos[worst] >= TRAIN_GRAD_COS_MIN)
+    print(f"2-layer model [{card}], kernels vs plain attention: loss "
+          f"{lk:.6f} vs {lr:.6f} (rel {loss_rel:.2e}, tol "
+          f"{TRAIN_LOSS_REL_TOL}), grad norm {norm_k:.5f} vs {norm_r:.5f} "
+          f"(rel {norm_rel:.2e}, tol {TRAIN_GNORM_REL_TOL}), worst "
+          f"per-tensor grad cosine {cos[worst]:.6f} ({worst}; min "
+          f"{TRAIN_GRAD_COS_MIN}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the model's loss or gradients through the "
+                         "kernels disagree with plain attention")
+
+
+def _kernel_kind(name: str) -> str:
+    low = name.lower()
+    for key, kind in (("flash_fwd_kernel", "K1"), ("flash_dkv_kernel", "K2"),
+                      ("flash_dq_kernel", "K3")):
+        if key in low:
+            return kind
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "GEMM"
+    return "other"
+
+
+def run_train(fa, card: str) -> dict:
+    """make_train_step on Llama-3-8B at its published widths (dim 4096,
+    32/8 heads, ffn 14336, vocab 128256, rope 5e5) cut to 8 layers, bf16,
+    full remat, f32 logits, no CE chunking; random weights from seed 0;
+    one batch of 2 x 4096 random tokens (targets shifted by one);
+    default_optimizer(3e-4, warmup 2, total 100). 2 warm-up steps, then 5
+    timed steps whose launch counts must be K1 = 2 * 8 * 5 (all with
+    lse), K2 = K3 = 8 * 5; then one step traced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import default_optimizer, make_train_step
+    from ray_tpu_torch.parallel.mesh import global_norm
+
+    cfg = llama.llama3_8b(n_layers=8, dtype="bfloat16", remat_policy="full",
+                          logits_dtype="float32", ce_chunk=0)
+    b, s, steps = 2, 4096, 5
+    opt = default_optimizer(learning_rate=3e-4, warmup_steps=2,
+                            total_steps=100)
+    init_fn, step_fn = make_train_step(cfg, optimizer=opt)
+    t0 = time.monotonic()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"train: llama3_8b widths, {cfg.n_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f}B params, bf16, random weights "
+          f"(seed 0) and AdamW state in {time.monotonic() - t0:.1f} s")
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1)), device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    losses, norms, walls = [], [], []
+
+    def step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        state, m = step_fn(state, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t)
+
+    for _ in range(2):
+        step()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.lse_launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        step()
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "flash_attention_fwd_lse": fa.flash_attention_fwd.lse_launches,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = cfg.n_layers * steps
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_fwd_lse": 2 * n,
+            "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+    print(f"train losses {['%.5f' % x for x in losses]}, grad norms "
+          f"{['%.4f' % x for x in norms]}; launches over the {steps} timed "
+          f"steps {launches}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise SystemExit("a training loss or grad norm is not finite")
+    if not losses[-1] < losses[1]:
+        raise SystemExit(f"the loss did not fall: {losses}")
+    if launches != want:
+        raise SystemExit(f"launch counts {launches}, expected {want}")
+    step_s = float(np.median(walls[2:]))
+    tok_s = b * s / step_s
+    mfu = tok_s * cfg.flops_per_token(s) / PEAK_BF16_FLOPS
+    print(f"train step [{card}]: host wall median {step_s * 1e3:.1f} ms "
+          f"(steps {', '.join('%.1f' % (w * 1e3) for w in walls[2:])} ms), "
+          f"{tok_s:.1f} tok/s, MFU {mfu:.4f} (flops_per_token(4096) "
+          f"{cfg.flops_per_token(s):.4e} / 989 TF/s), peak memory "
+          f"{peak_gb:.1f} GB")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    kinds, names = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            kind = _kernel_kind(e.name)
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+            t, c = names.get(e.name, (0.0, 0))
+            names[e.name] = (t + ms, c + 1)
+    busy = sum(kinds.values())
+    wall_ms = walls[-1] * 1e3
+    idle = f"{1 - busy / wall_ms:.3f}" if busy else "not measured"
+    per_launch = {k: names[n][0] / names[n][1] for n in names
+                  for k in ("K1", "K2", "K3") if _kernel_kind(n) == k}
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"train step traced [{card}]: host wall {wall_ms:.1f} ms, device "
+          f"busy {busy:.1f} ms, device idle share {idle}; by kind (ms): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1]))
+          + "; per launch at b=2 s=4096 (ms): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in sorted(per_launch.items()))
+          + "; top kernels (ms, count): "
+          + "; ".join(f"{k[:50]} {v[0]:.1f} x{v[1]}" for k, v in top))
+
+    params = list(state.params.parameters())
+    grads = [p.grad for p in params]
+
+    def update():
+        opt.update(state.opt_state, params, grads, global_norm(grads))
+
+    print(f"optimizer update alone (global norm, clip, AdamW over "
+          f"{len(params)} tensors): {time_ms(update, iters=3):.1f} ms")
+    return {"launches": launches, "per_launch_ms": per_launch}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
@@ -355,13 +698,48 @@ def main() -> int:
     k4 = check_paged(pa, gen)
     launches, model, cfg = run_engine(card)
     breakdown(model, cfg, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    tk = check_train_kernels(fa, gen)
+    check_train_parity(fa, card)
+    train = run_train(fa, card)
+    tl = train["launches"]
+
+    bwd_tol = {"row_rel_l2": BWD_ROW_REL_TOL}
+    sdpa_note = ("SDPA's backward computes dQ, dK and dV in one call: "
+                 "compare it with K2 ms + K3 ms")
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:79",
-             launches=launches["flash_attention_fwd"],
-             tolerance={"row_rel_l2": K1_ROW_REL_TOL}, card=card, **k1),
+             launches=launches["flash_attention_fwd"]
+             + tl["flash_attention_fwd"],
+             launches_by_path={"serve": launches["flash_attention_fwd"],
+                               "train": tl["flash_attention_fwd"],
+                               "train_with_lse": tl["flash_attention_fwd_lse"]},
+             at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal, with lse",
+             tolerance={"row_rel_l2": K1_ROW_REL_TOL,
+                        "lse_abs": LSE_ABS_TOL},
+             card=card, train_per_launch_ms=train["per_launch_ms"].get("K1"),
+             serving=dict(at="s=512 causal, no lse", **k1), **tk["fwd"]),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="ray_tpu/ops/pallas/flash_attention.py:212",
+             launches=tl["flash_attention_bwd_dkv"],
+             at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
+             tolerance=bwd_tol, card=card, library_note=sdpa_note,
+             train_per_launch_ms=train["per_launch_ms"].get("K2"),
+             **tk["dkv"]),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="ray_tpu/ops/pallas/flash_attention.py:263",
+             launches=tl["flash_attention_bwd_dq"],
+             at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
+             tolerance=bwd_tol, card=card, library_note=sdpa_note,
+             train_per_launch_ms=train["per_launch_ms"].get("K3"),
+             **tk["dq"]),
         dict(name="paged_attention", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/pallas/paged_attention.py:60",

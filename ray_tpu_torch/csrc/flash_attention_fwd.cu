@@ -1,4 +1,4 @@
-// Flash-attention forward (inference) for Hopper, sm_90a.
+// Flash-attention forward for Hopper, sm_90a (kernel K1).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // ray_tpu/ops/pallas/flash_attention.py (driven by flash_attention_fwd).
@@ -7,6 +7,12 @@
 //     when causal, j <= i + offset
 // where q' = q * sm_scale rounded to the input type (the TPU kernel folds
 // the scale into q the same way). Rows that keep no key give 0.
+// With an lse pointer (the training forward) it also writes, per row,
+//     lse_i = m_i + log l_i   (f32, layout (b, h, sq))
+// the log-sum-exp of the row's kept scores, which the backward kernels
+// (flash_attention_bwd.cu) use to rebuild p = exp(q'k - lse). A row that
+// keeps no key gets m + log 1 = -1e30, as the TPU kernel writes. A null
+// lse (inference, the TPU's with_lse=False) writes nothing more.
 //
 // Layout: q/o (b, sq, h, d), k/v (b, sk, kvh, d), all contiguous; query
 // head hq reads kv head hq / (h / kvh), so GQA needs no repeated K/V copy.
@@ -18,61 +24,15 @@
 // accumulator stay in f32 (registers and shared memory). Products are
 // plain FMA loops: no tensor cores yet, so at prefill shapes the kernel is
 // bound by f32 FMA issue and shared-memory reads, not by device memory.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // keys per kv tile
 constexpr int NTHREADS = 256;     // 16 x 16 thread grid over the tile
-constexpr float NEG_INF = -1e30f; // the TPU kernel's mask value
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ void store8(float* dst, const float* v) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -84,8 +44,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int sq, int sk, int h, int kvh, int offset, int causal,
-                 float scale) {
+                 float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                 int offset, int causal, float scale) {
   static_assert(BQ == BK && BQ == 64, "thread mapping assumes 64 x 64 tiles");
   constexpr int DP = D + 4;       // padded row stride: conflict-free float4 reads
   constexpr int NG = D / 64;      // float4 column groups per thread in P.V
@@ -252,6 +212,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();   // row_l final (also covers the no-tile case)
 
+  if (lse != nullptr && tid < BQ && q0 + tid < sq) {
+    const float l = row_l[tid];
+    lse[(long)bh * sq + q0 + tid] = row_m[tid] + logf(l == 0.f ? 1.f : l);
+  }
+
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -268,8 +233,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kvh, int offset, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int kvh, int offset, int causal,
            float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -279,27 +244,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + BQ - 1) / BQ, b * h);
   flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kvh, offset,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, kvh,
+      offset, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16; lse: null, or (b, h, sq) f32. Returns
+// a cudaError_t code (0 = ok).
 extern "C" int ray_flash_attention_fwd(const void* q, const void* k,
-                                       const void* v, void* o, int b, int sq,
-                                       int sk, int h, int kvh, int d,
-                                       int offset, int causal, float scale,
-                                       int dtype, void* stream) {
+                                       const void* v, void* o, void* lse,
+                                       int b, int sq, int sk, int h, int kvh,
+                                       int d, int offset, int causal,
+                                       float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, o, b, sq, sk, h, kvh, offset, causal, scale, s);
+    return launch<float, 128>(q, k, v, o, l, b, sq, sk, h, kvh, offset, causal, scale, s);
   if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, o, b, sq, sk, h, kvh, offset, causal, scale, s);
+    return launch<float, 64>(q, k, v, o, l, b, sq, sk, h, kvh, offset, causal, scale, s);
   if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, b, sq, sk, h, kvh, offset, causal, scale, s);
+    return launch<__nv_bfloat16, 128>(q, k, v, o, l, b, sq, sk, h, kvh, offset, causal, scale, s);
   if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, b, sq, sk, h, kvh, offset, causal, scale, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, o, l, b, sq, sk, h, kvh, offset, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-"""Llama-family decoder as a PyTorch ``nn.Module`` (inference forward).
+"""Llama-family decoder as a PyTorch ``nn.Module``, forward and loss.
 
 Counterpart of ``ray_tpu/models/llama.py``: the same config fields and
 presets, the same layer (``attn_norm``, ``wq/wk/wv/wo``, ``mlp_norm``,
@@ -6,8 +6,15 @@ presets, the same layer (``attn_norm``, ``wq/wk/wv/wo``, ``mlp_norm``,
 tables computed once per forward, rotate-half RoPE in the working dtype).
 Projections are ``nn.Linear`` in the (out, in) layout; the weight bridge
 (``ray_tpu_torch/bridge.py``) is the one place that transposes from the
-JAX package's ``x @ W`` layout. Remat, meshes and losses belong to the
-training slice.
+JAX package's ``x @ W`` layout.
+
+Training: ``forward_hidden``/``forward``/``loss_fn`` are differentiable
+(inference callers hold their own ``no_grad``); per-layer remat is
+``torch.utils.checkpoint`` for ``remat_policy="full"`` (the JAX default)
+and none for ``remat=False``/``"none"``; the masked ``cross_entropy``
+and the chunked, per-chunk-checkpointed ``fused_cross_entropy``
+(``ce_chunk > 0``) are the JAX package's. Meshes and the ``"dots"`` /
+``"attn"`` remat policies are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
 
@@ -35,7 +43,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     # training knobs of the JAX package, kept field for field so configs
-    # cross unchanged; the inference forward does not read them
+    # cross unchanged (attn_block_q/k size the TPU kernel's tiles and are
+    # not read here)
     remat: bool = True
     remat_policy: str = "full"
     logits_dtype: str = "float32"
@@ -54,6 +63,14 @@ class LlamaConfig:
         per_layer = d * h * hd + 2 * d * kvh * hd + h * hd * d \
             + 3 * d * f + 2 * d
         return v * d + self.n_layers * per_layer + d + d * v
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Training FLOPs/token (fwd+bwd ~ 6*N plus attention term), as
+        the JAX package counts them: the embedding is a gather and
+        rematerialised forwards are not counted."""
+        n_matmul = self.num_params() - self.vocab_size * self.dim
+        attn = 12 * self.n_layers * self.dim * seq_len
+        return 6.0 * n_matmul + attn
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -150,15 +167,25 @@ def empty_model(cfg: LlamaConfig, device: Union[str, torch.device],
     return model.requires_grad_(False)
 
 
+def finish(model: Llama, trainable: bool) -> Llama:
+    """A filled model, for inference (``.eval()``, no parameter requires
+    grad) or, with ``trainable``, for training (every parameter requires
+    grad, ``.train()``)."""
+    model.requires_grad_(trainable)
+    return model.train() if trainable else model.eval()
+
+
 @torch.no_grad()
 def init_params(generator: torch.Generator, cfg: LlamaConfig,
                 device: Union[str, torch.device, None] = None,
-                dtype: Optional[torch.dtype] = None) -> Llama:
+                dtype: Optional[torch.dtype] = None, *,
+                trainable: bool = False) -> Llama:
     """Random weights as ``ray_tpu.models.llama.init_params`` draws them:
     normal(0, 1) * fan_in^-0.5 in f32, cast to the model dtype; norms at
     one. ``device=None`` is the CUDA device, and raises when there is
     none; ``generator`` must live on the same kind of device. The numbers
-    differ from jax.random's for the same seed."""
+    differ from jax.random's for the same seed. ``trainable=True`` gives
+    a model for training (the numbers drawn are the same)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, weights on "
@@ -182,7 +209,7 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
             lin.weight.copy_(draw(lin.weight.shape[::-1], fan_in).t())
     model.final_norm.fill_(1.0)
     model.lm_head.weight.copy_(draw((d, cfg.vocab_size), d).t())
-    return model.eval()
+    return finish(model, trainable)
 
 
 # --- forward -----------------------------------------------------------------
@@ -212,34 +239,136 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-@torch.no_grad()
-def forward_hidden(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+def _remat(cfg: LlamaConfig) -> bool:
+    """Whether each layer is rematerialised on backward (``_remat`` of
+    the JAX package): ``"full"`` recomputes the whole layer, ``"none"``
+    or ``remat=False`` saves its activations."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return False
+    if cfg.remat_policy == "full":
+        return True
+    if cfg.remat_policy in ("dots", "attn"):
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet "
+            "(ROADMAP.md, Queue 1); use 'full' or 'none'")
+    raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r}")
+
+
+def _layer(lyr: LlamaLayer, x: torch.Tensor, rc: torch.Tensor,
+           rs: torch.Tensor, cfg: LlamaConfig, impl: str) -> torch.Tensor:
+    from ray_tpu_torch.ops.attention import attention
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    y = _rmsnorm(x, lyr.attn_norm, cfg.norm_eps)
+    q = _rope(lyr.wq(y).view(b, s, h, hd), rc, rs)
+    k = _rope(lyr.wk(y).view(b, s, kvh, hd), rc, rs)
+    v = lyr.wv(y).view(b, s, kvh, hd)
+    o = attention(q, k, v, causal=True, impl=impl).to(x.dtype)
+    x = x + lyr.wo(o.reshape(b, s, h * hd))
+    return x + lyr.mlp(x, cfg.norm_eps)
+
+
+def forward_hidden(model: Llama, tokens: torch.Tensor,
+                   cfg: Optional[LlamaConfig] = None) -> torch.Tensor:
     """tokens: (batch, seq) int -> final normed hidden states
     (batch, seq, dim). Causal attention through ``ops.attention`` with
-    ``cfg.attn_impl`` ('ring' is a training layout: 'auto' here)."""
-    from ray_tpu_torch.ops.attention import attention
-    cfg = model.cfg
+    ``cfg.attn_impl`` ('ring' is a training layout: 'auto' here).
+    ``cfg`` defaults to ``model.cfg``. With grad enabled, each layer is
+    rematerialised per ``cfg.remat``/``cfg.remat_policy``."""
+    cfg = model.cfg if cfg is None else cfg
     b, s = tokens.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     impl = "auto" if cfg.attn_impl == "ring" else cfg.attn_impl
+    remat = torch.is_grad_enabled() and _remat(cfg)
     x = model.embed(tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    rc, rs = _rope_tables(positions, hd, cfg.rope_theta)
+    rc, rs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for lyr in model.layers:
-        y = _rmsnorm(x, lyr.attn_norm, cfg.norm_eps)
-        q = _rope(lyr.wq(y).view(b, s, h, hd), rc, rs)
-        k = _rope(lyr.wk(y).view(b, s, kvh, hd), rc, rs)
-        v = lyr.wv(y).view(b, s, kvh, hd)
-        o = attention(q, k, v, causal=True, impl=impl).to(x.dtype)
-        x = x + lyr.wo(o.reshape(b, s, h * hd))
-        x = x + lyr.mlp(x, cfg.norm_eps)
+        if remat:
+            x = checkpoint(_layer, lyr, x, rc, rs, cfg, impl,
+                           use_reentrant=False)
+        else:
+            x = _layer(lyr, x, rc, rs, cfg, impl)
     return _rmsnorm(x, model.final_norm, cfg.norm_eps)
 
 
-@torch.no_grad()
-def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+def forward(model: Llama, tokens: torch.Tensor,
+            cfg: Optional[LlamaConfig] = None) -> torch.Tensor:
     """tokens: (batch, seq) int -> logits (batch, seq, vocab) in
     ``cfg.logits_dtype``."""
-    x = forward_hidden(model, tokens)
-    return model.lm_head(x).to(getattr(torch, model.cfg.logits_dtype))
+    cfg = model.cfg if cfg is None else cfg
+    x = forward_hidden(model, tokens, cfg)
+    return model.lm_head(x).to(getattr(torch, cfg.logits_dtype))
+
+
+# --- loss --------------------------------------------------------------------
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood, f32: max/exp in the logits
+    dtype, the sum and the final log in f32."""
+    m = logits.max(dim=-1, keepdim=True).values
+    sumexp = torch.exp(logits - m).sum(dim=-1, dtype=torch.float32)
+    logz = m[..., 0].float() + torch.log(sumexp)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz - gold.float()
+
+
+def cross_entropy(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Masked token cross-entropy (mean over the mask, or over every
+    token without one)."""
+    nll = _nll(logits, batch["targets"])
+    mask = batch.get("mask")
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _ce_chunk(x, lm_head, targets, mask, dtype):
+    nll = _nll(lm_head(x).to(dtype), targets)
+    return (nll * mask).sum(), mask.sum()
+
+
+def fused_cross_entropy(x: torch.Tensor, lm_head: nn.Linear, batch: dict,
+                        chunk: int, logits_dtype: str) -> torch.Tensor:
+    """Chunked logits-free cross-entropy: each (b, chunk, dim) slice of
+    the hidden states is projected to (b, chunk, vocab), reduced to the
+    masked NLL sum and dropped; with grad, each chunk is checkpointed and
+    recomputed on backward, so the live logits are one chunk's."""
+    b, s, _ = x.shape
+    dtype = getattr(torch, logits_dtype)
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    mask = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+            if mask is None else mask.float())
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        args = (x[:, i:i + chunk], lm_head, targets[:, i:i + chunk],
+                mask[:, i:i + chunk], dtype)
+        if torch.is_grad_enabled():
+            t, c = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            t, c = _ce_chunk(*args)
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(model: Llama, batch: dict,
+            cfg: Optional[LlamaConfig] = None) -> torch.Tensor:
+    """batch: {"tokens": (b, s), "targets": (b, s), "mask": optional}
+    -> the scalar f32 loss. ``cfg`` defaults to ``model.cfg``."""
+    cfg = model.cfg if cfg is None else cfg
+    s = batch["tokens"].shape[1]
+    if cfg.ce_chunk > 0:
+        if s % cfg.ce_chunk:
+            # silently materializing the full logits here would undo
+            # the exact memory saving the flag was set for
+            raise ValueError(
+                f"ce_chunk={cfg.ce_chunk} must divide seq len {s}")
+        if s > cfg.ce_chunk:
+            x = forward_hidden(model, batch["tokens"], cfg)
+            return fused_cross_entropy(x, model.lm_head, batch,
+                                       cfg.ce_chunk, cfg.logits_dtype)
+        # s == ce_chunk: one chunk IS the full logits — classic path
+    return cross_entropy(forward(model, batch["tokens"], cfg), batch)

@@ -2,8 +2,10 @@
 
 Each source in ``ray_tpu_torch/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, then loaded
-with ctypes. The build runs at first use, into ``ray_tpu_torch/_build/``
-(listed in ``.gitignore``), and is reused while the source's hash is
+with ctypes; one source may hold several kernels' entry points (the
+backward pair K2/K3). The build runs at first use, into
+``ray_tpu_torch/_build/`` (listed in ``.gitignore``), and is reused while
+the hash of the source and the shared headers (``csrc/*.cuh``) is
 unchanged. Nothing here runs at import time: a CPU-only install imports
 the port without a CUDA toolkit, and only a kernel launch on a CUDA
 tensor reaches the build. A build that fails raises; there is no
@@ -26,17 +28,31 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 
-# the kernels' C entry points: (name, argtypes as ctypes types)
+# the kernels' C entry points: name -> (source stem in csrc/, symbol,
+# argtypes as ctypes types)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 SIGNATURES = {
     "flash_attention_fwd": (
-        "ray_flash_attention_fwd",
-        # q, k, v, o, b, sq, sk, h, kvh, d, offset, causal, scale, dtype, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+        "flash_attention_fwd", "ray_flash_attention_fwd",
+        # q, k, v, o, lse, b, sq, sk, h, kvh, d, offset, causal, scale,
+        # dtype, stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "flash_attention_bwd_dkv": (
+        "flash_attention_bwd", "ray_flash_attention_bwd_dkv",
+        # q, k, v, do, lse, delta, dk, dv, b, sq, sk, h, kvh, d, offset,
+        # causal, scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _F, _I, _P]),
+    "flash_attention_bwd_dq": (
+        "flash_attention_bwd", "ray_flash_attention_bwd_dq",
+        # q, k, v, do, lse, delta, dq, b, sq, sk, h, kvh, d, offset,
+        # causal, scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
          _I, _P]),
     "paged_attention": (
-        "ray_paged_attention",
+        "paged_attention", "ray_paged_attention",
         # q, k_pool, v_pool, tables, lengths, out, slots, kvh, g, hd, bs,
         # width, dtype, stream
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -56,15 +72,20 @@ def _nvcc() -> str:
 
 
 def source(name: str) -> Path:
-    return CSRC / f"{name}.cu"
+    """The ``.cu`` source that holds kernel ``name``'s entry point."""
+    return CSRC / f"{SIGNATURES[name][0]}.cu"
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``name`` lives: keyed by the source's hash and
-    the target, so an edited source never reuses a stale library."""
-    h = hashlib.sha256(source(name).read_bytes())
+    """Where the build of kernel ``name``'s source lives: keyed by the
+    hash of the source, the shared headers and the target, so an edited
+    source or header never reuses a stale library."""
+    src = source(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(ARCH.encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:
@@ -84,15 +105,18 @@ class _Loader:
         self._libs: Dict[str, ctypes.CDLL] = {}
 
     def build(self, names: Iterable[str]) -> Dict[str, str]:
-        """Compile every listed kernel whose library is missing, all
-        nvcc processes started together. Returns each name's ptxas
-        report (empty when the build was reused)."""
+        """Compile the source of every listed kernel whose library is
+        missing, one nvcc per source, all started together. Returns each
+        source stem's ptxas report (empty when the build was reused)."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         reports = {}
         for name in names:
+            stem = source(name).stem
             out = library_path(name)
-            reports[name] = ""
+            if stem in reports:
+                continue
+            reports[stem] = ""
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -107,13 +131,13 @@ class _Loader:
                 raise KernelBuildError(
                     f"nvcc not found ({cmd[0]}): the CUDA kernels need "
                     "the CUDA toolkit") from e
-            procs[name] = (out, tmp, proc)
+            procs[stem] = (out, tmp, proc)
         failed = []
-        for name, (out, tmp, proc) in procs.items():
+        for stem, (out, tmp, proc) in procs.items():
             log, _ = proc.communicate()
-            reports[name] = log
+            reports[stem] = log
             if proc.returncode != 0:
-                failed.append(f"{name}:\n{log}")
+                failed.append(f"{stem}:\n{log}")
                 continue
             os.replace(tmp, out)
         if failed:
@@ -121,19 +145,21 @@ class _Loader:
         return reports
 
     def load(self, name: str) -> ctypes.CDLL:
-        lib = self._libs.get(name)
+        stem = SIGNATURES[name][0]
+        lib = self._libs.get(stem)
         if lib is not None:
             return lib
         with self._lock:
-            lib = self._libs.get(name)
+            lib = self._libs.get(stem)
             if lib is None:
                 self.build([name])
                 lib = ctypes.CDLL(str(library_path(name)))
-                sym, argtypes = SIGNATURES[name]
-                fn = getattr(lib, sym)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                self._libs[name] = lib
+                for src, sym, argtypes in SIGNATURES.values():
+                    if src == stem:
+                        fn = getattr(lib, sym)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                self._libs[stem] = lib
         return lib
 
 
@@ -143,11 +169,12 @@ LOADER = _Loader()
 def kernel(name: str):
     """The C entry point of kernel ``name``, built and loaded on first
     use."""
-    return getattr(LOADER.load(name), SIGNATURES[name][0])
+    return getattr(LOADER.load(name), SIGNATURES[name][1])
 
 
 def build_all() -> Dict[str, str]:
-    """Build every kernel source in parallel (one nvcc each)."""
+    """Build every kernel source in parallel (one nvcc each); returns
+    each source stem's ptxas report."""
     return LOADER.build(SIGNATURES)
 
 

@@ -1,12 +1,12 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-version.
+"""Flash attention: the hand-written CUDA kernels and their plain
+versions.
 
-Replaces the Pallas TPU kernel ``_fwd_kernel`` of
-``ray_tpu/ops/pallas/flash_attention.py`` (driven by
-``flash_attention_fwd``), inference path only: no lse output, no
-backward (the backward pair belongs to the training slice).
+Replaces the Pallas TPU kernels of ``ray_tpu/ops/pallas/flash_attention.py``:
+``_fwd_kernel`` (K1, driven by ``flash_attention_fwd``, with the lse
+output the training forward saves) and the backward pair ``_dkv_kernel``
+(K2) and ``_dq_kernel`` (K3), driven by ``flash_attention_bwd``.
 
-The kernel (``csrc/flash_attention_fwd.cu``): one thread block per
+K1 (``csrc/flash_attention_fwd.cu``): one thread block per
 (q tile of 64 rows, batch*head), a loop over 64-key tiles that stops at
 the last tile the causal diagonal reaches, K/V tiles staged in shared
 memory, scores and the online-softmax state in f32. Query head h reads
@@ -19,9 +19,17 @@ bytes are small (a 512-token Llama-3-8B layer moves ~10.5 MB, ~3 us at
 memory, so it is bound by FMA issue and shared-memory reads, far above
 either bound; ``wgmma``/TMA tiles are the next step.
 
-``mha_reference`` is the plain version: the CPU path of
-``flash_attention`` and the yardstick the kernel is held against on the
-card.
+K2 and K3 (``csrc/flash_attention_bwd.cu``): one block per (kv tile,
+kv head, batch) that loops over its query heads and q tiles and sums dK
+and dV for the group in registers; one block per (q tile, query head,
+batch) that loops over kv tiles for dQ. Same f32 FMA design as K1; the
+source's note gives their bounds.
+
+Plain versions, the CPU path of each wrapper and the yardstick each
+kernel is held against on the card: ``mha_reference`` (K1 without lse),
+``flash_attention_fwd_reference`` (K1 with lse),
+``flash_attention_bwd_dkv_reference``/``flash_attention_bwd_dq_reference``
+(K2/K3) and ``flash_attention_bwd_reference`` (the whole backward).
 """
 
 from __future__ import annotations
@@ -72,16 +80,62 @@ def mha_reference(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        sm_scale: Optional[float] = None,
-                        q_offset: Optional[int] = None) -> torch.Tensor:
-    """q: (b, sq, h, d); k/v: (b, sk, kvh, d) -> (b, sq, h, d) in q's
-    dtype. On CUDA tensors the kernel runs (or this raises); on CPU
-    tensors the plain version runs."""
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
-                             q_offset=q_offset)
+def _keep_mask(sq: int, sk: int, causal: bool, offset: int,
+               device) -> torch.Tensor:
+    """(sq, sk) bool: key j is kept for query i (j <= i + offset when
+    causal)."""
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    return torch.tril(keep, diagonal=offset) if causal else keep
+
+
+def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q' = q * sm_scale rounded to q's dtype, as the kernels (and the
+    TPU kernels) fold the scale into q; returned in f32."""
+    return (q.float() * scale).to(q.dtype).float()
+
+
+def flash_attention_fwd_reference(q, k, v, *, causal: bool = True,
+                                  sm_scale: Optional[float] = None,
+                                  q_offset: Optional[int] = None):
+    """K1's arithmetic with the lse output, written out: s = q'k^T with
+    q' = q * sm_scale rounded to q's dtype, an f32 softmax, o in q's
+    dtype and lse = logsumexp_j s_ij, (b, h, sq) f32. A row that keeps no
+    key gives o = 0 and lse = -1e30, as the kernel does."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    offset = (sk - sq) if q_offset is None else int(q_offset)
+    keep = _keep_mask(sq, sk, causal, offset, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", _scaled_q(q, scale),
+                     _repeat_kv(k, h).float())
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
+    lse = torch.logsumexp(s, dim=-1)
+    rows = keep.any(dim=-1)
+    p = torch.where(rows[:, None], torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    o = torch.einsum("bhqk,bkhd->bqhd", p, _repeat_kv(v, h).float())
+    lse = torch.where(rows, lse, torch.full_like(lse, -1e30))
+    return o.to(q.dtype), lse
+
+
+def _check_operands(names, tensors, like: torch.Tensor) -> None:
+    """The kernels take contiguous, 16-byte aligned tensors of ``like``'s
+    dtype (float32 or bfloat16) on ``like``'s device."""
+    if like.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16 operands of one "
+                        f"dtype, got {like.dtype}")
+    for name, t in zip(names, tensors):
+        if t.dtype != like.dtype:
+            raise TypeError(f"kernel takes {name} of one dtype with q, got "
+                            f"{t.dtype} and {like.dtype}")
+        if t.device != like.device:
+            raise ValueError(f"{name} on {t.device}, q on {like.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _check_shapes(q, k, v) -> None:
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape:
@@ -89,42 +143,224 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"do not match q {tuple(q.shape)}")
     if h % kvh:
         raise ValueError(f"num_heads {h} not divisible by kv_heads {kvh}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte "
-                             "aligned")
+
+
+def _check_lse(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    b, sq, h, _ = q.shape
+    if t.shape != (b, h, sq) or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be (b, h, sq) = {(b, h, sq)} "
+                         f"float32, got {tuple(t.shape)} {t.dtype}")
+    if t.device != q.device or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {q.device}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        q_offset: Optional[int] = None,
+                        with_lse: bool = False):
+    """q: (b, sq, h, d); k/v: (b, sk, kvh, d) -> o (b, sq, h, d) in q's
+    dtype, or ``(o, lse)`` with ``with_lse`` (lse (b, h, sq) f32, the
+    backward's residual). On CUDA tensors the kernel runs (or this
+    raises); on CPU tensors the plain version runs."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_fwd_reference(
+                q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                             q_offset=q_offset)
+    _check_shapes(q, k, v)
+    _check_operands(("q", "k", "v"), (q, k, v), q)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     if b * h > 65535:
         raise ValueError(f"batch*heads {b * h} exceeds the grid limit")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if sq == 0 or b == 0:
-        return out
+        return (out, lse) if with_lse else out
     scale = sm_scale if sm_scale is not None else d ** -0.5
     offset = (sk - sq) if q_offset is None else int(q_offset)
     fn = _build.kernel("flash_attention_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None,
              b, sq, sk, h, kvh, d, offset, int(bool(causal)),
              float(scale), _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    if with_lse:
+        flash_attention_fwd.lse_launches += 1
+        return out, lse
     return out
 
 
-flash_attention_fwd.launches = 0   # kernel launches, for chip_smoke.py
+# kernel launches, for chip_smoke.py; lse_launches counts those of them
+# that wrote lse (the training forward)
+flash_attention_fwd.launches = 0
+flash_attention_fwd.lse_launches = 0
+
+
+# --- backward (K2, K3) ------------------------------------------------------
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * o) in f32, (b, h, sq): the backward's per-row
+    term, a plain tensor op outside the kernels as in the JAX package."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, scale, causal):
+    """The backward's materialised (b, h, sq, sk) f32 p and dS, with the
+    causal diagonal at sk - sq; p is 0 off the kept pairs."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    keep = _keep_mask(sq, sk, causal, sk - sq, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", _scaled_q(q, scale),
+                     _repeat_kv(k, h).float())
+    p = torch.where(keep, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(),
+                      _repeat_kv(v, h).float())
+    return p, p * (dp - delta[..., None])
+
+
+def _group_sum(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(b, s, h, d) per query head -> (b, s, kvh, d): the GQA sum over
+    the query heads that share a kv head."""
+    b, s, h, d = x.shape
+    return x.reshape(b, s, kvh, h // kvh, d).sum(3)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, *,
+                                      sm_scale: Optional[float] = None,
+                                      causal: bool = True):
+    """K2's arithmetic written out: dV = p^T dO, dK = dS^T q', each
+    summed over the query heads of its kv head, in k's dtype."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
+    kvh = k.shape[2]
+    dv = _group_sum(torch.einsum("bhqk,bqhd->bkhd", p, do.float()), kvh)
+    dk = _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds,
+                                 _scaled_q(q, scale)), kvh)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, *,
+                                     sm_scale: Optional[float] = None,
+                                     causal: bool = True):
+    """K3's arithmetic written out: dQ = sm_scale * dS k, rounded once to
+    q's dtype."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds,
+                      _repeat_kv(k, q.shape[2]).float()) * scale
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, o, do, lse, *,
+                                  sm_scale: Optional[float] = None,
+                                  causal: bool = True):
+    """The whole backward's plain version -> (dq, dk, dv)."""
+    delta = attention_delta(o, do)
+    kw = dict(sm_scale=sm_scale, causal=causal)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    """Check a backward kernel's operands; -> the shared C arguments."""
+    _check_shapes(q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    _check_operands(("q", "k", "v", "do"), (q, k, v, do), q)
+    _check_lse("lse", lse, q)
+    _check_lse("delta", delta, q)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if max(b, h) > 65535:
+        raise ValueError(f"batch {b} or heads {h} exceed the grid limit")
+    return (b, sq, sk, h, kvh, d, sk - sq)
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
+                            sm_scale: Optional[float] = None,
+                            causal: bool = True):
+    """K2: (dk, dv) in k's dtype and layout. q/do (b, sq, h, d), k/v
+    (b, sk, kvh, d), lse/delta (b, h, sq) f32; the causal diagonal at
+    sk - sq. On CUDA tensors the kernel runs (or this raises); on CPU
+    tensors the plain version runs."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(
+            q, k, v, do, lse, delta, sm_scale=sm_scale, causal=causal)
+    dims = _bwd_args(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if 0 in q.shape or 0 in k.shape:
+        return dk.zero_(), dv.zero_()
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    fn = _build.kernel("flash_attention_bwd_dkv")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             *dims, int(bool(causal)), float(scale), _DTYPES[q.dtype],
+             stream)
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
+                           sm_scale: Optional[float] = None,
+                           causal: bool = True):
+    """K3: dq in q's dtype and layout (arguments as for
+    ``flash_attention_bwd_dkv``)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(
+            q, k, v, do, lse, delta, sm_scale=sm_scale, causal=causal)
+    dims = _bwd_args(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    if 0 in q.shape or 0 in k.shape:
+        return dq.zero_()
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    fn = _build.kernel("flash_attention_bwd_dq")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+             int(bool(causal)), float(scale), _DTYPES[q.dtype], stream)
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dkv.launches = 0   # kernel launches, for chip_smoke.py
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *,
+                        sm_scale: Optional[float] = None,
+                        causal: bool = True):
+    """The attention backward from the forward's residuals (q, k, v, o,
+    lse) and the output cotangent do -> (dq, dk, dv): delta as a tensor
+    op, then K2 and K3 on CUDA tensors (or this raises); the plain
+    versions on CPU tensors."""
+    delta = attention_delta(o, do)
+    kw = dict(sm_scale=sm_scale, causal=causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
 
 
 def work(b: int, sq: int, sk: int, h: int, kvh: int, d: int, itemsize: int,
-         causal: bool = True, q_offset: Optional[int] = None) -> dict:
+         causal: bool = True, q_offset: Optional[int] = None,
+         with_lse: bool = False) -> dict:
     """Bytes and operations one call needs at these shapes: q and o once,
-    the keys/values the causal diagonal reaches once, and 4*d flops per
-    kept (query, key) pair (QK^T and PV)."""
+    the keys/values the causal diagonal reaches once, lse (f32) once when
+    written, and 4*d flops per kept (query, key) pair (QK^T and PV)."""
     offset = (sk - sq) if q_offset is None else int(q_offset)
     if causal:
         pairs = sum(max(0, min(sk, i + offset + 1)) for i in range(sq))
@@ -132,7 +368,29 @@ def work(b: int, sq: int, sk: int, h: int, kvh: int, d: int, itemsize: int,
     else:
         pairs, keys = sq * sk, sk
     nbytes = itemsize * b * d * (2 * sq * h + 2 * keys * kvh)
+    if with_lse:
+        nbytes += 4 * b * h * sq
     return {"bytes": nbytes, "flops": 4 * d * b * h * pairs}
 
 
-__all__ = ["flash_attention_fwd", "mha_reference", "work"]
+def work_bwd(b: int, sq: int, sk: int, h: int, kvh: int, d: int,
+             itemsize: int, causal: bool = True) -> dict:
+    """Bytes and operations of K2 and K3 at these shapes (the causal
+    diagonal at sk - sq, which every key reaches): each reads q, dO, k,
+    v, lse and delta (f32) once; K2 writes dK and dV, K3 writes dQ. Per
+    kept (query, key) pair K2 does 8*d flops (q'k^T, dO v^T, p^T dO,
+    dS^T q') and K3 6*d (q'k^T, dO v^T, dS k)."""
+    pairs = work(b, sq, sk, h, kvh, d, itemsize, causal)["flops"] // (4 * d)
+    rows = itemsize * b * d * 2 * sq * h + 2 * 4 * b * h * sq
+    kv = itemsize * b * d * 2 * sk * kvh     # k, v in; dK, dV out
+    return {"dkv": {"bytes": rows + 2 * kv, "flops": 8 * d * pairs},
+            "dq": {"bytes": rows + kv + itemsize * b * d * sq * h,
+                   "flops": 6 * d * pairs}}
+
+
+__all__ = ["attention_delta", "flash_attention_bwd",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_reference", "flash_attention_fwd",
+           "flash_attention_fwd_reference", "mha_reference", "work",
+           "work_bwd"]

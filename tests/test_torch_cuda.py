@@ -10,7 +10,9 @@ machine need not have). They cover what chip_smoke.py does not: f32
 inputs, head_dim 64, block sizes 8/16/32, group sizes 1-8, and masking
 edge cases. Tolerances: f32 2e-5 (summation order only; TF32 is off);
 bf16 2e-2 absolute + 2e-2 relative (q*scale and the output are rounded
-to bf16 once each).
+to bf16 once each). The backward kernels sum up to g * s products per
+dK/dV entry, so their f32 tolerance is 1e-4; in bf16 each output is
+rounded once on both sides (one bf16 ulp, 2^-8 relative).
 """
 
 import asyncio
@@ -144,3 +146,130 @@ def test_tiny_engine_on_card_matches_cpu(dev):
     on_cpu, hit_cpu = asyncio.run(run(cpu, "cpu"))
     assert on_gpu == on_cpu
     assert hit_gpu == hit_cpu > 0
+
+
+LSE_CASES = [
+    # b, sq, sk, h, kvh, causal
+    (1, 64, 64, 4, 4, True),
+    (2, 100, 100, 8, 2, True),
+    (1, 96, 96, 4, 1, False),
+    (1, 130, 70, 4, 4, True),    # sq > sk: the first rows keep no key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", LSE_CASES,
+                         ids=[str(i) for i in range(len(LSE_CASES))])
+def test_flash_lse_matches_plain(dev, dtype, d, case):
+    """K1 with the lse output against the plain forward with lse: o as
+    above; lse (f32) to 1e-4 absolute (scores of magnitude ~10 summed
+    in another order; q' is rounded the same way on both sides)."""
+    b, sq, sk, h, kvh, causal = case
+    g = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((b, sk, kvh, d), generator=g, device=dev, dtype=dtype)
+    v = torch.randn((b, sk, kvh, d), generator=g, device=dev, dtype=dtype)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.lse_launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_fwd.lse_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(o.float(), o_ref.float(), **TOL[dtype])
+    if sq > sk:
+        assert torch.all(lse[:, :, :sq - sk] == -1e30)
+        assert torch.all(o[:, :sq - sk] == 0)
+
+
+BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+BWD_CASES = [
+    # b, sq, sk, h, kvh, causal
+    (1, 64, 64, 8, 8, True),      # group 1
+    (2, 100, 100, 8, 4, True),    # group 2, ragged
+    (1, 200, 200, 8, 2, False),   # group 4, non-causal, ragged
+    (1, 128, 128, 8, 1, True),    # group 8
+    (1, 96, 40, 4, 2, True),      # sq > sk: fully masked rows
+    (1, 40, 96, 4, 2, True),      # sq < sk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[str(i) for i in range(len(BWD_CASES))])
+def test_flash_bwd_kernels_match_plain(dev, dtype, d, case):
+    """K2 (dk, dv) and K3 (dq) against their plain versions on the same
+    q, k, v, dO and the same lse/delta (from K1)."""
+    b, sq, sk, h, kvh, causal = case
+    g = torch.Generator(device=dev).manual_seed(3 * sq + sk + h + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((b, sk, kvh, d), generator=g, device=dev, dtype=dtype)
+    v = torch.randn((b, sk, kvh, d), generator=g, device=dev, dtype=dtype)
+    do = torch.randn((b, sq, h, d), generator=g, device=dev, dtype=dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+    delta = fa.attention_delta(o, do)
+    before = (fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                        causal=causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk_r, dv_r = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                                      delta, causal=causal)
+    dq_r = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    for got, want in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **BWD_TOL[dtype])
+    if sq > sk:
+        assert torch.all(dq[:, :sq - sk] == 0)
+
+
+def test_tiny_train_step_on_card_matches_cpu(dev):
+    """Three steps of make_train_step on the card (K1 with lse, K2, K3
+    under full remat) against the same steps on the CPU's plain
+    versions: f32 weights, so losses and grad norms agree to 1e-4."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import default_optimizer, make_train_step
+    cfg = llama.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                     n_kv_heads=2, ffn_dim=512, dtype="float32")
+    opt = default_optimizer(learning_rate=1e-2, warmup_steps=1,
+                            total_steps=10)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (2, 96)).astype(np.int64)
+    batch = {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+    hist = {}
+    for device in ("cpu", dev):
+        init_fn, step_fn = make_train_step(cfg, device=device, optimizer=opt)
+        cpu = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu",
+                                trainable=True)
+        model = llama.empty_model(cfg, device)
+        model.load_state_dict(cpu.state_dict())
+        state = init_fn(params=llama.finish(model, True))
+        counts = (fa.flash_attention_fwd.lse_launches,
+                  fa.flash_attention_bwd_dkv.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        hist[str(device)] = []
+        for _ in range(3):
+            state, m = step_fn(state, batch)
+            hist[str(device)].append((m["loss"].item(),
+                                      m["grad_norm"].item()))
+        launched = (fa.flash_attention_fwd.lse_launches - counts[0],
+                    fa.flash_attention_bwd_dkv.launches - counts[1],
+                    fa.flash_attention_bwd_dq.launches - counts[2])
+        want = (12, 6, 6) if device != "cpu" else (0, 0, 0)
+        assert launched == want, (device, launched)
+    np.testing.assert_allclose(np.array(hist[str(dev)]),
+                               np.array(hist["cpu"]), rtol=1e-4)

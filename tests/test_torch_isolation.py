@@ -19,8 +19,10 @@ from ray_tpu_torch.llm import kvcache
 from ray_tpu_torch.llm.engine import LLMEngine
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
+from ray_tpu_torch.parallel import make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
@@ -28,7 +30,8 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.ops.flash_attention",
                 "ray_tpu_torch.ops.paged_attention",
                 "ray_tpu_torch.llm.model", "ray_tpu_torch.llm.kvcache",
-                "ray_tpu_torch.llm.engine"]
+                "ray_tpu_torch.llm.engine", "ray_tpu_torch.parallel",
+                "ray_tpu_torch.parallel.mesh"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -78,10 +81,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_model_entry_points_default_to_cuda(monkeypatch):
-    """``init_params`` and ``params_from_numpy`` without ``device=`` build
-    on the card, so with no CUDA they raise instead of building a CPU
-    model; a generator on another kind of device than the weights is
-    refused."""
+    """``init_params``, ``params_from_numpy`` and ``make_train_step``'s
+    ``init_fn`` without ``device=`` build on the card, so with no CUDA
+    they raise instead of building a CPU model; a generator on another
+    kind of device than the weights is refused."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama.tiny(dtype="float32", n_layers=1)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -90,6 +93,11 @@ def test_model_entry_points_default_to_cuda(monkeypatch):
         llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         bridge.params_from_numpy(tree, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.params_from_numpy(tree, cfg, trainable=True)
+    init_fn, _ = make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_fn(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="generator"):
         llama.init_params(torch.Generator().manual_seed(0), cfg, "meta")
 
@@ -130,6 +138,20 @@ def test_wrappers_never_fall_back_off_cpu(monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError):
         paged_attention(qd, pool, pool, tables, lengths)
     assert paged_attention.launches == before
+    # the training path: K1 with lse under autograd, K2 and K3
+    qg = torch.empty((1, 8, 2, 64), device="meta", requires_grad=True)
+    with pytest.raises(_build.KernelBuildError):
+        flash_attention(qg, q, q)
+    lse = torch.empty((1, 2, 8), device="meta")
+    before = (fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
+    for kernel in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
+        with pytest.raises(_build.KernelBuildError):
+            kernel(q, q, q, q, lse, lse)
+    with pytest.raises(_build.KernelBuildError):
+        fa.flash_attention_bwd(q, q, q, q, q, lse)
+    assert (fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches) == before
 
 
 def test_wrapper_checks_shapes_and_dtypes():
@@ -148,3 +170,8 @@ def test_wrapper_checks_shapes_and_dtypes():
         paged_attention(qd, pool, pool, tables, lengths)
     with pytest.raises(TypeError, match="int32"):
         paged_attention(qd, pool, pool, tables.long(), lengths)
+    lse = torch.empty((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match=r"lse must be \(b, h, sq\)"):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse[:, :1], lse)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_bwd_dkv(q, q, q, q.bfloat16(), lse, lse)

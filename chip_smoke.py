@@ -5,7 +5,9 @@ card and check them.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel from ray_tpu_torch/csrc with nvcc, in parallel;
+  2. build every kernel from ray_tpu_torch/csrc with nvcc, in parallel,
+     and count the tensor-core (HGMMA) instructions in each kernel's SASS:
+     the bf16 K1 and K2 must have some;
   3. each serving kernel (K1, K4) against its plain PyTorch version on
      the card, at the serving path's shapes, with its time beside the
      plain version's, a library call's where one computes the same
@@ -17,7 +19,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      traced for the device's busy share;
   5. the training kernels (K1 with lse, K2, K3) against their plain
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
-     timed beside the plain versions, SDPA and their bounds;
+     timed beside the plain versions, SDPA and their bounds (ms and
+     TF/s), and K2 twice on the same inputs (bitwise equal);
   6. a 2-layer full-width model's loss and gradients through the kernels
      against the same through plain attention;
   7. make_train_step on Llama-3-8B at full width cut to 8 layers (bf16,
@@ -124,6 +127,37 @@ def bound_ms(work: dict):
                                  "operations")
 
 
+# kernel -> (a substring of the mangled names of its bf16 kernel
+# functions, whether they must run on the tensor cores)
+KERNEL_FUNCTIONS = {
+    "flash_attention_fwd": ("flash_fwd_kernel_wgmma", True),
+    "flash_attention_bwd_dkv": ("flash_dkv_kernel_wgmma", True),
+    "flash_attention_bwd_dq": ("flash_dq_kernelI13__nv_bfloat16", False),
+    "paged_attention": ("paged_decode_kernelI13__nv_bfloat16", False),
+}
+
+
+def check_sass(_build) -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each kernel's bf16
+    functions, from cuobjdump of the built libraries. Fails when a bf16
+    K1 or K2 function has none: it would not run on the tensor cores."""
+    out = {}
+    for name, (key, wgmma) in KERNEL_FUNCTIONS.items():
+        per = {f: n for f, n in _build.sass_counts(name).items() if key in f}
+        counts = sorted(per.values())
+        print(f"SASS {name}: HGMMA in its {len(per)} bf16 functions "
+              f"{counts}")
+        if not per or (wgmma and min(counts) <= 0):
+            raise SystemExit(f"{name}: a bf16 function lacks HGMMA: {per}")
+        out[name] = {"bf16": "wgmma" if wgmma else "FMA loops",
+                     "hgmma_in_sass": counts}
+    return out
+
+
+def tflops(work: dict, ms: float) -> float:
+    return work["flops"] / ms / 1e9
+
+
 def check_flash(fa, gen) -> dict:
     """K1 on the slice's shapes: prefill buckets (64, a ragged 100, 512)
     and chunked prefill (512 queries against the 1536-long accumulator
@@ -175,13 +209,16 @@ def check_flash(fa, gen) -> dict:
                        - want.float()).abs().max().item()
             if lib_err > 0.1:
                 raise SystemExit(f"SDPA yardstick disagrees: {lib_err}")
-            b, by = bound_ms(fa.work(1, sq, sk, h, kvh, d, 2))
+            w = fa.work(1, sq, sk, h, kvh, d, 2)
+            b, by = bound_ms(w)
             timed = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
                          library_ms=time_ms(library), bound_ms=b,
                          bound_by=by)
-            print(f"K1 flash s=512: kernel {timed['ms']:.4f} ms, plain "
+            print(f"K1 flash s=512: kernel {timed['ms']:.4f} ms "
+                  f"({tflops(w, timed['ms']):.1f} TF/s), plain "
                   f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f}"
-                  f" ms, bound {b:.4f} ms ({by})")
+                  f" ms ({tflops(w, timed['library_ms']):.1f} TF/s), bound "
+                  f"{b:.4f} ms ({by})")
         if off is not None:
             b, by = bound_ms(fa.work(1, sq, sk, h, kvh, d, 2, q_offset=off))
             print(f"K1 flash chunk sq={sq} sk={sk} q_offset={off}: kernel "
@@ -372,8 +409,14 @@ def breakdown(model, cfg, card: str) -> None:
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
         idle = f"{1 - busy / wall:.3f}" if busy else "not measured"
+        attn = {"K1": sum(v for k, v in kernels.items()
+                          if _kernel_kind(k) == "K1"),
+                "K4": sum(v for k, v in kernels.items()
+                          if "paged_decode_kernel" in k)}
         print(f"{name} [{card}]: host wall {wall:.3f} ms, device busy "
-              f"{busy:.3f} ms, device idle share {idle}; top kernels (ms): "
+              f"{busy:.3f} ms, device idle share {idle}; attention (ms): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in attn.items())
+              + "; top kernels (ms): "
               + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
 
 
@@ -416,8 +459,11 @@ def check_train_kernels(fa, gen) -> dict:
             return fa.flash_attention_bwd_dq_reference(*args, **kw)
 
         (dk, dv), (dk_r, dv_r) = k2(), k2_plain()
+        dk2, dv2 = k2()
         dq, dq_r = k3(), k3_plain()
         torch.cuda.synchronize()
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise SystemExit("K2 launched twice gave different dK/dV")
         errs = {
             "fwd": (row_rel(o, o_r), (lse - lse_r).abs().max().item(),
                     (o.float() - o_r.float()).abs().max().item()),
@@ -477,14 +523,24 @@ def check_train_kernels(fa, gen) -> dict:
         timed["dq"] = dict(ms=time_ms(k3, iters=5),
                            plain_ms=time_ms(k3_plain, iters=5),
                            library_ms=sdpa_bwd)
+        # SDPA's backward does K2's and K3's work in one call
+        w_sdpa = {"flops": wb["dkv"]["flops"] + wb["dq"]["flops"]}
         for name, w in (("fwd", w1), ("dkv", wb["dkv"]), ("dq", wb["dq"])):
             bms, by = bound_ms(w)
             timed[name].update(bound_ms=bms, bound_by=by)
             t = timed[name]
+            lib_w = w1 if name == "fwd" else w_sdpa
+            t["tflops"] = dict(kernel=tflops(w, t["ms"]),
+                               plain=tflops(w, t["plain_ms"]),
+                               library=tflops(lib_w, t["library_ms"]),
+                               bound=tflops(w, bms))
+            tf = t["tflops"]
             print(f"train kernel {name} b=1 s=4096 causal: kernel "
-                  f"{t['ms']:.4f} ms ({w['flops'] / t['ms'] / 1e9:.1f} "
-                  f"TF/s), plain {t['plain_ms']:.4f} ms, SDPA "
-                  f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+                  f"{t['ms']:.4f} ms ({tf['kernel']:.1f} TF/s), plain "
+                  f"{t['plain_ms']:.4f} ms ({tf['plain']:.1f} TF/s), SDPA "
+                  f"{t['library_ms']:.4f} ms ({tf['library']:.1f} TF/s"
+                  f"{'' if name == 'fwd' else ' over dQ, dK and dV'}), "
+                  f"bound {bms:.4f} ms ({by}, {tf['bound']:.1f} TF/s)")
         print(f"  SDPA backward (dQ, dK, dV together) {sdpa_bwd:.4f} ms vs "
               f"K2 + K3 {timed['dkv']['ms'] + timed['dq']['ms']:.4f} ms; "
               f"SDPA vs plain dQ/dK relative L2 {lib_err:.3e}")
@@ -687,11 +743,13 @@ def main() -> int:
 
     t0 = time.monotonic()
     reports = _build.build_all()
-    print(f"build: {len(reports)} kernels in {time.monotonic() - t0:.1f} s")
+    print(f"build: {len(reports)} kernel sources in "
+          f"{time.monotonic() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass = check_sass(_build)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_flash(fa, gen)
@@ -712,6 +770,7 @@ def main() -> int:
                  "compare it with K2 ms + K3 ms")
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
+             tensor_cores=sass["flash_attention_fwd"],
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:79",
              launches=launches["flash_attention_fwd"]
@@ -725,6 +784,7 @@ def main() -> int:
              card=card, train_per_launch_ms=train["per_launch_ms"].get("K1"),
              serving=dict(at="s=512 causal, no lse", **k1), **tk["fwd"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
+             tensor_cores=sass["flash_attention_bwd_dkv"],
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:212",
              launches=tl["flash_attention_bwd_dkv"],
@@ -733,6 +793,7 @@ def main() -> int:
              train_per_launch_ms=train["per_launch_ms"].get("K2"),
              **tk["dkv"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
+             tensor_cores=sass["flash_attention_bwd_dq"],
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:263",
              launches=tl["flash_attention_bwd_dq"],
@@ -741,6 +802,7 @@ def main() -> int:
              train_per_launch_ms=train["per_launch_ms"].get("K3"),
              **tk["dq"]),
         dict(name="paged_attention", route="cuda",
+             tensor_cores=sass["paged_attention"],
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/pallas/paged_attention.py:60",
              launches=launches["paged_attention"],

@@ -6,7 +6,7 @@
 // With q' = q * sm_scale rounded to the input type (as the forward K1 and
 // both TPU kernels fold it), s = q'k^T, and the forward's lse per query
 // row (flash_attention_fwd.cu), every kept (query i, key j) pair has
-//     p_ij  = exp(s_ij - lse_i)                 (f32)
+//     p_ij  = exp(s_ij - lse_i)
 //     dS_ij = p_ij * (dO_i . v_j - delta_i)     delta_i = rowsum(dO_i o_i)
 // and
 //     K2: dV_j = sum_i p_ij dO_i,  dK_j = sum_i dS_ij q'_i
@@ -15,40 +15,64 @@
 // A pair is kept when j < sk and, if causal, j <= i + offset; rows and keys
 // past the ends are masked here (the TPU wrapper pads to its block size
 // instead). Fully masked rows have lse = -1e30 and no kept pair: they get
-// zero gradient.
+// zero gradient. For bf16 the caller passes q' already folded
+// (ops/flash_attention.py) and scale 1 to K2; K2 computes
+// s = scale * (q . k) and dK = scale * sum dS q, exact for scale 1. The f32
+// kernels and K3 take q and fold q' = q * scale themselves.
 //
 // Layout: q/dO/dQ (b, sq, h, d), k/v/dK/dV (b, sk, kvh, d), contiguous;
 // lse and delta (b, h, sq) f32.
 //
-// Numerics: p is exp in f32. The TPU kernels take exp in bf16 for bf16
-// inputs, a speed trick for the TPU's vector unit, and round p and dS to
-// bf16 before the matrix unit; here p, dS and every product stay f32 until
-// the single rounding of each output to the input type. K3 applies sm_scale
-// to its f32 sum before that rounding: the TPU path rounds dQ' to the input
-// type and then rounds dQ' * sm_scale again (flash_attention.py:377); this
-// kernel rounds once.
-//
-// Design. K2: one thread block per (kv tile of BK keys, kv head, batch). It
-// stages its K and V tile once, then loops over the g query heads of its
-// group and, in each, over the q tiles from the first one that reaches the
-// causal diagonal to the last. dK and dV accumulate in registers in f32 and
-// are written once: the group sum happens inside the block, in a fixed
-// order, with no atomics and no (b, s, h, d) per-query-head temporaries
-// (the TPU path repeats K/V per query head and sums the repeats after).
-// K3: one thread block per (q tile of BQ rows, query head, batch), reading
-// kv head h_q / g; it stages q', dO, lse and delta once and loops over kv
-// tiles up to the last one the causal diagonal reaches, accumulating dQ in
-// registers. Both recompute s and dO v^T per tile in one pass over the
-// head dimension.
-//
 // What bounds them on an H100: K2 does 8d flops per kept pair and K3 6d
-// (at b 2, s 4096, 32/8 heads, d 128, causal: 0.55 and 0.41 TFLOP, 0.56 and
-// 0.42 ms at the 989 TF/s bf16 tensor-core rate) and each moves ~0.2 GB
-// (~60 us at 3.35 TB/s): operations-bound. These first kernels multiply
-// with f32 FMA loops from shared memory, as K1 does, so they are bound by
-// FMA issue and shared-memory reads, far above that bound; wgmma/TMA tiles
-// are later work.
+// (at b 1, s 4096, 32/8 heads, d 128, causal: 275 and 206 GFLOP, 0.278
+// and 0.209 ms at the 989 TF/s bf16 tensor-core rate) and each moves
+// ~0.1 GB (~30 us at 3.35 TB/s): operations-bound.
+//
+// K2, bf16 (flash_dkv_kernel_wgmma): one block of three warpgroups per
+// (kv tile of BK = 128 keys, kv head, batch), computed transposed as
+// FlashAttention-3 does, so that keys are the M dimension of every
+// product and dK, dV never leave registers:
+// - warpgroup 0 is the producer: one thread loads the K and V tiles once
+//   by TMA, then streams the q' and dO tiles (BQ = 64 rows) of the g query
+//   heads of the group, from the causal diagonal on, through a two-stage
+//   ring guarded by mbarriers; the warp's lanes copy the matching lse and
+//   delta slices beside them. The next tile's copies are in flight while
+//   the consumers multiply.
+// - warpgroups 1 and 2 each own 64 keys: S^T = K q'^T and dP^T = V dO^T by
+//   wgmma m64n64k16 from shared memory; P^T = exp2(S^T log2e - lse log2e)
+//   with lse broadcast along columns, rounded to bf16; dS^T = P^T (dP^T -
+//   delta), rounded to bf16; then dV += P^T dO and dK += dS^T q' by wgmma
+//   m64nDk16 with P^T and dS^T as register A operands and dO, q' read
+//   MN-major from shared memory. Masks only on tiles the diagonal or a
+//   ragged end crosses; a warpgroup whose keys no row of the tile reaches
+//   skips it.
+// - dK and dV accumulate in f32 registers over the whole group in a fixed
+//   order (no atomics: bitwise deterministic) and leave once, as bf16,
+//   through the K/V tiles' shared memory and TMA stores clipped at sk.
+// - the grid runs the first kv tiles (the heaviest under causal) first.
+// Registers: ptxas reports 228 bytes of spill stores at d 128 (16 at
+// d 64), in the consumers: their live set, dK and dV (128 f32 registers
+// at d 128), dP^T in flight (32), P^T and dS^T (32) and addressing, is
+// just above the 240 registers setmaxnreg gives them. The spills are in
+// the measured time (PERF.md).
+// Numerics: P and dS are rounded to bf16 before their second products, as
+// the TPU kernel does (flash_attention.py:246,254); dS is formed from the
+// rounded P, as there. exp is taken in f32 (the TPU takes it in bf16, a
+// vector-unit speed trick).
+//
+// K2 for f32 and K3 (flash_dkv_kernel, flash_dq_kernel):
+// plain f32 FMA loops from shared memory, where p, dS and every product
+// stay f32 until the single rounding of each output. K2: one block per
+// (kv tile of 64 keys, kv head, batch) that stages K and V once and loops
+// over the group's query heads and q tiles, summing dK and dV in registers.
+// K3: one block per (q tile, query head, batch) reading kv head h_q / g,
+// staging q', dO, lse and delta once and looping over kv tiles up to the
+// diagonal. K3 applies sm_scale to its f32 sum before one rounding (the
+// TPU path rounds dQ' and then dQ' * sm_scale, flash_attention.py:377).
+// They are bound by FMA issue and shared-memory reads; K3 moves to the
+// tensor cores in a later change.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -378,6 +402,291 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+// ------------------------------------------------------------ bf16 K2
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int BK = 128;           // keys per block (64 per consumer)
+constexpr int BQ = 64;            // query rows per streamed tile
+constexpr int STAGES = 2;         // q'/dO ring depth
+constexpr int NTHREADS = 384;     // producer + two consumer warpgroups
+// registers per thread after the hand-off; together they must fit in what
+// the launch allocated (168 per thread at 384 threads), or the consumers'
+// setmaxnreg.inc waits forever for registers the producer never frees
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS
+                  <= NTHREADS * (65536 / NTHREADS / 8 * 8),
+              "register hand-off exceeds the launch's allocation");
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Layout {                   // byte offsets from a 1024-aligned base
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int ROW_BYTES = BQ * D * 2;
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;                // STAGES tiles
+  static constexpr int DO = Q + STAGES * ROW_BYTES;     // STAGES tiles
+  static constexpr int LSE = DO + STAGES * ROW_BYTES;   // STAGES x BQ f32
+  static constexpr int DELTA = LSE + STAGES * BQ * 4;   // STAGES x BQ f32
+  static constexpr int BAR = DELTA + STAGES * BQ * 4;
+  // kv_full, full[STAGES], empty[STAGES]
+  static constexpr int SMEM = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdk,
+                       const __grid_constant__ CUtensorMap tdv,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, int sq, int sk,
+                       int h, int kvh, int offset, int causal, float scale) {
+  using L = Layout<D>;
+  constexpr int NH = D / 64;                 // 128-byte column halves
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* sK = smem + L::K;
+  uint8_t* sV = smem + L::V;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* kv_full = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + STAGES;
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;   // the first kv tiles, the heaviest
+  const int g = h / kvh;            // under causal, launch first
+  const int nq = (sq + BQ - 1) / BQ;
+  // first q tile whose rows reach key k0 (row + offset >= k0)
+  const int first = causal ? max(0, k0 - offset) / BQ : 0;
+  const int per_head = max(0, nq - first);
+  const int items = g * per_head;   // (query head, q tile) pairs, in order
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);                // the producer warp's lanes
+      mbar_init(&empty[s], 8);                // one arrive per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: warp 0 streams q', dO (TMA) and lse, delta (loads)
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_tx(kv_full, 2 * L::KV_BYTES);
+        for (int hh = 0; hh < NH; ++hh)
+          for (int rb = 0; rb < BK / 64; ++rb) {
+            const int off = hh * BK * 128 + rb * 64 * 128;
+            tma_load(sK + off, &tk, kv_full, hh * 64, hk, k0 + rb * 64, b);
+            tma_load(sV + off, &tv, kv_full, hh * 64, hk, k0 + rb * 64, b);
+          }
+      }
+      for (int it = 0; it < items; ++it) {
+        const int s = it % STAGES;
+        const int hq = hk * g + it / per_head;
+        const int q0 = (first + it % per_head) * BQ;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * L::ROW_BYTES);
+          for (int hh = 0; hh < NH; ++hh) {
+            tma_load(smem + L::Q + s * L::ROW_BYTES + hh * BQ * 128, &tq,
+                     &full[s], hh * 64, hq, q0, b);
+            tma_load(smem + L::DO + s * L::ROW_BYTES + hh * BQ * 128, &tdo,
+                     &full[s], hh * 64, hq, q0, b);
+          }
+        }
+        float* s_lse = reinterpret_cast<float*>(smem + L::LSE) + s * BQ;
+        float* s_delta = reinterpret_cast<float*>(smem + L::DELTA) + s * BQ;
+        const long at = ((long)b * h + hq) * sq;
+        for (int e = lane; e < BQ; e += 32) {
+          const bool ok = q0 + e < sq;
+          s_lse[e] = ok ? lse[at + q0 + e] : 0.f;
+          s_delta[e] = ok ? delta[at + q0 + e] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns keys kw0 .. kw0 + 63
+    regs_inc<CONSUMER_REGS>();
+    const int ct = threadIdx.x - 128;
+    const int cw = ct / 128;
+    const int warp = (ct % 128) / 32;
+    const int lane = ct % 32;
+    const int kw0 = k0 + cw * 64;
+    const int key0 = warp * 16 + lane / 4;       // and key0 + 8, in the 64
+    const float scale_log2 = scale * LOG2E;
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < items; ++it) {
+      const int s = it % STAGES;
+      const int q0 = (first + it % per_head) * BQ;
+      const uint8_t* sQ = smem + L::Q + s * L::ROW_BYTES;
+      const uint8_t* sdO = smem + L::DO + s * L::ROW_BYTES;
+      const float* s_lse = reinterpret_cast<const float*>(smem + L::LSE) + s * BQ;
+      const float* s_delta =
+          reinterpret_cast<const float*>(smem + L::DELTA) + s * BQ;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      // no kept pair for these 64 keys: past sk, or above the diagonal
+      const bool idle = kw0 >= sk || (causal && q0 + BQ - 1 + offset < kw0);
+      if (!idle) {
+        // Four wgmma groups: S^T = K q'^T; then dP^T = V dO^T and
+        // dV += P^T dO, dV's still running while the threads form dS^T;
+        // then dK += dS^T q'. (S^T, dP^T: 64 keys x BQ queries from shared
+        // memory; P^T, dS^T from registers, dO and q' read MN-major.)
+        // Issuing dP^T beside S^T instead keeps 32 more registers live
+        // across P^T's exp, spills more and ran slower (PERF.md).
+        float st[BQ / 2], dpt[BQ / 2];
+        const uint64_t kdesc = desc(sK + cw * 64 * 128, 16, 1024);
+        const uint64_t vdesc = desc(sV + cw * 64 * 128, 16, 1024);
+        const uint64_t qdesc = desc(sQ, 16, 1024);
+        const uint64_t odesc = desc(sdO, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int a = ((kk / 4) * BK * 128 + (kk % 4) * 32) >> 4;
+          const int bq = ((kk / 4) * BQ * 128 + (kk % 4) * 32) >> 4;
+          wgmma_ss_n64(st, kdesc + a, qdesc + bq, kk > 0);
+        }
+        wgmma_commit();
+
+        // P^T = exp(S^T - lse), lse broadcast along columns, rounded to
+        // bf16
+        wgmma_wait<0>();
+        fence_regs(st);
+        const bool masked = kw0 + 64 > sk || q0 + BQ > sq
+                            || (causal && q0 + offset < kw0 + 63);
+        uint32_t pa[BQ / 16][4];
+#pragma unroll
+        for (int i = 0; i < BQ / 2; i += 2) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * (i / 4) + 2 * (lane % 4) + e;   // query
+            p[e] = exp2f(fmaf(st[i + e], scale_log2, -s_lse[c] * LOG2E));
+            if (masked) {
+              const int kj = kw0 + key0 + 8 * ((i / 2) % 2);
+              const int qi = q0 + c;
+              if (kj >= sk || qi >= sq || (causal && qi + offset < kj))
+                p[e] = 0.f;
+            }
+          }
+          pa[i / 8][(i % 8) / 2] = pack_bf16(p[0], p[1]);
+        }
+        const uint64_t o_mn = desc(sdO, BQ * 128, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int a = ((kk / 4) * BK * 128 + (kk % 4) * 32) >> 4;
+          const int bq = ((kk / 4) * BQ * 128 + (kk % 4) * 32) >> 4;
+          wgmma_ss_n64(dpt, vdesc + a, odesc + bq, kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          const uint64_t db = o_mn + ((kk * 16 * 128) >> 4);
+          if constexpr (D == 128) wgmma_rs_n128(dv, pa[kk], db, 1);
+          else wgmma_rs_n64(dv, pa[kk], db, 1);
+        }
+        wgmma_commit();
+
+        // dS^T = P^T (dP^T - delta) from the rounded P^T, rounded to bf16
+        // (while dV's product runs)
+        wgmma_wait<1>();
+        fence_regs(dpt);
+        uint32_t da[BQ / 16][4];
+#pragma unroll
+        for (int i = 0; i < BQ / 2; i += 2) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4);
+          const uint32_t pp = pa[i / 8][(i % 8) / 2];
+          da[i / 8][(i % 8) / 2] = pack_bf16(
+              __uint_as_float(pp << 16) * (dpt[i] - s_delta[c]),
+              __uint_as_float(pp & 0xffff0000u) * (dpt[i + 1] - s_delta[c + 1]));
+        }
+        const uint64_t q_mn = desc(sQ, BQ * 128, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          const uint64_t db = q_mn + ((kk * 16 * 128) >> 4);
+          if constexpr (D == 128) wgmma_rs_n128(dk, da[kk], db, 1);
+          else wgmma_rs_n64(dk, da[kk], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: dK (times scale: q' = q * scale) and dV in bf16 into this
+    // warpgroup's rows of the K and V tiles, swizzled, then TMA stores
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = cw * 64 + key0 + 8 * ((i / 2) % 2);
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      const int off = (col / 64) * BK * 128 + row * 128
+                      + ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+      *reinterpret_cast<uint32_t*>(sK + off) =
+          pack_bf16(dk[i] * scale, dk[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(sV + off) = pack_bf16(dv[i], dv[i + 1]);
+    }
+    fence_async_smem();
+    named_sync(1 + cw, 128);
+    if (ct % 128 == 0) {
+      for (int hh = 0; hh < NH; ++hh) {
+        const int off = hh * BK * 128 + cw * 64 * 128;
+        tma_store(&tdk, sK + off, hh * 64, hk, kw0, b);
+        tma_store(&tdv, sV + off, hh * 64, hk, kw0, b);
+      }
+      tma_store_drain();
+    }
+  }
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int b, int sq, int sk, int h, int kvh, int offset, int causal,
+               float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  int err = make_map(&tq, q, D, h, sq, b, BQ);
+  if (!err) err = make_map(&tdo, dout, D, h, sq, b, BQ);
+  if (!err) err = make_map(&tk, k, D, kvh, sk, b, 64);
+  if (!err) err = make_map(&tv, v, D, kvh, sk, b, 64);
+  if (!err) err = make_map(&tdk, dk, D, kvh, sk, b, 64);
+  if (!err) err = make_map(&tdv, dv, D, kvh, sk, b, 64);
+  if (err) return err;
+  const int smem = Layout<D>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dkv_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(kvh, b, (sk + BK - 1) / BK);
+  flash_dkv_kernel_wgmma<D><<<grid, NTHREADS, smem, stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, lse, delta, sq, sk, h, kvh, offset, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = ok).
 extern "C" int ray_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -392,9 +701,13 @@ extern "C" int ray_flash_attention_bwd_dkv(
                           offset, causal, scale, s)
   if (dtype == 0 && d == 128) RAY_DKV(float, 128);
   if (dtype == 0 && d == 64) RAY_DKV(float, 64);
-  if (dtype == 1 && d == 128) RAY_DKV(__nv_bfloat16, 128);
-  if (dtype == 1 && d == 64) RAY_DKV(__nv_bfloat16, 64);
 #undef RAY_DKV
+  if (dtype == 1 && d == 128)
+    return tc::launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, b, sq, sk, h,
+                               kvh, offset, causal, scale, s);
+  if (dtype == 1 && d == 64)
+    return tc::launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, b, sq, sk, h,
+                              kvh, offset, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,9 @@
-// Helpers shared by the flash-attention kernels (forward K1, backward K2/K3).
+// Helpers shared by the flash-attention FMA kernels (K1 and K2 for f32, K3
+// for f32 and bf16; the bf16 K1 and K2 run on wgmma, see hopper.cuh) and
+// the mask value all of them use.
 //
-// Operands are staged in shared memory as f32 whatever the input type:
+// The FMA kernels stage operands in shared memory as f32 whatever the
+// input type:
 // load8 reads 8 consecutive elements with one 16- or 32-byte load, store8
 // writes 8 floats, round_to rounds a float to the input type and back
 // (q' = q * sm_scale is rounded to the input type, as the TPU kernels fold

@@ -178,6 +178,26 @@ def build_all() -> Dict[str, str]:
     return LOADER.build(SIGNATURES)
 
 
+def sass_counts(name: str, opcode: str = "HGMMA") -> Dict[str, int]:
+    """How many ``opcode`` instructions the SASS of each kernel function
+    in kernel ``name``'s built library holds (``cuobjdump -sass``; HGMMA
+    is ``wgmma`` on the tensor cores). Keys are the mangled names."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts.setdefault(fn, 0)
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 def check(err: int, name: str) -> None:
     """Raise on a nonzero cudaError_t from a kernel's C entry point."""
     if err != 0:

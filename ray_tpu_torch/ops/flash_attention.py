@@ -6,24 +6,36 @@ Replaces the Pallas TPU kernels of ``ray_tpu/ops/pallas/flash_attention.py``:
 output the training forward saves) and the backward pair ``_dkv_kernel``
 (K2) and ``_dq_kernel`` (K3), driven by ``flash_attention_bwd``.
 
-K1 (``csrc/flash_attention_fwd.cu``): one thread block per
-(q tile of 64 rows, batch*head), a loop over 64-key tiles that stops at
-the last tile the causal diagonal reaches, K/V tiles staged in shared
-memory, scores and the online-softmax state in f32. Query head h reads
-kv head h // (h / kvh) inside the kernel instead of a repeated K/V copy.
+What bounds them on an H100: operations. At the training shape (b 1,
+s 4096, 32/8 heads, d 128, causal) K1 does 137 GFLOP (0.139 ms at the
+989 TF/s bf16 tensor-core rate), K2 275 and K3 206, against ~0.04-0.1 GB
+moved; a 512-token prefill's K1 is 8.6 GFLOP and ~10.5 MB, where bytes
+and launch latency weigh as much.
 
-What bounds it on an H100: at prefill shapes (s = 64..512, d = 128) the
-bytes are small (a 512-token Llama-3-8B layer moves ~10.5 MB, ~3 us at
-3.35 TB/s) and the work is ~2 GFLOP, which the tensor cores would do in
-~2 us. This first kernel multiplies with f32 FMA loops from shared
-memory, so it is bound by FMA issue and shared-memory reads, far above
-either bound; ``wgmma``/TMA tiles are the next step.
+bf16, K1 and K2 (``csrc/flash_attention_fwd.cu``, ``flash_attention_bwd.cu``,
+Hopper helpers in ``csrc/hopper.cuh``): warp-specialised ``wgmma``
+kernels. A producer warp streams bf16 tiles by TMA into a two-stage
+mbarrier ring in the 128-byte-swizzled layout ``wgmma`` reads, while two
+consumer warpgroups multiply on the tensor cores: K1 owns a 128-row q
+tile and runs S = q'K^T, the online softmax in registers and O += P V with
+P as a register operand; K2 owns a 128-key kv tile and runs the products
+transposed (S^T = K q'^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T q'),
+summing the GQA group in registers without atomics. Both launch the
+heaviest causal tiles first. P (K1, K2) and dS (K2) are rounded to bf16
+before their second product, as the TPU kernels do; the plain versions
+keep them in f32, and the card's tolerances cover the difference
+(``tests/test_torch_flash_bf16.py`` holds the plain versions against the
+Pallas kernels and against the kernels' roundings).
 
-K2 and K3 (``csrc/flash_attention_bwd.cu``): one block per (kv tile,
-kv head, batch) that loops over its query heads and q tiles and sums dK
-and dV for the group in registers; one block per (q tile, query head,
-batch) that loops over kv tiles for dQ. Same f32 FMA design as K1; the
-source's note gives their bounds.
+f32, and K3 in both dtypes: plain f32 FMA kernels (tensor cores take
+f32 only as TF32, which would break f32 parity), one block per q tile
+(K1, K3) or kv tile (K2) looping over the other axis.
+
+The wrappers fold sm_scale into q as the JAX wrapper does
+(``fold_scale``; ``flash_attention.py:160``): a tensor op before the bf16
+kernels, which TMA cannot scale in flight; the f32 kernels and K3 fold it
+themselves. Query head h reads kv head h // (h / kvh) inside every kernel
+instead of a repeated K/V copy.
 
 Plain versions, the CPU path of each wrapper and the yardstick each
 kernel is held against on the card: ``mha_reference`` (K1 without lse),
@@ -94,6 +106,13 @@ def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     return (q.float() * scale).to(q.dtype).float()
 
 
+def fold_scale(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q' = q * sm_scale rounded to q's dtype, the product taken in f32:
+    the JAX wrapper's fold (``ray_tpu/ops/pallas/flash_attention.py:160``)
+    as one elementwise op."""
+    return q * scale
+
+
 def flash_attention_fwd_reference(q, k, v, *, causal: bool = True,
                                   sm_scale: Optional[float] = None,
                                   q_offset: Optional[int] = None):
@@ -133,6 +152,14 @@ def _check_operands(names, tensors, like: torch.Tensor) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
+
+
+def _folded(q: torch.Tensor, scale: float):
+    """The bf16 kernels take q' = ``fold_scale(q, scale)`` and scale 1;
+    the f32 kernels fold q themselves."""
+    if q.dtype == torch.bfloat16:
+        return fold_scale(q, scale), 1.0
+    return q, scale
 
 
 def _check_shapes(q, k, v) -> None:
@@ -185,6 +212,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = sm_scale if sm_scale is not None else d ** -0.5
     offset = (sk - sq) if q_offset is None else int(q_offset)
     fn = _build.kernel("flash_attention_fwd")
+    q, scale = _folded(q, scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr() if with_lse else None,
@@ -304,6 +332,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
         return dk.zero_(), dv.zero_()
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     fn = _build.kernel("flash_attention_bwd_dkv")
+    q, scale = _folded(q, scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -392,5 +421,5 @@ __all__ = ["attention_delta", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_reference", "flash_attention_fwd",
-           "flash_attention_fwd_reference", "mha_reference", "work",
-           "work_bwd"]
+           "flash_attention_fwd_reference", "fold_scale", "mha_reference",
+           "work", "work_bwd"]

@@ -12,7 +12,13 @@ edge cases. Tolerances: f32 2e-5 (summation order only; TF32 is off);
 bf16 2e-2 absolute + 2e-2 relative (q*scale and the output are rounded
 to bf16 once each). The backward kernels sum up to g * s products per
 dK/dV entry, so their f32 tolerance is 1e-4; in bf16 each output is
-rounded once on both sides (one bf16 ulp, 2^-8 relative).
+rounded once on both sides (one bf16 ulp, 2^-8 relative), and the bf16
+K1 and K2 (wgmma kernels) also round P, and K2 dS, to bf16 before their
+second product (~5e-3 per row). The bf16 edge cases below hold K1 and K2
+to chip_smoke.py's worst per-row relative L2 error of 1e-2, a row's norm
+floored at 1e-3 of the mean row norm (of dK and dV together for K2, so
+that a dK that is zero in exact arithmetic is measured against the
+gradients' scale).
 """
 
 import asyncio
@@ -273,3 +279,159 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
         assert launched == want, (device, launched)
     np.testing.assert_allclose(np.array(hist[str(dev)]),
                                np.array(hist["cpu"]), rtol=1e-4)
+
+
+ROW_REL_TOL = 1e-2
+
+
+def _row_rel(got, want, floor_of=None) -> float:
+    """Worst |got - want|_2 / |want|_2 over the last dim; a row's norm is
+    floored at 1e-3 of the mean row norm of ``floor_of`` (default
+    ``want``)."""
+    diff = torch.linalg.vector_norm(got.float() - want.float(), dim=-1)
+    ref = torch.linalg.vector_norm(want.float(), dim=-1)
+    base = ref if floor_of is None else torch.linalg.vector_norm(
+        floor_of.float(), dim=-1)
+    return (diff / ref.clamp_min(1e-3 * base.mean().item() + 1e-30)
+            ).max().item()
+
+
+def _bf16_inputs(dev, seed, b, sq, sk, h, kvh, d):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    q, do = (torch.randn((b, sq, h, d), generator=g, device=dev, dtype=bf)
+             for _ in range(2))
+    k, v = (torch.randn((b, sk, kvh, d), generator=g, device=dev, dtype=bf)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _check_bf16_fwd_dkv(q, k, v, do, causal=True, q_offset=None):
+    """K1 with lse against its plain version, and (when q_offset is the
+    default) K2 against its plain version on the plain forward's o and
+    lse; one launch each."""
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.lse_launches,
+              fa.flash_attention_bwd_dkv.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                    q_offset=q_offset, with_lse=True)
+    o_r, lse_r = fa.flash_attention_fwd_reference(q, k, v, causal=causal,
+                                                  q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert _row_rel(o, o_r) <= ROW_REL_TOL
+    torch.testing.assert_close(lse, lse_r, atol=1e-3, rtol=0)
+    kept = fa._keep_mask(q.shape[1], k.shape[1], causal,
+                         (k.shape[1] - q.shape[1]) if q_offset is None
+                         else q_offset, q.device).any(-1)
+    assert torch.all(o[:, ~kept] == 0)
+    assert torch.all(lse[:, :, ~kept] == -1e30)
+    dkv = None
+    if q_offset is None:
+        delta = fa.attention_delta(o_r, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta,
+                                            causal=causal)
+        dk_r, dv_r = fa.flash_attention_bwd_dkv_reference(
+            q, k, v, do, lse_r, delta, causal=causal)
+        torch.cuda.synchronize()
+        both = torch.cat([dk_r, dv_r], dim=-1)
+        assert _row_rel(dk, dk_r, both) <= ROW_REL_TOL
+        assert _row_rel(dv, dv_r, both) <= ROW_REL_TOL
+        dkv = (dk, dv, lse_r, delta)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_fwd.lse_launches,
+            fa.flash_attention_bwd_dkv.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + (q_offset is None))
+    return dkv
+
+
+EDGES = [1, 63, 64, 65, 127, 128, 129, 1000]
+# (sq, sk) on the diagonal and off it (sq > sk and sq < sk), a group size
+# of 1, 2, 4 or 8 each, causal on the diagonal, alternating off it
+EDGE_CASES = [(s, s, 1 << (i % 4), True) for i, s in enumerate(EDGES)] + [
+    (s, EDGES[(i + 3) % 8], 1 << ((i + 1) % 4), bool(i % 2))
+    for i, s in enumerate(EDGES)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,group,causal", EDGE_CASES,
+                         ids=[f"{a}x{b}_g{g}_{'c' if c else 'f'}"
+                              for a, b, g, c in EDGE_CASES])
+def test_bf16_kernels_at_tile_edges(dev, d, sq, sk, group, causal):
+    """The wgmma K1 (BQ = BK = 128) and K2 (BK = 128, BQ = 64) at lengths
+    on both sides of their tile edges."""
+    kvh = 2
+    q, k, v, do = _bf16_inputs(dev, sq * 31 + sk + d + group, 1, sq, sk,
+                               kvh * group, kvh, d)
+    _check_bf16_fwd_dkv(q, k, v, do, causal=causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,q_offset,causal", [
+    (512, 1536, 512, True),     # a chunked-prefill piece
+    (16, 300, -5, True),        # the first 5 rows keep no key
+    (200, 700, None, False),    # non-causal, ragged
+    (300, 130, None, True),     # sq > sk: the first 170 rows keep no key
+], ids=["chunk", "neg_offset", "full", "sq_gt_sk"])
+def test_bf16_kernels_special_cases(dev, d, sq, sk, q_offset, causal):
+    q, k, v, do = _bf16_inputs(dev, sq + sk + d, 2, sq, sk, 8, 2, d)
+    dkv = _check_bf16_fwd_dkv(q, k, v, do, causal=causal, q_offset=q_offset)
+    if sq > sk:
+        _, _, lse, delta = dkv
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        assert torch.all(dq[:, :sq - sk] == 0)
+        # row sq - sk keeps one key, so its dS = p (dp - delta) is 0 too
+        assert torch.all(dq[:, sq - sk + 1:].float().abs().sum(-1) > 0)
+
+
+def test_bf16_dkv_is_bitwise_deterministic(dev):
+    """K2 sums the GQA group in registers in a fixed order (no atomics):
+    two launches on the same inputs give the same bits."""
+    q, k, v, do = _bf16_inputs(dev, 5, 2, 1000, 1000, 32, 8, 128)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    delta = fa.attention_delta(o, do)
+    first = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    second = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_bf16_kernels_at_the_training_shape(dev):
+    """K1 with lse and K2 at b 2, s 4096, Llama-3-8B heads (32/8, d 128),
+    causal: the train step's shape."""
+    q, k, v, do = _bf16_inputs(dev, 7, 2, 4096, 4096, 32, 8, 128)
+    _check_bf16_fwd_dkv(q, k, v, do)
+
+
+def test_dtype_picks_the_kernel(dev):
+    """A bf16 CUDA tensor runs the wgmma kernels, an f32 one the FMA
+    kernels, as the profiler names them."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (x.to(dtype) for x in
+                       _bf16_inputs(dev, 3, 1, 256, 256, 4, 2, 128))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+            fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                       fa.attention_delta(o, do))
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.name for e in prof.events())
+    assert "flash_fwd_kernel_wgmma" in names[torch.bfloat16]
+    assert "flash_dkv_kernel_wgmma" in names[torch.bfloat16]
+    assert "wgmma" not in names[torch.float32]
+    assert "flash_fwd_kernel" in names[torch.float32]
+    assert "flash_dkv_kernel" in names[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_fold_scale_on_card_matches_cpu(dev, dtype):
+    """The wrappers' q' fold gives the same bits on the card as on the
+    CPU, where tests/test_torch_flash_bf16.py holds it to the JAX fold."""
+    x = torch.randn((2, 300, 8, 128), generator=torch.Generator()
+                    .manual_seed(0)).mul(8).to(dtype)
+    for scale in (128 ** -0.5, 0.2):
+        assert torch.equal(fa.fold_scale(x.to(dev), scale).cpu(),
+                           fa.fold_scale(x, scale))

@@ -175,3 +175,64 @@ def test_wrapper_checks_shapes_and_dtypes():
         fa.flash_attention_bwd_dq(q, q, q, q, lse[:, :1], lse)
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_attention_bwd_dkv(q, q, q, q.bfloat16(), lse, lse)
+
+
+def test_build_hash_covers_every_included_header(monkeypatch, tmp_path):
+    """Every quoted include of a kernel source is a header in csrc/ whose
+    bytes key the library's path (hopper.cuh, flash_common.cuh), the
+    sources need no include path beyond csrc/ and the toolkit's, and
+    editing a header gives every library a new path."""
+    import re
+    for src in _build.CSRC.glob("*.cu"):
+        for inc in re.findall(r'#include\s+"([^"]+)"', src.read_text()):
+            assert inc.endswith(".cuh") and (_build.CSRC / inc).exists(), \
+                (src.name, inc)
+    for name in _build.SIGNATURES:
+        assert not any(a.startswith("-I") for a in
+                       _build.nvcc_command(name, pathlib.Path("o.so")))
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for f in _build.CSRC.iterdir():
+        (copy / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", copy)
+    before = {n: _build.library_path(n) for n in _build.SIGNATURES}
+    with open(copy / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SIGNATURES}
+    assert all(before[n] != after[n] for n in before)
+
+
+def test_sass_counts_reads_cuobjdump_per_function(monkeypatch, tmp_path):
+    """``sass_counts`` runs the toolkit's cuobjdump on the built library
+    and counts an opcode per kernel function."""
+    fake = tmp_path / "cuobjdump"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "echo '\tcode for sm_90a'\n"
+        "echo '\t\tFunction : _ZN2tc22flash_fwd_kernel_wgmmaILi128EEEv'\n"
+        "echo '        /*0040*/ HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;'\n"
+        "echo '        /*0050*/ HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;'\n"
+        "echo '\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEv'\n"
+        "echo '        /*0040*/ FFMA R1, R2, R3, R4 ;'\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    counts = _build.sass_counts("flash_attention_fwd")
+    assert counts == {"_ZN2tc22flash_fwd_kernel_wgmmaILi128EEEv": 2,
+                      "_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEv": 0}
+
+
+def test_bf16_wrappers_never_fall_back_off_cpu(monkeypatch, tmp_path):
+    """The bf16 path folds q' and launches the wgmma kernels: with no
+    nvcc a bf16 tensor off the CPU raises too, and counts no launch."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    q = torch.empty((1, 8, 2, 128), device="meta", dtype=torch.bfloat16)
+    lse = torch.empty((1, 2, 8), device="meta")
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        fa.flash_attention_fwd(q, q, q, with_lse=True)
+    with pytest.raises(_build.KernelBuildError):
+        fa.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dkv.launches) == before

@@ -7,11 +7,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ray_tpu_torch/csrc with nvcc, in parallel,
      and count the tensor-core (HGMMA) instructions in each kernel's SASS:
-     the bf16 K1 and K2 must have some;
+     the bf16 K1, K2 and K3 must have some;
   3. each serving kernel (K1, K4) against its plain PyTorch version on
      the card, at the serving path's shapes, with its time beside the
      plain version's, a library call's where one computes the same
-     function, and the least time the card could take (its bound);
+     function, and the least time the card could take (its bound); K4
+     also at lengths on both sides of its split boundaries, at all slots
+     full, in splits of one, two and three stages, at max_len 4096, and
+     twice on the same inputs (bitwise equal);
   4. LLMEngine serving Llama-3-8B at full width (32 layers, random bf16
      weights from a fixed seed): concurrent greedy requests, a chunked
      long prompt and a prefix hit, with the kernels' launch counts over
@@ -20,7 +23,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   5. the training kernels (K1 with lse, K2, K3) against their plain
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
      timed beside the plain versions, SDPA and their bounds (ms and
-     TF/s), and K2 twice on the same inputs (bitwise equal);
+     TF/s), and K2 and K3 each twice on the same inputs (bitwise equal);
   6. a 2-layer full-width model's loss and gradients through the kernels
      against the same through plain attention;
   7. make_train_step on Llama-3-8B at full width cut to 8 layers (bf16,
@@ -47,6 +50,7 @@ import torch
 
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
+SLEEP_CYCLES = 4_000_000    # ~2 ms of the card's clock (time_ms)
 # K1, bf16: per (query row, head), |kernel - plain|_2 / |plain|_2 over
 # head_dim. The two differ by the bf16 rounding of q*scale (the kernel
 # folds the scale into q as the TPU kernel does) and of the output, each
@@ -60,10 +64,19 @@ LOGITS_REL_TOL = 5e-2                 # 32 bf16 layers, kernel vs plain
 # dropped or doubled 64-key tile moves a row's lse by >= ~1e-2.
 LSE_ABS_TOL = 1e-3
 # K2/K3, bf16: |kernel - plain|_2 / |plain|_2 per (query row, head) for
-# dQ and per (key row, kv head) for dK/dV. Both keep p, dS and every sum
-# in f32 and round the output to bf16 once (<= 2^-8 each), so they differ
-# by a few 1e-3 at most; a dropped tile or head moves a row by percents.
+# dQ and per (key row, kv head) for dK/dV. The kernels round P (K2) and dS
+# (K2, K3) to bf16 before their second product, as the TPU kernels do, and
+# each output once; the plain versions keep p and dS in f32: ~4-6e-3 per
+# row (tests/test_torch_flash_bf16.py). A dropped tile or head moves a row
+# by percents.
 BWD_ROW_REL_TOL = 1e-2
+# K3, a query row that keeps one key (the first row of each head, causal):
+# its dQ is zero in exact arithmetic (dS = p (dp - delta), p = 1 and
+# delta = dp), and both sides hold the f32 rounding of dp - delta, a few
+# ulps of the terms' size |dO_i| |v_j|, times sm_scale |k_j|. Such a row
+# is held to ONE_KEY_ULPS of 2^-24 sm_scale |dO_i| |v_j| |k_j| instead of
+# BWD_ROW_REL_TOL; a key wrongly kept moves it to dQ's scale, ~1e5 more.
+ONE_KEY_ULPS = 64
 # 2 bf16 layers at full width, loss and gradients through K1/K2/K3 vs the
 # same through plain attention: bf16 rounds every matmul output (2^-8)
 # and the two attention paths round at other points (q' before the
@@ -86,12 +99,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
     CUDA events after a 128 MB write that evicts the 50 MB L2 cache (the
     serving path meets its operands cold: a layer's weights pass through
-    L2 between two attention calls)."""
+    L2 between two attention calls). A 2 ms device-side wait queued
+    before each flush keeps the card behind the host, so that the host
+    time of ``fn``'s Python wrapper (tens of us, more than a small
+    kernel's run) is not counted as idle card time between the events."""
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        torch.cuda._sleep(SLEEP_CYCLES)
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -99,15 +117,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
         end.record()
         times.append((start, end))
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     return float(np.mean([s.elapsed_time(e) for s, e in times]))
 
 
 def row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
     """Worst |got - want|_2 / |want|_2 over the last dim (a row of one
     head). A row whose reference norm is below 1e-3 of the mean row norm
-    (the first query's dQ, zero in exact arithmetic: it keeps one key, so
-    dS = 0) is measured against 1e-3 of the mean instead."""
+    is measured against 1e-3 of the mean instead."""
     diff = torch.linalg.vector_norm(got.float() - want.float(), dim=-1)
     ref = torch.linalg.vector_norm(want.float(), dim=-1)
     return (diff / ref.clamp_min(1e-3 * ref.mean().item() + 1e-30)
@@ -120,6 +137,23 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
             / torch.linalg.vector_norm(want.float())).item()
 
 
+def one_key_ulps(dq, dq_r, q, k, v, do, rows, keys) -> float:
+    """Worst |dq - dq_r|_2 over the query rows ``rows`` (b, s, h, d
+    layout), row rows[i] keeping the one key keys[i], in units of
+    2^-24 sm_scale |dO_i| |v_j| |k_j| (see ONE_KEY_ULPS); head h reads
+    kv head h // g."""
+    g = q.shape[2] // k.shape[2]
+
+    def norm(x, at):
+        return torch.linalg.vector_norm(x[:, at].float(), dim=-1)
+
+    diff = torch.linalg.vector_norm(
+        dq[:, rows].float() - dq_r[:, rows].float(), dim=-1)
+    unit = (2.0 ** -24 * q.shape[-1] ** -0.5 * norm(do, rows)
+            * (norm(v, keys) * norm(k, keys)).repeat_interleave(g, dim=-1))
+    return (diff / unit).max().item()
+
+
 def bound_ms(work: dict):
     t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = work["flops"] / PEAK_BF16_FLOPS * 1e3
@@ -127,26 +161,28 @@ def bound_ms(work: dict):
                                  "operations")
 
 
-# kernel -> (a substring of the mangled names of its bf16 kernel
-# functions, whether they must run on the tensor cores)
+# kernel -> (a substring of the mangled names of the kernel functions
+# that its bf16 path runs, whether they must run on the tensor cores)
 KERNEL_FUNCTIONS = {
     "flash_attention_fwd": ("flash_fwd_kernel_wgmma", True),
     "flash_attention_bwd_dkv": ("flash_dkv_kernel_wgmma", True),
-    "flash_attention_bwd_dq": ("flash_dq_kernelI13__nv_bfloat16", False),
-    "paged_attention": ("paged_decode_kernelI13__nv_bfloat16", False),
+    "flash_attention_bwd_dq": ("flash_dq_kernel_wgmma", True),
+    # K4, every pool dtype and shape: f32 FMA by design
+    "paged_attention": ("paged_decode_kernel", False),
 }
 
 
 def check_sass(_build) -> dict:
-    """HGMMA (wgmma) instructions in the SASS of each kernel's bf16
-    functions, from cuobjdump of the built libraries. Fails when a bf16
-    K1 or K2 function has none: it would not run on the tensor cores."""
+    """HGMMA (wgmma) instructions in the SASS of each kernel's functions
+    (``KERNEL_FUNCTIONS``), from cuobjdump of the built libraries. Fails
+    when a bf16 K1, K2 or K3 function (d 64 and d 128) has none: it would
+    not run on the tensor cores."""
     out = {}
     for name, (key, wgmma) in KERNEL_FUNCTIONS.items():
         per = {f: n for f, n in _build.sass_counts(name).items() if key in f}
         counts = sorted(per.values())
-        print(f"SASS {name}: HGMMA in its {len(per)} bf16 functions "
-              f"{counts}")
+        print(f"SASS {name}: HGMMA in its {len(per)} functions matching "
+              f"{key!r}: {counts}")
         if not per or (wgmma and min(counts) <= 0):
             raise SystemExit(f"{name}: a bf16 function lacks HGMMA: {per}")
         out[name] = {"bf16": "wgmma" if wgmma else "FMA loops",
@@ -230,50 +266,96 @@ def check_flash(fa, gen) -> dict:
 def check_paged(pa, gen) -> dict:
     """K4 on the slice's shapes: 8 slots, 8 kv heads, group 4, head_dim
     128, block 16, table width 64 (max_len 1024), bf16 pool, uneven
-    lengths from 1 to 1024 over disjoint tables whose blocks are a
-    seeded permutation of the pool (so a kernel must read the table)."""
-    slots, kvh, g, hd, bs, w = 8, 8, 4, 128, 16, 64
-    nb = 1 + slots * w
-    q = torch.randn((slots, kvh, g, hd), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    kp = torch.randn((nb, bs, kvh, hd), generator=gen, device="cuda",
-                     dtype=torch.bfloat16)
-    vp = torch.randn((nb, bs, kvh, hd), generator=gen, device="cuda",
-                     dtype=torch.bfloat16)
-    tables = (1 + torch.randperm(slots * w, generator=gen, device="cuda")
-              ).to(torch.int32).reshape(slots, w)
+    lengths from 1 to 1024 (3044 live tokens, timed) over disjoint tables
+    whose blocks are a seeded permutation of the pool (so a kernel must
+    read the table); lengths on both sides of each split boundary; all
+    slots at 1024 (timed); the engine lengths again in splits of two and
+    three 64-position stages (span 8 and 12 entries, timed beside the
+    default span). Then table width 256 (max_len 4096: splits of three
+    stages) at lengths on both sides of its stage and split edges, and
+    all slots at 4096 (timed, also at spans of one and two stages). Each
+    launched twice: bitwise equal."""
+    slots, kvh, g, hd, bs = 8, 8, 4, 128, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err = 0.0
+
+    def pool(w):
+        nb = 1 + slots * w
+        q = torch.randn((slots, kvh, g, hd), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        kp, vp = (torch.randn((nb, bs, kvh, hd), generator=gen,
+                              device="cuda", dtype=torch.bfloat16)
+                  for _ in range(2))
+        tables = (1 + torch.randperm(slots * w, generator=gen,
+                                     device="cuda")
+                  ).to(torch.int32).reshape(slots, w)
+        return q, kp, vp, tables
+
+    def check(name, args, ls, span=None, timed=False):
+        nonlocal err
+        lengths = torch.tensor(ls, dtype=torch.int32, device="cuda")
+        w = args[-1].shape[1]
+        positions = (span or pa.split_span(slots, kvh, w, bs, sms)) * bs
+
+        def kernel():
+            return pa.paged_attention(*args, lengths, span=span)
+
+        def plain():
+            return pa.paged_attention_reference(*args, lengths)
+
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, **K4_TOL)
+        same = torch.equal(got, again)
+        print(f"K4 paged {name} lengths={ls} (width {w}, splits of "
+              f"{positions} positions): max_abs_err {e:.3e} (tol atol "
+              f"{K4_TOL['atol']}), twice "
+              f"{'bitwise equal' if same else 'DIFFERENT'} "
+              f"{'ok' if ok and same else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"K4 disagrees with its plain version ({name})")
+        if not same:
+            raise SystemExit(f"K4 launched twice gave different results "
+                             f"({name})")
+        err = max(err, e)
+        if not timed:
+            return None
+        b, by = bound_ms(pa.work(ls, kvh, g, hd, 2, 2))
+        t = dict(ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=b,
+                 bound_by=by, live_tokens=sum(ls),
+                 split_positions=positions)
+        print(f"K4 paged {name} ({sum(ls)} live tokens, splits of "
+              f"{positions} positions): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {b:.4f} ms ({by}); no single "
+              f"PyTorch call computes paged decode")
+        return t
+
+    engine = pool(64)
+    span = pa.split_span(slots, kvh, 64, bs, sms) * bs
     lens = [1, 1024, 17, 300, 511, 64, 999, 128]
-    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-
-    def kernel():
-        return pa.paged_attention(q, kp, vp, tables, lengths)
-
-    def plain():
-        return pa.paged_attention_reference(q, kp, vp, tables, lengths)
-
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    ok = torch.allclose(got, want, **K4_TOL)
-    print(f"K4 paged lengths={lens}: max_abs_err {err:.3e} (tol atol "
-          f"{K4_TOL['atol']}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("K4 disagrees with its plain version")
-    full = torch.full_like(lengths, w * bs)
-    got_full = pa.paged_attention(q, kp, vp, tables, full)
-    want_full = pa.paged_attention_reference(q, kp, vp, tables, full)
-    err = max(err, (got_full - want_full).abs().max().item())
-    if not torch.allclose(got_full, want_full, **K4_TOL):
-        raise SystemExit("K4 disagrees with its plain version at 1024")
-    b, by = bound_ms(pa.work(lens, kvh, g, hd, 2, 2))
-    timed = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
-                 library_ms=None, bound_ms=b, bound_by=by)
-    print(f"K4 paged: kernel {timed['ms']:.4f} ms, plain "
-          f"{timed['plain_ms']:.4f} ms, bound {b:.4f} ms ({by}); all "
-          f"slots at 1024: kernel "
-          f"{time_ms(lambda: pa.paged_attention(q, kp, vp, tables, full)):.4f}"
-          f" ms, bound {bound_ms(pa.work([w * bs] * slots, kvh, g, hd, 2, 2))[0]:.4f} ms")
-    return dict(max_abs_err=err, **timed)
+    out = dict(library_ms=None, **check("engine", engine, lens, timed=True))
+    check("split edges", engine,
+          [span - 1, span, span + 1, 2 * span, 2 * span + 1, 1024 - span,
+           1024 - span + 1, 1023])
+    out["all_1024"] = check("all 1024", engine, [1024] * slots, timed=True)
+    out["span_ms"] = {str(span // bs): out["ms"]}
+    for entries in (8, 12):
+        t = check(f"engine, span {entries}", engine, lens, span=entries,
+                  timed=True)
+        out["span_ms"][str(entries)] = t["ms"]
+    long = pool(256)
+    span = pa.split_span(slots, kvh, 256, bs, sms) * bs
+    check("max_len 4096 stage and split edges", long,
+          [1, 63, 65, 129, span - 1, span + 1, 4096 - 63, 4096])
+    out["all_4096"] = check("all 4096", long, [4096] * slots, timed=True)
+    out["all_4096"]["span_ms"] = {str(span // bs): out["all_4096"]["ms"]}
+    for entries in (4, 8):
+        t = check(f"all 4096, span {entries}", long, [4096] * slots,
+                  span=entries, timed=True)
+        out["all_4096"]["span_ms"][str(entries)] = t["ms"]
+    del engine, long
+    return dict(max_abs_err=err, bitwise_twice=True, **out)
 
 
 def run_engine(card: str):
@@ -461,30 +543,40 @@ def check_train_kernels(fa, gen) -> dict:
         (dk, dv), (dk_r, dv_r) = k2(), k2_plain()
         dk2, dv2 = k2()
         dq, dq_r = k3(), k3_plain()
+        dq2 = k3()
+        first = 1 if causal else 0
         torch.cuda.synchronize()
         if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
             raise SystemExit("K2 launched twice gave different dK/dV")
+        if not torch.equal(dq, dq2):
+            raise SystemExit("K3 launched twice gave different dQ")
         errs = {
             "fwd": (row_rel(o, o_r), (lse - lse_r).abs().max().item(),
                     (o.float() - o_r.float()).abs().max().item()),
             "dkv": (max(row_rel(dk, dk_r), row_rel(dv, dv_r)),
                     max((dk.float() - dk_r.float()).abs().max().item(),
                         (dv.float() - dv_r.float()).abs().max().item())),
-            "dq": (row_rel(dq, dq_r),
+            # rows >= 1 at dQ's own floor; row 0 (causal) keeps one key
+            "dq": (row_rel(dq[:, first:], dq_r[:, first:]),
                    (dq.float() - dq_r.float()).abs().max().item()),
         }
+        row0 = (one_key_ulps(dq, dq_r, q, k, v, do, [0], [0]) if causal
+                else 0.0)
         ok = (errs["fwd"][0] <= K1_ROW_REL_TOL
               and errs["fwd"][1] <= LSE_ABS_TOL
               and errs["dkv"][0] <= BWD_ROW_REL_TOL
-              and errs["dq"][0] <= BWD_ROW_REL_TOL)
+              and errs["dq"][0] <= BWD_ROW_REL_TOL
+              and row0 <= ONE_KEY_ULPS)
         print(f"train kernels s={s_} causal={causal}: K1+lse worst row "
               f"rel {errs['fwd'][0]:.3e} (tol {K1_ROW_REL_TOL}), lse max "
               f"abs {errs['fwd'][1]:.3e} (tol {LSE_ABS_TOL}); K2 dK/dV "
               f"worst row rel {errs['dkv'][0]:.3e}, K3 dQ worst row rel "
-              f"{errs['dq'][0]:.3e} (tol {BWD_ROW_REL_TOL}); max abs dK/dV "
+              f"{errs['dq'][0]:.3e} (tol {BWD_ROW_REL_TOL}"
+              f"{'; rows >= 1' if causal else ''}), row 0 (one key) "
+              f"{row0:.2f} ulps (tol {ONE_KEY_ULPS}); max abs dK/dV "
               f"{errs['dkv'][1]:.3e} dQ {errs['dq'][1]:.3e} (grad rms "
-              f"{dq_r.float().pow(2).mean().sqrt().item():.3e}) "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{dq_r.float().pow(2).mean().sqrt().item():.3e}); K2 and K3 "
+              f"twice bitwise equal {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("a training kernel disagrees with its plain "
                              "version")
@@ -791,7 +883,7 @@ def main() -> int:
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
              tolerance=bwd_tol, card=card, library_note=sdpa_note,
              train_per_launch_ms=train["per_launch_ms"].get("K2"),
-             **tk["dkv"]),
+             bitwise_twice=True, **tk["dkv"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              tensor_cores=sass["flash_attention_bwd_dq"],
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -800,12 +892,15 @@ def main() -> int:
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
              tolerance=bwd_tol, card=card, library_note=sdpa_note,
              train_per_launch_ms=train["per_launch_ms"].get("K3"),
-             **tk["dq"]),
+             bitwise_twice=True, **tk["dq"]),
         dict(name="paged_attention", route="cuda",
              tensor_cores=sass["paged_attention"],
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/pallas/paged_attention.py:60",
              launches=launches["paged_attention"],
+             at="8 slots, 8 kv heads, g 4, hd 128, bs 16, bf16 pool, "
+                "3044 live tokens",
+             library_note="no single PyTorch call computes paged decode",
              tolerance=K4_TOL, card=card, **k4),
     ]
     print(json.dumps({"kernels": kernels}))

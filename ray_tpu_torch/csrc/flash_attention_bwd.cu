@@ -16,9 +16,10 @@
 // past the ends are masked here (the TPU wrapper pads to its block size
 // instead). Fully masked rows have lse = -1e30 and no kept pair: they get
 // zero gradient. For bf16 the caller passes q' already folded
-// (ops/flash_attention.py) and scale 1 to K2; K2 computes
-// s = scale * (q . k) and dK = scale * sum dS q, exact for scale 1. The f32
-// kernels and K3 take q and fold q' = q * scale themselves.
+// (ops/flash_attention.py): K2 gets scale 1 and computes
+// s = scale * (q . k) and dK = scale * sum dS q, exact for scale 1; K3 gets
+// sm_scale itself, which it applies to dQ' once. The f32 kernels take q and
+// fold q' = q * scale themselves.
 //
 // Layout: q/dO/dQ (b, sq, h, d), k/v/dK/dV (b, sk, kvh, d), contiguous;
 // lse and delta (b, h, sq) f32.
@@ -60,17 +61,41 @@
 // rounded P, as there. exp is taken in f32 (the TPU takes it in bf16, a
 // vector-unit speed trick).
 //
-// K2 for f32 and K3 (flash_dkv_kernel, flash_dq_kernel):
-// plain f32 FMA loops from shared memory, where p, dS and every product
-// stay f32 until the single rounding of each output. K2: one block per
-// (kv tile of 64 keys, kv head, batch) that stages K and V once and loops
-// over the group's query heads and q tiles, summing dK and dV in registers.
-// K3: one block per (q tile, query head, batch) reading kv head h_q / g,
-// staging q', dO, lse and delta once and looping over kv tiles up to the
-// diagonal. K3 applies sm_scale to its f32 sum before one rounding (the
-// TPU path rounds dQ' and then dQ' * sm_scale, flash_attention.py:377).
-// They are bound by FMA issue and shared-memory reads; K3 moves to the
-// tensor cores in a later change.
+// K3, bf16 (flash_dq_kernel_wgmma): one block of three warpgroups per
+// (q tile of DQ_BQ = 128 rows, query head, batch), rows the M dimension of
+// every product, so dQ never leaves registers:
+// - warpgroup 0 is the producer: one thread loads the q' and dO tiles once
+//   by TMA while the warp's lanes copy the rows' lse and delta, then it
+//   streams the K and V tiles (DQ_BK = 64 keys) of kv head h_q / g, from 0
+//   up to the causal diagonal, through a three-stage mbarrier ring.
+// - warpgroups 1 and 2 each own 64 rows: S = q'K^T and dP = dO V^T by
+//   wgmma m64n64k16, both K-major from shared memory; P = exp2(S log2e -
+//   lse log2e) in f32 with lse per row in registers, while dP's product
+//   runs; dS = P (dP - delta) rounded to bf16 as the A operand (in
+//   registers, as K1 feeds P) of dQ' += dS K by wgmma m64nDk16, K read
+//   MN-major from the same swizzled tile, as K1 reads V. Masks only on
+//   tiles the diagonal or a ragged end crosses; a warpgroup whose rows
+//   reach no key of a tile skips it.
+// - dQ' (64 x D f32, 64 registers a thread at d 128) stays in registers
+//   over the whole kv loop: no atomics, bitwise deterministic. The
+//   epilogue multiplies by sm_scale once, rounds to bf16 and stores through
+//   the q' tile's shared memory by TMA, clipped at sq.
+// - the grid runs the heaviest (last) causal q tiles first.
+// Numerics: dS is rounded to bf16 before dS K, as the TPU kernel does
+// (flash_attention.py:297); P stays f32 (the TPU keeps it in bf16, exp's
+// argument included); dQ is rounded once, after the scale (the TPU path
+// rounds dQ' and then dQ' * sm_scale, flash_attention.py:377).
+//
+// K2 and K3 for f32 (flash_dkv_kernel, flash_dq_kernel): tensor cores take
+// f32 only as TF32, which would break f32 parity, so f32 keeps plain FMA
+// loops from shared memory, where p, dS and every product stay f32 until
+// the single rounding of each output. K2: one block per (kv tile of 64
+// keys, kv head, batch) that stages K and V once and loops over the
+// group's query heads and q tiles, summing dK and dV in registers. K3: one
+// block per (q tile, query head, batch) reading kv head h_q / g, staging
+// q', dO, lse and delta once and looping over kv tiles up to the diagonal,
+// sm_scale applied to its f32 sum before one rounding. They are bound by
+// FMA issue and shared-memory reads.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -685,9 +710,270 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bf16 K3
+
+constexpr int DQ_BQ = 128;        // query rows per block (64 per consumer)
+constexpr int DQ_BK = 64;         // keys per streamed kv tile
+constexpr int DQ_STAGES = 3;      // K/V ring depth
+
+template <int D>
+struct DqLayout {                 // byte offsets from a 1024-aligned base
+  static constexpr int ROW_BYTES = DQ_BQ * D * 2;
+  static constexpr int KV_BYTES = DQ_BK * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + ROW_BYTES;
+  static constexpr int K = DO + ROW_BYTES;                // DQ_STAGES tiles
+  static constexpr int V = K + DQ_STAGES * KV_BYTES;      // DQ_STAGES tiles
+  static constexpr int LSE = V + DQ_STAGES * KV_BYTES;    // DQ_BQ f32
+  static constexpr int DELTA = LSE + DQ_BQ * 4;           // DQ_BQ f32
+  static constexpr int BAR = DELTA + DQ_BQ * 4;
+  // q_full, k_full[DQ_STAGES], v_full[DQ_STAGES], empty[DQ_STAGES]
+  static constexpr int SMEM = BAR + 8 * (1 + 3 * DQ_STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tdq,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, int sq, int sk,
+                      int h, int kvh, int offset, int causal, float scale) {
+  using L = DqLayout<D>;
+  constexpr int NH = D / 64;                 // 128-byte column halves
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* sQ = smem + L::Q;
+  uint8_t* sdO = smem + L::DO;
+  float* s_lse = reinterpret_cast<float*>(smem + L::LSE);
+  float* s_delta = reinterpret_cast<float*>(smem + L::DELTA);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* q_full = bar;
+  uint64_t* k_full = bar + 1;
+  uint64_t* v_full = bar + 1 + DQ_STAGES;
+  uint64_t* empty = bar + 1 + 2 * DQ_STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int hq = bh % h;
+  const int hk = hq / (h / kvh);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BQ;   // heaviest first
+
+  // kv tiles this q tile reaches: 0 .. last
+  int last = (sk + DQ_BK - 1) / DQ_BK - 1;
+  if (causal) {
+    const int reach = q0 + DQ_BQ - 1 + offset;   // last key the last row sees
+    last = reach < 0 ? -1 : min(last, reach / DQ_BK);
+  }
+  const int ntiles = last + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 32);                    // the producer warp's lanes
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);                // one arrive per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: warp 0 loads q', dO (TMA) and lse, delta (loads) once,
+    // then streams the K and V tiles of kv head hk
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(q_full, 2 * L::ROW_BYTES);
+        for (int hh = 0; hh < NH; ++hh)
+          for (int rb = 0; rb < DQ_BQ / 64; ++rb) {
+            const int off = hh * DQ_BQ * 128 + rb * 64 * 128;
+            tma_load(sQ + off, &tq, q_full, hh * 64, hq, q0 + rb * 64, b);
+            tma_load(sdO + off, &tdo, q_full, hh * 64, hq, q0 + rb * 64, b);
+          }
+      }
+      const long at = ((long)b * h + hq) * sq;
+      for (int e = lane; e < DQ_BQ; e += 32) {
+        const bool ok = q0 + e < sq;
+        s_lse[e] = ok ? lse[at + q0 + e] : 0.f;
+        s_delta[e] = ok ? delta[at + q0 + e] : 0.f;
+      }
+      mbar_arrive(q_full);
+      if (lane == 0) {
+        for (int t = 0; t < ntiles; ++t) {
+          const int s = t % DQ_STAGES;
+          if (t >= DQ_STAGES) mbar_wait(&empty[s], ((t / DQ_STAGES) & 1) ^ 1);
+          uint8_t* sK = smem + L::K + s * L::KV_BYTES;
+          uint8_t* sV = smem + L::V + s * L::KV_BYTES;
+          mbar_arrive_tx(&k_full[s], L::KV_BYTES);
+          for (int hh = 0; hh < NH; ++hh)
+            tma_load(sK + hh * DQ_BK * 128, &tk, &k_full[s], hh * 64, hk,
+                     t * DQ_BK, b);
+          mbar_arrive_tx(&v_full[s], L::KV_BYTES);
+          for (int hh = 0; hh < NH; ++hh)
+            tma_load(sV + hh * DQ_BK * 128, &tv, &v_full[s], hh * 64, hk,
+                     t * DQ_BK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns tile rows 64 cw .. 64 cw + 63
+    regs_inc<CONSUMER_REGS>();
+    const int ct = threadIdx.x - 128;
+    const int cw = ct / 128;
+    const int warp = (ct % 128) / 32;
+    const int lane = ct % 32;
+    const int row0 = warp * 16 + lane / 4;           // and row0 + 8, in the 64
+    const int first_row = q0 + cw * 64;
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    // this thread's two rows: lse and delta in registers (lse in log2 units)
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = s_lse[cw * 64 + row0 + 8 * r] * LOG2E;
+      dl[r] = s_delta[cw * 64 + row0 + 8 * r];
+    }
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % DQ_STAGES;
+      const int phase = (t / DQ_STAGES) & 1;
+      const int k0 = t * DQ_BK;
+      const uint8_t* sK = smem + L::K + s * L::KV_BYTES;
+      const uint8_t* sV = smem + L::V + s * L::KV_BYTES;
+      // no kept pair for this warpgroup's rows: above the diagonal
+      const bool idle = causal && k0 > first_row + 63 + offset;
+      mbar_wait(&k_full[s], phase);
+      mbar_wait(&v_full[s], phase);
+      if (!idle) {
+        // S = q'K^T and dP = dO V^T (64 rows x 64 keys each), K-major from
+        // shared memory, as two wgmma groups
+        float sc[DQ_BK / 2], dp[DQ_BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int a = (kk / 4) * DQ_BQ * 128 + cw * 64 * 128 + (kk % 4) * 32;
+          const int bk = (kk / 4) * DQ_BK * 128 + (kk % 4) * 32;
+          wgmma_ss_n64(sc, desc(sQ + a, 16, 1024), desc(sK + bk, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int a = (kk / 4) * DQ_BQ * 128 + cw * 64 * 128 + (kk % 4) * 32;
+          const int bk = (kk / 4) * DQ_BK * 128 + (kk % 4) * 32;
+          wgmma_ss_n64(dp, desc(sdO + a, 16, 1024), desc(sV + bk, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+
+        // P = exp(S - lse) with lse per row (rows are M here), in f32,
+        // while dP's product runs; masks only where the diagonal or the
+        // ragged end crosses the tile
+        wgmma_wait<1>();
+        fence_regs(sc);
+        const bool masked = k0 + DQ_BK > sk
+                            || (causal && k0 + DQ_BK - 1 > first_row + offset);
+#pragma unroll
+        for (int i = 0; i < DQ_BK / 2; ++i) {
+          const int r = (i / 2) % 2;
+          sc[i] = exp2f(fmaf(sc[i], LOG2E, -lse2[r]));
+          if (masked) {
+            const int kj = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+            const int qi = first_row + row0 + 8 * r;
+            if (kj >= sk || (causal && qi + offset < kj)) sc[i] = 0.f;
+          }
+        }
+
+        // dS = P (dP - delta), rounded to bf16: the A operand of dQ += dS K
+        wgmma_wait<0>();
+        fence_regs(dp);
+        uint32_t da[DQ_BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DQ_BK / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 8 * kk + 2 * e;
+            const int r = e % 2;                   // = (i / 2) % 2
+            da[kk][e] = pack_bf16(sc[i] * (dp[i] - dl[r]),
+                                  sc[i + 1] * (dp[i + 1] - dl[r]));
+          }
+        // K read MN-major (keys are the reduction), as K1 reads V
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_BK / 16; ++kk) {
+          const uint64_t db = desc(sK + kk * 16 * 128, DQ_BK * 128, 1024);
+          if constexpr (D == 128) wgmma_rs_n128(dq, da[kk], db, 1);
+          else wgmma_rs_n64(dq, da[kk], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: dQ = sm_scale * dQ', rounded to bf16 once, into this
+    // warpgroup's rows of the q' tile (swizzled), then TMA stores clipped
+    // at sq
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = cw * 64 + row0 + 8 * ((i / 2) % 2);
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      const int off = (col / 64) * DQ_BQ * 128 + row * 128
+                      + ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+      *reinterpret_cast<uint32_t*>(sQ + off) =
+          pack_bf16(dq[i] * scale, dq[i + 1] * scale);
+    }
+    fence_async_smem();
+    named_sync(1 + cw, 128);
+    if (ct % 128 == 0) {
+      for (int hh = 0; hh < NH; ++hh)
+        tma_store(&tdq, sQ + hh * DQ_BQ * 128 + cw * 64 * 128, hh * 64, hq,
+                  first_row, b);
+      tma_store_drain();
+    }
+  }
+}
+
+// q is q' = q * sm_scale folded by the caller; scale is sm_scale itself,
+// applied once to dQ'.
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int b, int sq,
+              int sk, int h, int kvh, int offset, int causal, float scale,
+              cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  int err = make_map(&tq, q, D, h, sq, b, 64);
+  if (!err) err = make_map(&tdo, dout, D, h, sq, b, 64);
+  if (!err) err = make_map(&tk, k, D, kvh, sk, b, 64);
+  if (!err) err = make_map(&tv, v, D, kvh, sk, b, 64);
+  if (!err) err = make_map(&tdq, dq, D, h, sq, b, 64);
+  if (err) return err;
+  const int smem = DqLayout<D>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(b * h, (sq + DQ_BQ - 1) / DQ_BQ);
+  flash_dq_kernel_wgmma<D><<<grid, NTHREADS, smem, stream>>>(
+      tq, tk, tv, tdo, tdq, lse, delta, sq, sk, h, kvh, offset, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = ok).
+// bf16 takes q' (q * sm_scale, folded by the caller) and scale 1; f32
+// takes q and sm_scale.
 extern "C" int ray_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int b, int sq,
@@ -711,6 +997,8 @@ extern "C" int ray_flash_attention_bwd_dkv(
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16 takes q' (folded by the caller) and sm_scale, which multiplies dQ'
+// once; f32 takes q and sm_scale, and folds q' itself.
 extern "C" int ray_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int b, int sq, int sk,
@@ -724,8 +1012,12 @@ extern "C" int ray_flash_attention_bwd_dq(
                          causal, scale, s)
   if (dtype == 0 && d == 128) RAY_DQ(float, 128);
   if (dtype == 0 && d == 64) RAY_DQ(float, 64);
-  if (dtype == 1 && d == 128) RAY_DQ(__nv_bfloat16, 128);
-  if (dtype == 1 && d == 64) RAY_DQ(__nv_bfloat16, 64);
 #undef RAY_DQ
+  if (dtype == 1 && d == 128)
+    return tc::launch_dq<128>(q, k, v, dout, l, dl, dq, b, sq, sk, h, kvh,
+                              offset, causal, scale, s);
+  if (dtype == 1 && d == 64)
+    return tc::launch_dq<64>(q, k, v, dout, l, dl, dq, b, sq, sk, h, kvh,
+                             offset, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,9 @@
-// Helpers shared by the flash-attention FMA kernels (K1 and K2 for f32, K3
-// for f32 and bf16; the bf16 K1 and K2 run on wgmma, see hopper.cuh) and
-// the mask value all of them use.
-//
-// The FMA kernels stage operands in shared memory as f32 whatever the
-// input type:
-// load8 reads 8 consecutive elements with one 16- or 32-byte load, store8
-// writes 8 floats, round_to rounds a float to the input type and back
-// (q' = q * sm_scale is rounded to the input type, as the TPU kernels fold
-// the scale into q), store1 writes one element in the output type.
+// Helpers shared by the f32 flash-attention FMA kernels (K1, K2 and K3;
+// their bf16 versions run on wgmma, see hopper.cuh) and the mask value all
+// of them use: load8 reads 8 consecutive floats with one 32-byte load,
+// store8 writes 8, round_to rounds to the input type (q' = q * sm_scale is
+// rounded to it, as the TPU kernels fold the scale into q), store1 writes
+// one element in the output type.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,26 +21,9 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ void store8(float* dst, const float* v) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);

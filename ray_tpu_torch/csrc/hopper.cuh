@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (K1 in flash_attention_fwd.cu, K2 in flash_attention_bwd.cu): TMA tensor
-// maps and bulk copies, mbarriers, warpgroup register hand-off and wgmma
-// with shared-memory matrix descriptors.
+// (K1 in flash_attention_fwd.cu, K2 and K3 in flash_attention_bwd.cu): TMA
+// tensor maps and bulk copies, mbarriers, warpgroup register hand-off and
+// wgmma with shared-memory matrix descriptors.
 //
 // Tiles live in shared memory as bf16 in the 128-byte-swizzled layout that
 // TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads (layout type 1):

@@ -48,14 +48,19 @@ SIGNATURES = {
     "flash_attention_bwd_dq": (
         "flash_attention_bwd", "ray_flash_attention_bwd_dq",
         # q, k, v, do, lse, delta, dq, b, sq, sk, h, kvh, d, offset,
-        # causal, scale, dtype, stream
+        # causal, scale, dtype, stream; bf16 takes q' = fold_scale(q,
+        # sm_scale) and scale = sm_scale, applied once to dQ'; f32 takes q
+        # and sm_scale and folds q' itself
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
          _I, _P]),
     "paged_attention": (
         "paged_attention", "ray_paged_attention",
-        # q, k_pool, v_pool, tables, lengths, out, slots, kvh, g, hd, bs,
-        # width, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        # q, k_pool, v_pool, tables, lengths, part (f32 scratch of
+        # slots * kvh * nsplit * g * (hd + 2)), counters (int32, slots *
+        # kvh, zero), both null with one split; out, slots, kvh, g, hd,
+        # bs, width, span, q_dtype, pool dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, _P]),
 }
 
 

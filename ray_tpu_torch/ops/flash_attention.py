@@ -12,30 +12,34 @@ s 4096, 32/8 heads, d 128, causal) K1 does 137 GFLOP (0.139 ms at the
 moved; a 512-token prefill's K1 is 8.6 GFLOP and ~10.5 MB, where bytes
 and launch latency weigh as much.
 
-bf16, K1 and K2 (``csrc/flash_attention_fwd.cu``, ``flash_attention_bwd.cu``,
-Hopper helpers in ``csrc/hopper.cuh``): warp-specialised ``wgmma``
-kernels. A producer warp streams bf16 tiles by TMA into a two-stage
-mbarrier ring in the 128-byte-swizzled layout ``wgmma`` reads, while two
-consumer warpgroups multiply on the tensor cores: K1 owns a 128-row q
-tile and runs S = q'K^T, the online softmax in registers and O += P V with
-P as a register operand; K2 owns a 128-key kv tile and runs the products
-transposed (S^T = K q'^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T q'),
-summing the GQA group in registers without atomics. Both launch the
-heaviest causal tiles first. P (K1, K2) and dS (K2) are rounded to bf16
-before their second product, as the TPU kernels do; the plain versions
-keep them in f32, and the card's tolerances cover the difference
-(``tests/test_torch_flash_bf16.py`` holds the plain versions against the
-Pallas kernels and against the kernels' roundings).
+bf16, K1, K2 and K3 (``csrc/flash_attention_fwd.cu``,
+``flash_attention_bwd.cu``, Hopper helpers in ``csrc/hopper.cuh``):
+warp-specialised ``wgmma`` kernels. A producer warp streams bf16 tiles by
+TMA into an mbarrier ring in the 128-byte-swizzled layout ``wgmma``
+reads, while two consumer warpgroups multiply on the tensor cores: K1
+owns a 128-row q tile and runs S = q'K^T, the online softmax in registers
+and O += P V with P as a register operand; K2 owns a 128-key kv tile and
+runs the products transposed (S^T = K q'^T, dP^T = V dO^T, dV += P^T dO,
+dK += dS^T q'), summing the GQA group in registers without atomics; K3
+owns a 128-row q tile and runs S = q'K^T, dP = dO V^T and dQ' += dS K
+with dS as a register operand and K read MN-major, dQ' in registers over
+the whole kv loop. All three launch the heaviest causal tiles first. P
+(K1, K2) and dS (K2, K3) are rounded to bf16 before their second product,
+as the TPU kernels do; the plain versions keep them in f32, and the
+card's tolerances cover the difference (``tests/test_torch_flash_bf16.py``
+holds the plain versions against the Pallas kernels and against the
+kernels' roundings).
 
-f32, and K3 in both dtypes: plain f32 FMA kernels (tensor cores take
-f32 only as TF32, which would break f32 parity), one block per q tile
-(K1, K3) or kv tile (K2) looping over the other axis.
+f32: plain f32 FMA kernels (tensor cores take f32 only as TF32, which
+would break f32 parity), one block per q tile (K1, K3) or kv tile (K2)
+looping over the other axis.
 
 The wrappers fold sm_scale into q as the JAX wrapper does
 (``fold_scale``; ``flash_attention.py:160``): a tensor op before the bf16
-kernels, which TMA cannot scale in flight; the f32 kernels and K3 fold it
-themselves. Query head h reads kv head h // (h / kvh) inside every kernel
-instead of a repeated K/V copy.
+kernels, which TMA cannot scale in flight; the bf16 K1 and K2 then take
+scale 1, and the bf16 K3 takes sm_scale itself, which it applies to dQ'
+once; the f32 kernels fold q themselves. Query head h reads kv head
+h // (h / kvh) inside every kernel instead of a repeated K/V copy.
 
 Plain versions, the CPU path of each wrapper and the yardstick each
 kernel is held against on the card: ``mha_reference`` (K1 without lse),
@@ -347,7 +351,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
                            sm_scale: Optional[float] = None,
                            causal: bool = True):
     """K3: dq in q's dtype and layout (arguments as for
-    ``flash_attention_bwd_dkv``)."""
+    ``flash_attention_bwd_dkv``). On CUDA tensors the kernel runs (or
+    this raises); on CPU tensors the plain version runs."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(
             q, k, v, do, lse, delta, sm_scale=sm_scale, causal=causal)
@@ -357,6 +362,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
         return dq.zero_()
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     fn = _build.kernel("flash_attention_bwd_dq")
+    if q.dtype == torch.bfloat16:
+        q = fold_scale(q, scale)   # the kernel applies scale to dQ' only
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,

@@ -7,20 +7,26 @@ Replaces the Pallas TPU kernel ``_decode_kernel`` of
 slot's block table directly, so no gathered (slots, max_len) view of the
 pool is ever built.
 
-The kernel (``csrc/paged_attention.cu``): one thread block per
-(kv head, slot), a loop over the slot's live table entries only
-(j <= (length - 1) // bs) that reads ``tables[slot, j]`` itself and
-stages that pool block's (bs, hd) K and V tiles for its head, read with
-strides from the (num_blocks, bs, kvh, hd) layout. The g query rows of
-the group stay in shared memory and registers; an f32 online softmax
-divides once at the end, as the TPU kernel does.
+The kernel (``csrc/paged_attention.cu``) splits each slot's walk across
+blocks (flash-decoding): one thread block per (kv head, slot, split), a
+split being ``span`` consecutive table entries (``split_span``, sized
+from the table width so that the host never reads ``lengths``). A block
+reads its ``tables[slot, j]`` itself, puts the loads of all of those
+pool blocks' (bs, hd) K and V tiles for its head in flight at once
+(``cp.async``, up to three stages of 64 positions, each computed as it
+lands), keeps them in the pool's dtype in shared memory, and writes its
+unnormalised f32 online-softmax partial (m, l, acc) to scratch that the
+wrapper allocates. The last split block of each (slot, kv head) to
+arrive, found through an arrival counter that it resets, adds the
+partials in split order (bitwise deterministic) and divides once, l == 0
+counting as 1 as the TPU kernel does. q goes in in its own dtype and is
+upcast inside.
 
-What bounds it on an H100: it streams the live K/V bytes once, so the
-least time is live bytes over 3.35 TB/s (8 slots at 1024 tokens,
-Llama-3-8B: 33.5 MB, ~10 us per layer). This first kernel runs one block
-per (slot, head) with unoverlapped tile loads, so at 8 slots it is
-latency-bound: splitting each slot's walk across blocks and pipelining
-the loads is the next step.
+What bounds it on an H100: it streams the live K/V bytes once, at ~4
+flops a byte (g 4), so the least time is live bytes over 3.35 TB/s (8
+slots at 1024 tokens, Llama-3-8B: 33.5 MB, ~10 us per layer); at a few
+slots the latency of the longest slot's walk sets its time, which the
+splits cut into pieces that run side by side.
 
 ``paged_attention_reference`` is the plain version (the gather-then-
 softmax math of ``ray_tpu.llm.model._gqa_attend_cached``): the CPU path
@@ -32,6 +38,7 @@ constructions with power-of-two lengths.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,14 +70,64 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths):
     return torch.einsum("bkgl,blkd->bkgd", probs, vv)
 
 
+# split blocks the grid aims at per SM (the kernel fits four at once): at
+# 8 slots x 8 kv heads, width 64 and 132 SMs, 16 splits of 4 entries (one
+# 64-position stage at block size 16), 1024 blocks before the splits past
+# each slot's length exit
+_BLOCKS_PER_SM = 8
+# at most this many splits per (slot, kv head): the last block stages
+# their (m, l) in its shared memory
+_MAX_SPLITS = 256
+# at most this many positions per split (the kernel's STAGES x TOK: three
+# 64-position stages, all loaded at once), so a table holds at most
+# _MAX_SPLITS x 192 = 49152 positions
+_SPLIT_POSITIONS = 3 * 64
+
+
+def split_span(slots: int, kvh: int, width: int, bs: int, sms: int) -> int:
+    """Table entries per split block: enough splits per (slot, kv head)
+    that slots x kvh x splits is at least ``_BLOCKS_PER_SM`` x ``sms``,
+    at most one split per entry and ``_MAX_SPLITS`` splits, and at most
+    ``_SPLIT_POSITIONS`` positions per split. From the table width alone,
+    which the host knows, never from the lengths."""
+    want = -(-_BLOCKS_PER_SM * sms // max(1, slots * kvh))
+    span = -(-width // max(1, min(width, want, _MAX_SPLITS)))
+    return min(span, _SPLIT_POSITIONS // bs)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_COUNTERS = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split blocks' int32 arrival counters for launches on
+    ``stream``: zero between launches (each launch's last block of a
+    (slot, kv head) resets its own), so they are kept across calls, one
+    set per stream so that launches on two streams never share one, and
+    replaced by a larger zeroed set when a launch needs more."""
+    c = _COUNTERS.get((device, stream))
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = c
+    return c
+
+
 @torch.no_grad()
-def paged_attention(q, k_pool, v_pool, tables, lengths) -> torch.Tensor:
+def paged_attention(q, k_pool, v_pool, tables, lengths,
+                    span: int | None = None) -> torch.Tensor:
     """Single-token decode attention straight through block tables.
     Shapes as ``paged_attention_reference``; lengths count valid
     positions including the current token (>= 1). On CUDA tensors the
     kernel runs (or this raises); on CPU tensors the plain version runs.
     Table entries must be valid pool block ids (the engine's tables
-    always are: unused entries point at the trash block 0)."""
+    always are: unused entries point at the trash block 0). ``span``,
+    table entries per split block, defaults to ``split_span``'s; another
+    span gives the same result to f32 rounding (chip_smoke.py times the
+    spans against each other)."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, tables, lengths)
     b, kvh, g, hd = q.shape
@@ -90,10 +147,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths) -> torch.Tensor:
         raise ValueError(f"kernel takes (head_dim, block_size) in "
                          f"{sorted(_SHAPES)} and group <= {_MAX_GROUP}, "
                          f"got ({hd}, {bs}), group {g}")
-    # the kernel computes in f32: the group's queries cross as f32 (a few
-    # KB per step), as the TPU kernel upcasts them inside
-    qf = q.float().contiguous()
-    for name, t in (("q", qf), ("k_pool", k_pool), ("v_pool", v_pool),
+    # q goes in in its own dtype (f32 or bf16) and is upcast inside
+    qk = (q if q.dtype in _DTYPES else q.float()).contiguous()
+    for name, t in (("q", qk), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("tables", tables), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -104,11 +160,30 @@ def paged_attention(q, k_pool, v_pool, tables, lengths) -> torch.Tensor:
     if b == 0:
         return out
     fn = _build.kernel("paged_attention")
+    w = tables.shape[1]
+    if span is None:
+        span = split_span(b, kvh, w, bs, _sm_count(q.device))
+    if not 1 <= span <= _SPLIT_POSITIONS // bs:
+        raise ValueError(f"span {span}: a split holds 1 to "
+                         f"{_SPLIT_POSITIONS // bs} entries at block size {bs}")
+    nsplit = -(-w // span)
+    if nsplit > _MAX_SPLITS:
+        raise ValueError(f"table of {w} x {bs} positions in splits of {span} "
+                         f"entries: the kernel takes at most {_MAX_SPLITS} "
+                         "splits")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, kvh, g, hd, bs, tables.shape[1], _DTYPES[k_pool.dtype],
-             stream)
+    part = counters = None
+    if nsplit > 1:
+        # the splits' (m, l) and acc partials, and their arrival counters
+        part = torch.empty(b * kvh * nsplit * g * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, b * kvh)
+    err = fn(qk.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             tables.data_ptr(), lengths.data_ptr(),
+             part.data_ptr() if part is not None else None,
+             counters.data_ptr() if counters is not None else None,
+             out.data_ptr(), b, kvh, g, hd, bs, w, span, _DTYPES[qk.dtype],
+             _DTYPES[k_pool.dtype], stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out
@@ -129,4 +204,5 @@ def work(lengths, kvh: int, g: int, hd: int, pool_itemsize: int,
     return {"bytes": nbytes, "flops": 4 * hd * kvh * g * live}
 
 
-__all__ = ["paged_attention", "paged_attention_reference", "work"]
+__all__ = ["paged_attention", "paged_attention_reference", "split_span",
+           "work"]

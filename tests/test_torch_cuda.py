@@ -13,12 +13,16 @@ bf16 2e-2 absolute + 2e-2 relative (q*scale and the output are rounded
 to bf16 once each). The backward kernels sum up to g * s products per
 dK/dV entry, so their f32 tolerance is 1e-4; in bf16 each output is
 rounded once on both sides (one bf16 ulp, 2^-8 relative), and the bf16
-K1 and K2 (wgmma kernels) also round P, and K2 dS, to bf16 before their
-second product (~5e-3 per row). The bf16 edge cases below hold K1 and K2
-to chip_smoke.py's worst per-row relative L2 error of 1e-2, a row's norm
-floored at 1e-3 of the mean row norm (of dK and dV together for K2, so
-that a dK that is zero in exact arithmetic is measured against the
-gradients' scale).
+K1, K2 and K3 (wgmma kernels) also round P (K1, K2) and dS (K2, K3) to
+bf16 before their second product (~5e-3 per row). The bf16 edge cases
+below hold K1, K2 and K3 to chip_smoke.py's worst per-row relative L2
+error of 1e-2, a row's norm floored at 1e-3 of the mean row norm (of dK
+and dV together for K2, so that a dK that is zero in exact arithmetic is
+measured against the gradients' scale; of dQ itself for K3). A query row
+that keeps one key has a dQ that is zero in exact arithmetic; K3 there is
+held to chip_smoke.py's ONE_KEY_ULPS of the f32 terms' size instead. K4
+(split across blocks, partials added in split order) is held to 2e-5 in
+both pool dtypes: f32 math on the same values, summed in another order.
 """
 
 import asyncio
@@ -116,6 +120,108 @@ def test_paged_kernel_bitwise_on_pow2_integer_construction(dev):
     got = pa.paged_attention(q, kp, vp, tables, lengths)
     want = pa.paged_attention_reference(q, kp, vp, tables, lengths)
     assert torch.equal(got, want)
+
+
+def _paged_inputs(dev, seed, slots, kvh, g, hd, bs, w, dtype,
+                  q_dtype=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb = 1 + slots * w
+    q = torch.randn((slots, kvh, g, hd), generator=gen, device=dev,
+                    dtype=q_dtype or dtype)
+    kp, vp = (torch.randn((nb, bs, kvh, hd), generator=gen, device=dev,
+                          dtype=dtype) for _ in range(2))
+    tables = (1 + torch.randperm(nb - 1, generator=gen, device=dev)).to(
+        torch.int32).reshape(slots, w)
+    return q, kp, vp, tables
+
+
+@pytest.mark.parametrize("dtype,q_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)], ids=["bf16", "f32", "bf16_pool_f32_q"])
+@pytest.mark.parametrize("slots", [1, 5, 16, 64])
+def test_paged_kernel_at_split_boundaries(dev, dtype, q_dtype, slots):
+    """K4 at lengths on both sides of every split boundary (the span the
+    wrapper picks for this grid), plus 1 and a full table, spread over
+    ``slots`` slots per call."""
+    kvh, g, hd, bs, w = 2, 4, 128, 16, 16
+    q, kp, vp, tables = _paged_inputs(dev, slots, slots, kvh, g, hd, bs, w,
+                                      dtype, q_dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    span = pa.split_span(slots, kvh, w, bs, sms) * bs
+    want_lens = [1, w * bs]
+    for edge in range(span, w * bs, span):
+        want_lens += [edge - 1, edge, edge + 1]
+    for i in range(0, len(want_lens), slots):
+        chunk = want_lens[i:i + slots]
+        chunk += [1 + (j * 37) % (w * bs) for j in range(slots - len(chunk))]
+        lengths = torch.tensor(chunk, dtype=torch.int32, device=dev)
+        before = pa.paged_attention.launches
+        got = pa.paged_attention(q, kp, vp, tables, lengths)
+        want = pa.paged_attention_reference(q, kp, vp, tables, lengths)
+        torch.cuda.synchronize()
+        assert pa.paged_attention.launches == before + 1
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+# (block size, table width) that give 8 slots x 8 kv heads on an H100's
+# 132 SMs splits of two 64-position stages (16, 128: max_len 2048) and of
+# three (16, 192), split spans capped at three stages (16, 256 and 2048:
+# max_len 4096 and 32768, 22 and 171 splits), and three stages of 8 and
+# 2 pool blocks (8, 384 and 32, 96)
+MULTI_STAGE = [(16, 128), (16, 192), (16, 256), (16, 2048), (8, 384),
+               (32, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bs,w", MULTI_STAGE,
+                         ids=[f"bs{b}_w{w}" for b, w in MULTI_STAGE])
+def test_paged_kernel_multi_stage_splits(dev, dtype, hd, bs, w):
+    """K4 with splits of two and three stages, all in flight at once, at
+    lengths on both sides of the stage edges of a split and of its split
+    edges (all of them up to 24 splits, else the first two, the middle
+    and the last), plus 1 and a full table; each call launched twice:
+    bitwise equal."""
+    slots, kvh, g = 8, 8, 4
+    q, kp, vp, tables = _paged_inputs(dev, bs * w + hd, slots, kvh, g, hd,
+                                      bs, w, dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    span = pa.split_span(slots, kvh, w, bs, sms) * bs
+    assert 128 <= span <= 192
+    nsplit = -(-w * bs // span)
+    firsts = list(range(nsplit)) if nsplit <= 24 else [
+        0, 1, nsplit // 2, nsplit - 1]
+    want_lens = {1, w * bs}
+    for first in firsts:
+        for edge in (0, 64, 128, span):
+            at = first * span + edge
+            want_lens |= {x for x in (at - 1, at, at + 1) if
+                          1 <= x <= w * bs}
+    want_lens = sorted(want_lens)
+    for i in range(0, len(want_lens), slots):
+        chunk = want_lens[i:i + slots]
+        chunk += [w * bs - 7 * j for j in range(slots - len(chunk))]
+        lengths = torch.tensor(chunk, dtype=torch.int32, device=dev)
+        got = pa.paged_attention(q, kp, vp, tables, lengths)
+        again = pa.paged_attention(q, kp, vp, tables, lengths)
+        want = pa.paged_attention_reference(q, kp, vp, tables, lengths)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        assert torch.equal(got, again), chunk
+
+
+def test_paged_kernel_is_bitwise_deterministic(dev):
+    """The splits' partials are added in split order: two launches give
+    the same bits."""
+    q, kp, vp, tables = _paged_inputs(dev, 9, 8, 8, 4, 128, 16, 64,
+                                      torch.bfloat16)
+    lengths = torch.tensor([1, 1024, 17, 300, 511, 64, 999, 128],
+                           dtype=torch.int32, device=dev)
+    first = pa.paged_attention(q, kp, vp, tables, lengths)
+    second = pa.paged_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_tiny_engine_on_card_matches_cpu(dev):
@@ -296,6 +402,28 @@ def _row_rel(got, want, floor_of=None) -> float:
             ).max().item()
 
 
+# chip_smoke.py's bound for K3's rows that keep one key, in units of
+# 2^-24 sm_scale |dO_i| |v_j| |k_j|: both sides hold the f32 rounding of
+# dp - delta there, zero in exact arithmetic
+ONE_KEY_ULPS = 64
+
+
+def _one_key_ulps(dq, dq_r, q, k, v, do, rows, keys) -> float:
+    """Worst |dq - dq_r|_2 over query rows ``rows``, row rows[i] keeping
+    the one key keys[i], in units of 2^-24 sm_scale |dO_i| |v_j| |k_j|
+    (head h reads kv head h // g)."""
+    g = q.shape[2] // k.shape[2]
+
+    def norm(x, at):
+        return torch.linalg.vector_norm(x[:, at].float(), dim=-1)
+
+    diff = torch.linalg.vector_norm(
+        dq[:, rows].float() - dq_r[:, rows].float(), dim=-1)
+    unit = (2.0 ** -24 * q.shape[-1] ** -0.5 * norm(do, rows)
+            * (norm(v, keys) * norm(k, keys)).repeat_interleave(g, dim=-1))
+    return (diff / unit).max().item()
+
+
 def _bf16_inputs(dev, seed, b, sq, sk, h, kvh, d):
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -308,11 +436,12 @@ def _bf16_inputs(dev, seed, b, sq, sk, h, kvh, d):
 
 def _check_bf16_fwd_dkv(q, k, v, do, causal=True, q_offset=None):
     """K1 with lse against its plain version, and (when q_offset is the
-    default) K2 against its plain version on the plain forward's o and
-    lse; one launch each."""
+    default) K2 and K3 against their plain versions on the plain
+    forward's o and lse; one launch each."""
     before = (fa.flash_attention_fwd.launches,
               fa.flash_attention_fwd.lse_launches,
-              fa.flash_attention_bwd_dkv.launches)
+              fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                     q_offset=q_offset, with_lse=True)
     o_r, lse_r = fa.flash_attention_fwd_reference(q, k, v, causal=causal,
@@ -337,11 +466,28 @@ def _check_bf16_fwd_dkv(q, k, v, do, causal=True, q_offset=None):
         both = torch.cat([dk_r, dv_r], dim=-1)
         assert _row_rel(dk, dk_r, both) <= ROW_REL_TOL
         assert _row_rel(dv, dv_r, both) <= ROW_REL_TOL
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta,
+                                       causal=causal)
+        dq_r = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse_r, delta,
+                                                   causal=causal)
+        torch.cuda.synchronize()
+        assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+        # a row that keeps one key has dQ = 0 in exact arithmetic (dS = 0)
+        keep = fa._keep_mask(q.shape[1], k.shape[1], causal,
+                             k.shape[1] - q.shape[1], q.device)
+        one = keep.sum(-1) == 1
+        if (~one).any():
+            assert _row_rel(dq[:, ~one], dq_r[:, ~one], dq_r) <= ROW_REL_TOL
+        if one.any():
+            assert _one_key_ulps(dq, dq_r, q, k, v, do, one.nonzero()[:, 0],
+                                 keep[one].float().argmax(-1)) <= ONE_KEY_ULPS
         dkv = (dk, dv, lse_r, delta)
+    bwd = int(q_offset is None)
     assert (fa.flash_attention_fwd.launches,
             fa.flash_attention_fwd.lse_launches,
-            fa.flash_attention_bwd_dkv.launches) == (
-                before[0] + 1, before[1] + 1, before[2] + (q_offset is None))
+            fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + bwd, before[3] + bwd)
     return dkv
 
 
@@ -358,8 +504,8 @@ EDGE_CASES = [(s, s, 1 << (i % 4), True) for i, s in enumerate(EDGES)] + [
                          ids=[f"{a}x{b}_g{g}_{'c' if c else 'f'}"
                               for a, b, g, c in EDGE_CASES])
 def test_bf16_kernels_at_tile_edges(dev, d, sq, sk, group, causal):
-    """The wgmma K1 (BQ = BK = 128) and K2 (BK = 128, BQ = 64) at lengths
-    on both sides of their tile edges."""
+    """The wgmma K1 (BQ = BK = 128), K2 (BK = 128, BQ = 64) and K3
+    (BQ = 128, BK = 64) at lengths on both sides of their tile edges."""
     kvh = 2
     q, k, v, do = _bf16_inputs(dev, sq * 31 + sk + d + group, 1, sq, sk,
                                kvh * group, kvh, d)
@@ -385,6 +531,32 @@ def test_bf16_kernels_special_cases(dev, d, sq, sk, q_offset, causal):
         assert torch.all(dq[:, sq - sk + 1:].float().abs().sum(-1) > 0)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (512, 1536, True),          # a chunked-prefill piece's shape
+    (16, 300, True),            # sq < sk, one q tile
+    (200, 700, False),          # non-causal, ragged
+    (300, 130, True),           # sq > sk: the first 170 rows keep no key
+], ids=["chunk", "short", "full", "sq_gt_sk"])
+def test_bf16_backward_special_cases(dev, d, sq, sk, causal):
+    """K2 and K3 at the special cases' shapes, with the backward's own
+    causal diagonal (sk - sq; the backward takes no q_offset)."""
+    q, k, v, do = _bf16_inputs(dev, 2 * sq + sk + d, 2, sq, sk, 8, 2, d)
+    _check_bf16_fwd_dkv(q, k, v, do, causal=causal)
+
+
+def test_bf16_dq_is_bitwise_deterministic(dev):
+    """K3 keeps dQ in registers over the whole kv loop (no atomics): two
+    launches on the same inputs give the same bits."""
+    q, k, v, do = _bf16_inputs(dev, 6, 2, 1000, 1000, 32, 8, 128)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    delta = fa.attention_delta(o, do)
+    first = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    second = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_bf16_dkv_is_bitwise_deterministic(dev):
     """K2 sums the GQA group in registers in a fixed order (no atomics):
     two launches on the same inputs give the same bits."""
@@ -398,8 +570,8 @@ def test_bf16_dkv_is_bitwise_deterministic(dev):
 
 
 def test_bf16_kernels_at_the_training_shape(dev):
-    """K1 with lse and K2 at b 2, s 4096, Llama-3-8B heads (32/8, d 128),
-    causal: the train step's shape."""
+    """K1 with lse, K2 and K3 at b 2, s 4096, Llama-3-8B heads (32/8,
+    d 128), causal: the train step's shape."""
     q, k, v, do = _bf16_inputs(dev, 7, 2, 4096, 4096, 32, 8, 128)
     _check_bf16_fwd_dkv(q, k, v, do)
 
@@ -414,15 +586,18 @@ def test_dtype_picks_the_kernel(dev):
                        _bf16_inputs(dev, 3, 1, 256, 256, 4, 2, 128))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-            fa.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                       fa.attention_delta(o, do))
+            delta = fa.attention_delta(o, do)
+            fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+            fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
             torch.cuda.synchronize()
         names[dtype] = " ".join(e.name for e in prof.events())
     assert "flash_fwd_kernel_wgmma" in names[torch.bfloat16]
     assert "flash_dkv_kernel_wgmma" in names[torch.bfloat16]
+    assert "flash_dq_kernel_wgmma" in names[torch.bfloat16]
     assert "wgmma" not in names[torch.float32]
     assert "flash_fwd_kernel" in names[torch.float32]
     assert "flash_dkv_kernel" in names[torch.float32]
+    assert "flash_dq_kernel" in names[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

@@ -1,17 +1,18 @@
-"""The bf16 numerics of the port's flash kernels K1 and K2 against the
-Pallas TPU kernels, on the CPU.
+"""The bf16 numerics of the port's flash kernels K1, K2 and K3 against
+the Pallas TPU kernels, on the CPU.
 
-On the card, the bf16 K1 and K2 (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``) round P, and K2 also dS, to bf16 before
-their second product, as the TPU kernels ``_fwd_kernel`` and
-``_dkv_kernel`` do; the plain versions they are held against keep P and
-dS in f32. These tests show that the tolerance the card holds them to
-(worst per-row relative L2 error 1e-2, chip_smoke.py) covers those
-roundings: K1's plain version in bf16 against the Pallas forward in
-interpret mode, in bf16, on the same seeded inputs, at that tolerance;
-K2's plain version against the same arithmetic with the kernel's
-roundings at that tolerance, and against the Pallas ``_dkv_kernel``,
-which also rounds exp's argument to bf16, at 2.5e-2.
+On the card, the bf16 K1, K2 and K3 (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``) round P (K1, K2) and dS (K2, K3) to
+bf16 before their second product, as the TPU kernels ``_fwd_kernel``,
+``_dkv_kernel`` and ``_dq_kernel`` do; the plain versions they are held
+against keep P and dS in f32. These tests show that the tolerance the
+card holds them to (worst per-row relative L2 error 1e-2,
+chip_smoke.py) covers those roundings: K1's plain version in bf16
+against the Pallas forward in interpret mode, in bf16, on the same
+seeded inputs, at that tolerance; K2's and K3's plain versions against
+the same arithmetic with the kernel's roundings at that tolerance, and
+against the Pallas ``_dkv_kernel`` and ``_dq_kernel``, which also round
+exp's argument to bf16, at 2.5e-2.
 The wrappers fold sm_scale into q as the JAX wrapper does; ``fold_scale``
 is that fold bitwise.
 """
@@ -31,7 +32,7 @@ ROW_REL_TOL = 1e-2     # chip_smoke.py's K1_ROW_REL_TOL and BWD_ROW_REL_TOL
 # products; the Pallas kernel sums exp rounded to bf16 (2^-9 relative per
 # term), the plain version sums f32 exp: ~1e-3 of lse's log-sum at most.
 LSE_ABS_TOL = 2e-3
-# K2 against the Pallas _dkv_kernel: see the test's docstring
+# K2 and K3 against the Pallas _dkv_kernel and _dq_kernel: see K2's test
 PALLAS_DKV_ROW_REL_TOL = 2.5e-2
 
 
@@ -158,6 +159,54 @@ def test_bf16_dkv_plain_against_kernel_rounding_and_pallas(b, s, h, kvh, d,
             <= ROW_REL_TOL
     assert _row_rel(dv.float().numpy(), dv_j) <= PALLAS_DKV_ROW_REL_TOL
     assert _row_rel(dk.float().numpy(), dk_j) <= PALLAS_DKV_ROW_REL_TOL
+
+
+def _dq_with_kernel_rounding(q, k, v, do, lse, delta, scale, causal):
+    """K3's arithmetic as the bf16 kernel rounds it: q' folded (rounded
+    to bf16), p = exp(s - lse) in f32, dS = p (dp - delta) rounded to
+    bf16, dQ' = dS k summed in f32, then sm_scale and one rounding."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    keep = TF._keep_mask(sq, sk, causal, sk - sq, q.device)
+    kf = TF._repeat_kv(k, h).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", TF.fold_scale(q, scale).float(), kf)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(),
+                      TF._repeat_kv(v, h).float())
+    ds = (p * (dp - delta[..., None])).bfloat16().float()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).bfloat16()
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,causal", CASES, ids=IDS)
+def test_bf16_dq_plain_against_kernel_rounding_and_pallas(b, s, h, kvh, d,
+                                                         causal):
+    """K3 on the Pallas forward's o and lse. (1) The card kernel rounds dS
+    to bf16 before dS k, as the TPU's ``_dq_kernel`` does, and dQ once
+    after the scale; the plain version keeps dS in f32: the roundings
+    move dQ by a few 1e-3 per row, inside the card's 1e-2. (2) The Pallas
+    ``_dq_kernel`` (through ``flash_attention_bwd``) also takes exp of an
+    argument rounded to bf16, and rounds dQ' before the scale: held at
+    PALLAS_DKV_ROW_REL_TOL, for the reason K2's test gives."""
+    q, k, v, do = _inputs(11 + b + s + d, b, s, h, kvh, d)
+    scale = d ** -0.5
+    flat = [_flat(x, h) for x in (q, k, v)]
+    o_j, lse_j = JF.flash_attention_fwd(*flat, sm_scale=scale, causal=causal,
+                                        interpret=True)
+    dq_j, _, _ = JF.flash_attention_bwd(*flat, o_j, _flat(do, h), lse_j,
+                                        sm_scale=scale, causal=causal,
+                                        interpret=True)
+    dq_j = _unflat(dq_j, b, h)
+    o = _torch(_unflat(o_j, b, h))
+    lse = torch.from_numpy(np.asarray(lse_j)[:, :, 0].reshape(b, h, s).copy())
+    args = [_torch(x) for x in (q, k, v, do)]
+    delta = TF.attention_delta(o, args[3])
+    dq = TF.flash_attention_bwd_dq_reference(*args, lse, delta, causal=causal)
+    assert dq.dtype == torch.bfloat16
+    dq_k = _dq_with_kernel_rounding(*args, lse, delta, scale, causal)
+    assert dq_k.dtype == torch.bfloat16 and dq_k.shape == dq.shape
+    assert _row_rel(dq_k.float().numpy(), dq.float().numpy()) <= ROW_REL_TOL
+    assert _row_rel(dq_k.float().numpy(), dq_j) <= PALLAS_DKV_ROW_REL_TOL
+    assert _row_rel(dq.float().numpy(), dq_j) <= PALLAS_DKV_ROW_REL_TOL
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

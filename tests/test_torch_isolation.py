@@ -229,10 +229,14 @@ def test_bf16_wrappers_never_fall_back_off_cpu(monkeypatch, tmp_path):
     q = torch.empty((1, 8, 2, 128), device="meta", dtype=torch.bfloat16)
     lse = torch.empty((1, 2, 8), device="meta")
     before = (fa.flash_attention_fwd.launches,
-              fa.flash_attention_bwd_dkv.launches)
+              fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         fa.flash_attention_fwd(q, q, q, with_lse=True)
     with pytest.raises(_build.KernelBuildError):
         fa.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
+    with pytest.raises(_build.KernelBuildError):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse, lse)
     assert (fa.flash_attention_fwd.launches,
-            fa.flash_attention_bwd_dkv.launches) == before
+            fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches) == before

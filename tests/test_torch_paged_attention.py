@@ -7,8 +7,12 @@ Pallas interpreter. They agree to f32 rounding (tolerance 2e-6, the JAX
 package's own kernel-vs-reference bound), and bitwise on the
 power-of-two integer construction where both summation orders are exact.
 The CUDA kernel cannot run here; chip_smoke.py holds it against the
-plain version on the card.
+plain version on the card. Its split-and-combine arithmetic (each slot's
+walk cut across blocks, the partials added in split order) is written
+out in torch here and held against both at the same tolerance.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -124,6 +128,118 @@ def test_bf16_pool_matches_jax_reference():
         jnp.asarray(v, jnp.bfloat16), jnp.asarray(tables),
         jnp.asarray(lengths)))
     np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def _split_combine(q, k_pool, v_pool, tables, lengths, span):
+    """The CUDA kernel's arithmetic written out in torch: each slot's walk
+    cut into splits of ``span`` table entries; every split that holds a
+    live position keeps its own max m_s, sum l_s and unnormalised acc_s
+    (f32); a slot with one such split divides acc by l (l == 0 -> 1), and
+    otherwise the splits are rescaled to their common max and added in
+    split order."""
+    b, kvh, g, hd = q.shape
+    bs = k_pool.shape[1]
+    out = torch.zeros((b, kvh, g, hd), dtype=torch.float32)
+    for slot in range(b):
+        length = int(lengths[slot])
+        live = -(-length // bs) if length > 0 else 0
+        n_live = max(1, -(-live // span))
+        parts = []
+        for sp in range(n_live):
+            ents = tables[slot, sp * span:min((sp + 1) * span, live)].long()
+            k = k_pool[ents].reshape(-1, kvh, hd).float()
+            v = v_pool[ents].reshape(-1, kvh, hd).float()
+            pos = sp * span * bs + torch.arange(k.shape[0])
+            s = torch.einsum("kgd,tkd->kgt", q[slot].float(), k) / math.sqrt(hd)
+            s = torch.where(pos < length, s, torch.full_like(s, -1e30))
+            m = s.max(-1, keepdim=True).values if k.shape[0] else \
+                torch.full((kvh, g, 1), -1e30)
+            p = torch.where(pos < length, torch.exp(s - m),
+                            torch.zeros_like(s))
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgt,tkd->kgd", p, v)))
+        if n_live == 1:
+            _, l, acc = parts[0]
+            out[slot] = acc / torch.where(l == 0, torch.ones_like(l), l)
+            continue
+        top = torch.stack([m for m, _, _ in parts]).max(0).values
+        num = torch.zeros((kvh, g, hd))
+        den = torch.zeros((kvh, g, 1))
+        for m, l, acc in parts:
+            w = torch.exp(m - top)
+            num, den = num + w * acc, den + w * l
+        out[slot] = num * (1.0 / den)
+    return out
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    """8 slots at hd 128, bs 16, g 4, table width 64 (1024 positions):
+    lengths on both sides of split edges for spans of 1, 4 and 13
+    entries, length 1, a full table, and a trash row (table all block 0,
+    length 1); the JAX kernel's output in interpret mode, once."""
+    b, w, bs, kvh, g, hd = 8, 64, 16, 2, 4, 128
+    q, k, v, tables = _case(5, b=b, w=w, bs=bs, kvh=kvh, g=g, hd=hd)
+    tables[3] = 0
+    lengths = np.asarray([1, 1024, 63, 1, 65, 208, 209, 833], np.int32)
+    want = np.asarray(jpa.paged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(lengths), interpret=True))
+    ref = tpa.paged_attention_reference(*(torch.from_numpy(x) for x in
+                                          (q, k, v, tables, lengths)))
+    return q, k, v, tables, lengths, want, ref.numpy()
+
+
+@pytest.mark.parametrize("span", [1, 4, 13])
+def test_split_combine_matches_jax_kernel_and_reference(split_case, span):
+    """The split-and-combine arithmetic of the CUDA kernel (spans of 1, 4
+    and 13 entries: 16, 64 and 208 positions, the last split of a slot
+    ragged) against the Pallas kernel's single online softmax and the
+    gather reference: the same f32 math summed in another order."""
+    q, k, v, tables, lengths, want, ref = split_case
+    got = _split_combine(*(torch.from_numpy(x) for x in
+                           (q, k, v, tables, lengths)), span).numpy()
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got, ref, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got[3], np.broadcast_to(
+        v[0, 0][:, None, :], got[3].shape), rtol=1e-6, atol=1e-6)
+
+
+def test_split_span_fills_the_card_from_the_width_alone():
+    """8 slots x 8 kv heads on 132 SMs get at least 2 x 132 split blocks;
+    a split never exceeds the width nor three 64-position stages; one
+    slot on a narrow table gets one entry per split; the span depends on
+    no length."""
+    span = tpa.split_span(8, 8, 64, 16, 132)
+    assert 8 * 8 * -(-64 // span) >= 2 * 132
+    for slots, kvh, width, bs in ((1, 8, 64, 16), (64, 8, 64, 16),
+                                  (5, 2, 6, 8), (8, 8, 2048, 16),
+                                  (8, 8, 384, 8), (8, 8, 96, 32),
+                                  (1, 1, 1, 32), (1, 1, 3072, 16)):
+        sp = tpa.split_span(slots, kvh, width, bs, 132)
+        assert 1 <= sp <= width and sp * bs <= 192
+        assert -(-width // sp) <= tpa._MAX_SPLITS
+    assert tpa.split_span(1, 2, 16, 16, 132) == 1
+    # max_len 2048 / 4096 / 32768 at 8 slots: two stages, then three (the
+    # cap)
+    assert [tpa.split_span(8, 8, w, 16, 132) for w in (128, 256, 2048)] \
+        == [8, 12, 12]
+
+
+def test_arrival_counters_are_kept_per_stream_and_grown():
+    """The split blocks' counters start at zero, are the same tensor on
+    the next call on the same stream (the kernel leaves them zero), are
+    another tensor on another stream, and grow when a launch needs
+    more."""
+    dev = torch.device("cpu")
+    first = tpa._counters(dev, 11, 10)
+    assert first.dtype == torch.int32 and first.numel() >= 10
+    assert not first.any()
+    assert tpa._counters(dev, 11, 10) is first
+    assert tpa._counters(dev, 12, 10) is not first
+    grown = tpa._counters(dev, 11, first.numel() + 1)
+    assert grown.numel() > first.numel() and not grown.any()
+    assert tpa._counters(dev, 11, 10) is grown
 
 
 def test_work_counts_live_positions():

@@ -18,8 +18,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   4. LLMEngine serving Llama-3-8B at full width (32 layers, random bf16
      weights from a fixed seed): concurrent greedy requests, a chunked
      long prompt and a prefix hit, with the kernels' launch counts over
-     that phase; then a steady-state decode step and prefill, timed and
-     traced for the device's busy share;
+     that phase; then the same requests through the monolithic cache
+     (no K4 launch), speculative decoding (verify forwards, drafted
+     tokens, paged_attention_verify against K4 per row) alternating with
+     the same engine without it, with host seconds per engine stage,
+     and the prefill/decode handoff (PrefillEngine payloads admitted
+     through prefilled=), each with its launch counts and its streams
+     held to the paged engine's (a stream passes a difference only if,
+     from the first one on, each of its tokens is a near tie of a
+     teacher-forced plain-attention forward's top logit); then a
+     steady-state decode step (paged and monolithic), a verify forward
+     and a prefill, timed and traced for the device's busy share;
   5. the training kernels (K1 with lse, K2, K3) against their plain
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
      timed beside the plain versions, SDPA and their bounds (ms and
@@ -59,6 +68,16 @@ SLEEP_CYCLES = 4_000_000    # ~2 ms of the card's clock (time_ms)
 K1_ROW_REL_TOL = 1e-2
 K4_TOL = dict(atol=1e-4, rtol=0.0)    # f32 math on identical bf16 values
 LOGITS_REL_TOL = 5e-2                 # 32 bf16 layers, kernel vs plain
+# A served stream against plain attention, from its first difference with
+# its reference stream on: at every position, the stream's token sits at
+# most this far below plain attention's top logit, as a share of
+# max|logit|. The logits come out of a bf16 lm_head, whose ulp at the top
+# is 0.6-0.75% of max|logit| here, and the kernel paths' logits differ
+# from plain attention's by up to 2e-2 of max|logit| (K1 vs plain
+# prefill, run_engine): near ties measured 0 to 1.81e-2 (one to three
+# ulps), so the limit is four ulps at most; a wrong token sits tens of
+# percents below the top.
+NEAR_TIE_REL_TOL = 3e-2
 # K1's lse against the plain forward's: both fold q' the same way and sum
 # exp in f32, so they differ by summation order (~1e-6 at lse ~ 10); a
 # dropped or doubled 64-key tile moves a row's lse by >= ~1e-2.
@@ -358,16 +377,134 @@ def check_paged(pa, gen) -> dict:
     return dict(max_abs_err=err, bitwise_twice=True, **out)
 
 
+def reset_serving_counts() -> None:
+    """Zero the serving kernels' launch counters and the verify forward
+    count, just before a serving path is driven."""
+    from ray_tpu_torch.llm import kvcache
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.lse_launches = 0
+    pa.paged_attention.launches = 0
+    kvcache.paged_verify_steps.launches = 0
+
+
+def serving_counts() -> dict:
+    """The counters ``reset_serving_counts`` zeroes, read just after a
+    serving path ran; fails if the path wrote lse (serving never does)."""
+    from ray_tpu_torch.llm import kvcache
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+    if fa.flash_attention_fwd.lse_launches:
+        raise SystemExit("the serving path wrote lse "
+                         f"{fa.flash_attention_fwd.lse_launches} times")
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "paged_attention": pa.paged_attention.launches,
+            "verify_forwards": kvcache.paged_verify_steps.launches}
+
+
+def latency_line(runs, wall: float) -> str:
+    """TTFT and TPOT p50 and generated tok/s of concurrent requests, each
+    run (result, submitted at, done at) on the host clock."""
+    ttft = [o["ttft_s"] for o, _, _ in runs]
+    tpot = [(done - (t_sub + o["ttft_s"])) / (len(o["tokens"]) - 1)
+            for o, t_sub, done in runs]
+    toks = sum(len(o["tokens"]) for o, _, _ in runs)
+    return (f"TTFT p50 {np.median(ttft) * 1e3:.1f} ms, TPOT p50 "
+            f"{np.median(tpot) * 1e3:.2f} ms, {toks / wall:.1f} generated "
+            f"tok/s over {wall:.2f} s")
+
+
+# LLMEngine's arguments in every serving phase
+SERVE_KW = dict(max_slots=8, max_len=1024,
+                prefill_buckets=(64, 128, 256, 512))
+
+
+def serve(model, cfg, prompts, new, then=(), payloads=None, **kw):
+    """Drive one LLMEngine (SERVE_KW and ``kw``): every prompt submitted
+    at once (through ``prefilled=`` payloads where given), then each
+    prompt of ``then`` alone, greedy, ``new`` tokens each. Returns (runs,
+    wall seconds of the concurrent part, runs of ``then``, stats); a run
+    is (result, submitted at, done at) on the host clock."""
+    from ray_tpu_torch.llm.engine import LLMEngine
+
+    async def one(eng, p, payload=None):
+        t_sub = time.monotonic()
+        extra = {} if payload is None else {"prefilled": payload}
+        out = await eng.generate(p, max_new_tokens=new, **extra)
+        return out, t_sub, time.monotonic()
+
+    async def go():
+        eng = LLMEngine(cfg, model, **SERVE_KW, **kw)
+        t0 = time.monotonic()
+        runs = await asyncio.gather(*[
+            one(eng, p, None if payloads is None else payloads[i])
+            for i, p in enumerate(prompts)])
+        wall = time.monotonic() - t0
+        later = [await one(eng, p) for p in then]
+        stats = eng.stats
+        await eng.stop()
+        return runs, wall, later, stats
+
+    return asyncio.run(go())
+
+
+def check_streams(model, cfg, label, prompts, got, want, exact=()):
+    """Hold each stream in ``got`` to the one in ``want``: equal, or a
+    near tie from its first differing position t on. One plain-attention
+    forward over prompt + the ``got`` stream (teacher-forced) gives the
+    logits at every position: at t the two candidates' logits differ by
+    at most NEAR_TIE_REL_TOL x max|logit|, and at t and every later
+    position the stream's token sits at most that far below the top
+    logit. Indices in ``exact`` must be equal. Prints every position from
+    t on where the stream leaves plain attention's argmax, with its
+    margin; returns one record per differing stream."""
+    from ray_tpu_torch.models import llama
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    flips = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i in exact or t is None:
+            raise SystemExit(f"{label}: stream {i} differs from its "
+                             f"reference: {a} vs {b}")
+        seq = torch.tensor([p + a[:-1]], device="cuda")
+        with torch.no_grad():
+            # row j: the distribution of stream token j
+            logits = llama.forward(model, seq, ref_cfg)[0, len(p) - 1:]
+            logits = logits.float()
+            top, scale = logits.amax(-1), logits.abs().amax(-1)
+            picked = logits.gather(
+                1, torch.tensor(a, device="cuda")[:, None])[:, 0]
+            below = ((top - picked) / scale).tolist()
+            tie = ((logits[t, a[t]] - logits[t, b[t]]).abs()
+                   / scale[t]).item()
+        off = [(j, below[j]) for j in range(t, len(a)) if below[j] > 0]
+        worst = max([tie] + [m for _, m in off])
+        ok = worst <= NEAR_TIE_REL_TOL
+        print(f"{label}: stream {i} (prompt {len(p)} tokens) flips at "
+              f"position {t}: {a[t]} vs {b[t]}, plain-attention logits "
+              f"differ by {tie:.3e} of max|logit|; from there on the "
+              f"stream leaves plain attention's argmax at "
+              f"{[(j, round(m, 6)) for j, m in off]} (positions, margin); "
+              f"worst {worst:.3e} (tol {NEAR_TIE_REL_TOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label}: stream {i} differs beyond a near "
+                             "tie")
+        flips.append(dict(stream=i, position=t, margin=tie,
+                          off_argmax=off, worst=worst))
+    return flips
+
+
 def run_engine(card: str):
     """Llama-3-8B at full width through LLMEngine: 8 concurrent greedy
     requests (16-500 tokens) plus a 700-token prompt (chunked prefill,
     second piece at q_offset 512), then a request repeating a 256-token
     prefix of the first prompt (prefix hit)."""
     from ray_tpu_torch.llm import model as lm
-    from ray_tpu_torch.llm.engine import LLMEngine
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops import flash_attention as fa
-    from ray_tpu_torch.ops import paged_attention as pa
 
     cfg = llama.llama3_8b(dtype="bfloat16")
     t0 = time.monotonic()
@@ -383,32 +520,10 @@ def run_engine(card: str):
     repeat = prompts[0][:256] + [int(t) for t in
                                  rng.integers(0, cfg.vocab_size, 40)]
     new = 32
-
-    async def timed(eng, p):
-        t_sub = time.monotonic()
-        out = await eng.generate(p, max_new_tokens=new)
-        return out, t_sub, time.monotonic()
-
-    async def drive():
-        eng = LLMEngine(cfg, model, max_slots=8, max_len=1024,
-                        prefill_buckets=(64, 128, 256, 512))
-        t_start = time.monotonic()
-        first = await asyncio.gather(*[timed(eng, p) for p in prompts])
-        wall = time.monotonic() - t_start
-        hit = await timed(eng, repeat)
-        stats = eng.stats
-        await eng.stop()
-        return first, wall, hit, stats
-
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_fwd.lse_launches = 0
-    pa.paged_attention.launches = 0
-    first, wall, hit, stats = asyncio.run(drive())
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "paged_attention": pa.paged_attention.launches}
-    if fa.flash_attention_fwd.lse_launches:
-        raise SystemExit("the serving path wrote lse "
-                         f"{fa.flash_attention_fwd.lse_launches} times")
+    reset_serving_counts()
+    first, wall, (hit,), stats = serve(model, cfg, prompts, new,
+                                       then=[repeat])
+    launches = serving_counts()
     for out, _, _ in first + [hit]:
         toks = out["tokens"]
         if len(toks) != new or not all(0 <= t < cfg.vocab_size
@@ -416,17 +531,13 @@ def run_engine(card: str):
             raise SystemExit(f"bad generation: {toks}")
     if hit[0]["prefix_hit_tokens"] <= 0:
         raise SystemExit("the repeated prefix took no prefix hit")
-    if min(launches.values()) <= 0:
+    if min(launches["flash_attention_fwd"],
+           launches["paged_attention"]) <= 0:
         raise SystemExit(f"a kernel was not launched: {launches}")
-    ttft = [o["ttft_s"] for o, _, _ in first]
-    tpot = [(done - (t_sub + o["ttft_s"])) / (len(o["tokens"]) - 1)
-            for o, t_sub, done in first]
     print(f"engine [{card}]: {len(first)} concurrent requests + 1 prefix "
           f"hit ({hit[0]['prefix_hit_tokens']} tokens), {new} new tokens "
-          f"each; TTFT p50 {np.median(ttft) * 1e3:.1f} ms, TPOT p50 "
-          f"{np.median(tpot) * 1e3:.2f} ms, "
-          f"{len(first) * new / wall:.1f} generated tok/s over "
-          f"{wall:.2f} s; launches {launches}; stats {stats}")
+          f"each; {latency_line(first, wall)}; launches {launches}; stats "
+          f"{stats}")
 
     # one prefill through K1 vs the same prefill with plain attention
     n = 300
@@ -443,18 +554,54 @@ def run_engine(card: str):
           f"{'equal' if same else 'differs'}")
     if not (np.isfinite(rel) and rel <= LOGITS_REL_TOL):
         raise SystemExit("prefill logits through K1 disagree")
-    return launches, model, cfg
+    ref = dict(prompts=prompts, repeat=repeat, new=new,
+               streams=[o["tokens"] for o, _, _ in first],
+               hit_stream=hit[0]["tokens"])
+    return launches, model, cfg, ref
 
 
-def breakdown(model, cfg, card: str) -> None:
-    """Where a steady-state step goes: one decode block (8 slots at 512
-    cached tokens, 8 chained greedy steps, one host sync) and one
-    512-token prefill, each timed by the host clock around work ending in
-    a sync, and traced once with torch.profiler for the device's busy
-    time (kernel intervals) and its largest kernels."""
+def trace_step(name: str, fn, per: int, card: str) -> dict:
+    """Host wall of ``fn`` (ending in a host copy) over 3 calls after a
+    warm-up, per ``per`` steps, and one call traced with torch.profiler:
+    the device's busy time (kernel intervals), its idle share, the
+    attention kernels' time and the largest kernels, all per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    t0 = time.monotonic()
+    for _ in range(3):
+        fn()
+    wall = (time.monotonic() - t0) / 3 / per * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / per
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    idle = f"{1 - busy / wall:.3f}" if busy else "not measured"
+    attn = {"K1": sum(v for k, v in kernels.items()
+                      if _kernel_kind(k) == "K1"),
+            "K4": sum(v for k, v in kernels.items()
+                      if "paged_decode_kernel" in k)}
+    print(f"{name} [{card}]: host wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, device idle share {idle}; attention (ms): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in attn.items())
+          + "; top kernels (ms): "
+          + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    return dict(wall_ms=wall, busy_ms=busy, idle=idle, **attn)
+
+
+def breakdown(model, cfg, card: str, mono: dict, verify: dict) -> None:
+    """Where a steady-state step goes: one decode block (8 slots at 512
+    cached tokens, 8 chained greedy steps, one host sync) and one
+    512-token prefill, each timed and traced (``trace_step``); then the
+    paged decode step's device time beside the monolithic one's and the
+    verify forward's (traced in their phases at the same shape)."""
     from ray_tpu_torch.llm import kvcache, model as lm
     slots, w, bs, n = 8, 64, 16, 8
     pool = kvcache.init_pool(cfg, 1 + slots * w, bs, torch.bfloat16, "cuda")
@@ -473,33 +620,277 @@ def breakdown(model, cfg, card: str) -> None:
     def prefill():
         return lm.prefill(model, prompt, 512, cfg, 512)[0].cpu()
 
-    for name, fn, per in (("decode step", decode_block, n),
-                          ("prefill 512", prefill, 1)):
-        fn()
-        t0 = time.monotonic()
-        for _ in range(3):
-            fn()
-        wall = (time.monotonic() - t0) / 3 / per * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-        kernels = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                kernels[e.name] = kernels.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3 / per
-        busy = sum(kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-        idle = f"{1 - busy / wall:.3f}" if busy else "not measured"
-        attn = {"K1": sum(v for k, v in kernels.items()
-                          if _kernel_kind(k) == "K1"),
-                "K4": sum(v for k, v in kernels.items()
-                          if "paged_decode_kernel" in k)}
-        print(f"{name} [{card}]: host wall {wall:.3f} ms, device busy "
-              f"{busy:.3f} ms, device idle share {idle}; attention (ms): "
-              + "; ".join(f"{k} {v:.3f}" for k, v in attn.items())
-              + "; top kernels (ms): "
-              + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    paged = trace_step("decode step", decode_block, n, card)
+    trace_step("prefill 512", prefill, 1, card)
+    print(f"decode step at 8 slots x 512 tokens, device busy [{card}]: "
+          f"paged {paged['busy_ms']:.3f} ms (K4 {paged['K4']:.3f}), "
+          f"monolithic {mono['busy_ms']:.3f} ms, one verify forward at "
+          f"w 5 {verify['busy_ms']:.3f} ms")
+
+
+SPEC_K = 4      # LLMEngine's default draft length: verify width 5
+
+
+def run_monolithic(model, cfg, ref: dict, card: str) -> dict:
+    """LLMEngine(kv_block_size=0) on run_engine's 9 prompts and its prefix
+    repeat: K1 launches, no K4 launch, every stream run_engine's apart
+    from near-tie flips. Then one monolithic decode block (8 slots at 512
+    cached tokens in a 1024-long cache, 8 chained steps) traced."""
+    from ray_tpu_torch.llm import model as lm
+    new = ref["new"]
+    reset_serving_counts()
+    first, wall, (hit,), stats = serve(model, cfg, ref["prompts"], new,
+                                       then=[ref["repeat"]],
+                                       kv_block_size=0)
+    launches = serving_counts()
+    print(f"monolithic engine [{card}]: {len(first)} concurrent requests "
+          f"+ the prefix repeat, {new} new tokens each; "
+          f"{latency_line(first, wall)}; launches {launches}; stats {stats}")
+    if launches["flash_attention_fwd"] <= 0 or launches["paged_attention"]:
+        raise SystemExit(f"the monolithic path must launch K1 and no K4: "
+                         f"{launches}")
+    if stats["paged"] or stats["cache_len"] != 1024:
+        raise SystemExit(f"not a monolithic 1024-long cache: {stats}")
+    flips = check_streams(
+        model, cfg, "monolithic vs paged", ref["prompts"] + [ref["repeat"]],
+        [o["tokens"] for o, _, _ in first] + [hit[0]["tokens"]],
+        ref["streams"] + [ref["hit_stream"]])
+    slots, n = 8, 8
+    cache = lm.init_cache(cfg, slots, 1024, torch.bfloat16, "cuda")
+    tokens = torch.zeros((slots,), dtype=torch.int32, device="cuda")
+
+    def decode_block():
+        cache["length"].fill_(512)
+        out, _ = lm.decode_steps(model, cache, tokens, None, None, cfg, n)
+        return out.cpu()
+
+    step = trace_step("monolithic decode step", decode_block, n, card)
+    del cache
+    return dict(launches=launches, flips=flips, step=step)
+
+
+def check_verify_vs_k4(pa, gen) -> float:
+    """paged_attention_verify at the spec engine's shape (8 slots, w 5,
+    bf16 pool, 8 kv heads, g 4, hd 128, block 16, width 64) against K4:
+    row j of verify at cached lengths across block edges equals K4 with
+    the query of row j at lengths + j + 1, within K4_TOL."""
+    slots, wq, kvh, g, hd, bs, w = 8, SPEC_K + 1, 8, 4, 128, 16, 64
+    nb = 1 + slots * w
+    q = torch.randn((slots, wq, kvh, g, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp, vp = (torch.randn((nb, bs, kvh, hd), generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    tables = (1 + torch.randperm(nb - 1, generator=gen, device="cuda")
+              ).to(torch.int32).reshape(slots, w)
+    cached = torch.tensor([0, 11, 15, 16, 255, 508, 700, 1019],
+                          dtype=torch.int32, device="cuda")
+    steps = torch.arange(1, wq + 1, dtype=torch.int32, device="cuda")
+    got = pa.paged_attention_verify(q, kp, vp, tables,
+                                    cached[:, None] + steps[None])
+    err = 0.0
+    for j in range(wq):
+        want = pa.paged_attention(q[:, j].contiguous(), kp, vp, tables,
+                                  cached + j + 1)
+        torch.cuda.synchronize()
+        if not torch.allclose(got[:, j], want, **K4_TOL):
+            raise SystemExit(f"verify row {j} disagrees with K4")
+        err = max(err, (got[:, j] - want).abs().max().item())
+    print(f"paged_attention_verify vs K4 per row (8 slots, w {wq}, cached "
+          f"{cached.tolist()}): max_abs_err {err:.3e} (tol atol "
+          f"{K4_TOL['atol']}) ok")
+    return err
+
+
+def engine_times(timers: dict):
+    """Patch LLMEngine's admit, decode-block and verify entries (each ends
+    in its one host sync) to add their calls and host seconds to
+    ``timers``; returns the undo."""
+    from ray_tpu_torch.llm.engine import LLMEngine
+    saved = {}
+    for name in ("_admit_impl", "_decode_impl", "_verify_impl"):
+        real = saved[name] = getattr(LLMEngine, name)
+
+        def wrap(self, *args, _real=real, _name=name, **kw):
+            t0 = time.monotonic()
+            try:
+                return _real(self, *args, **kw)
+            finally:
+                rec = timers.setdefault(_name, [0, 0.0])
+                rec[0] += 1
+                rec[1] += time.monotonic() - t0
+        setattr(LLMEngine, name, wrap)
+
+    def undo():
+        for name, real in saved.items():
+            setattr(LLMEngine, name, real)
+    return undo
+
+
+def run_spec(model, cfg, pa, gen, card: str) -> dict:
+    """Speculative decoding: 8 prompts of 256-480 tokens, each repeating
+    its own random 48-token phrase, 64 new greedy tokens each, through
+    LLMEngine(spec=True) and LLMEngine(spec=False) in the order spec,
+    vanilla, vanilla, spec: verify forwards and drafted tokens (counted
+    by wrapping spec.accept_tokens here) above zero, both spec drives'
+    streams equal to the first vanilla drive's apart from near ties. Each
+    drive prints its host seconds in admits, decode blocks, verify rounds
+    and acceptance, and when its requests finished. Then the verify
+    attention against K4 per row, and one verify forward (w 5, 8 slots at
+    512 cached tokens) traced."""
+    from ray_tpu_torch.llm import kvcache, spec
+    rng = np.random.default_rng(2)
+    prompts = []
+    for n in rng.integers(256, 481, 8):
+        phrase = [int(t) for t in rng.integers(0, cfg.vocab_size, 48)]
+        prompts.append((phrase * (n // 48 + 1))[:n])
+    new = 64
+    seen = dict(rounds=0, drafted=0, accepted=0, emitted=0)
+    real = spec.accept_tokens
+
+    def drive(spec_on: bool):
+        timers: dict = {}
+        acc = [0, 0.0]
+        blocks = dict(blocks=0, steps=0)
+        real_decode = kvcache.paged_decode_steps
+
+        def counting(logits, draft, **kw):
+            t0 = time.monotonic()
+            out = real(logits, draft, **kw)
+            acc[0] += 1
+            acc[1] += time.monotonic() - t0
+            if draft:
+                seen["rounds"] += 1
+                seen["drafted"] += len(draft)
+                seen["accepted"] += out[1]
+                seen["emitted"] += len(out[0])
+            return out
+
+        def counting_decode(*args, **kw):
+            blocks["blocks"] += 1
+            blocks["steps"] += args[8]
+            return real_decode(*args, **kw)
+
+        spec.accept_tokens = counting
+        kvcache.paged_decode_steps = counting_decode
+        undo = engine_times(timers)
+        try:
+            reset_serving_counts()
+            runs, wall, _, stats = serve(model, cfg, prompts, new,
+                                         spec=spec_on)
+            launches = serving_counts()
+        finally:
+            spec.accept_tokens = real
+            kvcache.paged_decode_steps = real_decode
+            undo()
+        t_first = min(t for _, t, _ in runs)
+        done = sorted(d - t_first for _, _, d in runs)
+        parts = {k: timers.get(k, [0, 0.0]) for k in
+                 ("_admit_impl", "_decode_impl", "_verify_impl")}
+        rest = wall - sum(v[1] for v in parts.values()) - acc[1]
+        print(f"{'spec=True ' if spec_on else 'spec=False'} [{card}]: "
+              f"{latency_line(runs, wall)}; host s: admits "
+              f"{parts['_admit_impl'][1]:.3f} ({parts['_admit_impl'][0]}), "
+              f"decode blocks {parts['_decode_impl'][1]:.3f} "
+              f"({blocks['blocks']} blocks, {blocks['steps']} steps), "
+              f"verify rounds {parts['_verify_impl'][1]:.3f} "
+              f"({parts['_verify_impl'][0]}), accept_tokens {acc[1]:.3f}, "
+              f"rest {rest:.3f}; requests done at "
+              f"{[round(d, 2) for d in done]} s; launches {launches}")
+        return dict(runs=runs, wall=wall, stats=stats, launches=launches,
+                    blocks=blocks, verify_s=parts["_verify_impl"][1],
+                    decode_s=parts["_decode_impl"][1], done=done)
+
+    spec_a = drive(True)
+    van_a = drive(False)
+    van_b = drive(False)
+    spec_b = drive(True)
+    launches = {k: spec_a["launches"][k] + spec_b["launches"][k]
+                for k in spec_a["launches"]}
+    blocks = {k: spec_a["blocks"][k] + spec_b["blocks"][k]
+              for k in spec_a["blocks"]}
+    rate = seen["accepted"] / max(1, seen["drafted"])
+    per_fwd = seen["emitted"] / max(1, seen["rounds"])
+    tps = [len(prompts) * new / d["wall"]
+           for d in (spec_a, van_a, van_b, spec_b)]
+    print(f"spec engine [{card}]: 8 prompts of {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens, {new} new tokens each, two "
+          f"spec drives: {launches['verify_forwards']} verify forwards "
+          f"against {blocks['blocks']} decode blocks ({blocks['steps']} "
+          f"steps); drafted {seen['drafted']}, accepted {seen['accepted']} "
+          f"(accept rate {rate:.3f}), {per_fwd:.2f} tokens per drafting "
+          f"slot per verify forward; generated tok/s spec, vanilla, "
+          f"vanilla, spec: {[round(x, 1) for x in tps]}; launches "
+          f"{launches}; spec {spec_a['stats']['spec']}")
+    if launches["verify_forwards"] <= 0 or seen["drafted"] <= 0:
+        raise SystemExit(f"the spec drive ran no verify forward or drafted "
+                         f"nothing: {launches}, {seen}")
+    want = [o["tokens"] for o, _, _ in van_a["runs"]]
+    flips = []
+    for tag, d in (("spec A", spec_a), ("spec B", spec_b),
+                   ("vanilla B", van_b)):
+        flips += check_streams(model, cfg, f"{tag} vs vanilla A", prompts,
+                               [o["tokens"] for o, _, _ in d["runs"]], want)
+    err = check_verify_vs_k4(pa, gen)
+
+    slots, w, bs = 8, 64, 16
+    pool = kvcache.init_pool(cfg, 1 + slots * w, bs, torch.bfloat16, "cuda")
+    tables = (1 + torch.arange(slots * w, dtype=torch.int32,
+                               device="cuda")).reshape(slots, w)
+    lengths = torch.full((slots,), 512, dtype=torch.int32, device="cuda")
+    tokens = torch.zeros((slots, SPEC_K + 1), dtype=torch.int32,
+                         device="cuda")
+
+    def verify():
+        logits, _ = kvcache.paged_verify_steps(model, pool, tables, lengths,
+                                               tokens, cfg)
+        return logits.cpu()
+
+    step = trace_step(f"verify forward w {SPEC_K + 1}", verify, 1, card)
+    del pool
+    return dict(launches=launches, flips=flips, accept_rate=rate,
+                tokens_per_forward=per_fwd, verify_vs_k4_err=err,
+                step=step, **seen, **blocks)
+
+
+def run_pd(model, cfg, ref: dict, card: str) -> dict:
+    """The prefill/decode handoff: PrefillEngine over run_engine's 9
+    prompts (K1 launches), then a paged LLMEngine admitting the payloads
+    through prefilled= (K4 launches). Streams of prompts of at most 512
+    tokens equal run_engine's; the 700-token prompt's may differ by a
+    near-tie flip. handoff_bytes is the block-granular ship length x
+    layers x kv heads x head_dim x 4 bytes x 2 (k and v, float32)."""
+    from ray_tpu_torch.llm.pd import PrefillEngine
+    prompts = ref["prompts"]
+    pre = PrefillEngine(cfg, model, max_len=SERVE_KW["max_len"],
+                        prefill_buckets=SERVE_KW["prefill_buckets"])
+    reset_serving_counts()
+    t0 = time.monotonic()
+    payloads = [pre.prefill(p) for p in prompts]
+    prefill_s = time.monotonic() - t0
+    k1 = serving_counts()
+    ship = [-(-len(p) // pre.block_size) * pre.block_size for p in prompts]
+    want_bytes = (sum(ship) * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                  * 4 * 2)
+    reset_serving_counts()
+    runs, wall, _, stats = serve(model, cfg, prompts, ref["new"],
+                                 payloads=payloads)
+    k4 = serving_counts()
+    print(f"PD handoff [{card}]: PrefillEngine over {len(prompts)} prompts "
+          f"in {prefill_s:.2f} s (launches {k1}); decode engine "
+          f"{latency_line(runs, wall)} (launches {k4}); handoff_bytes "
+          f"{stats['handoff_bytes']} (expected {want_bytes}, ship lengths "
+          f"{ship})")
+    if k1["flash_attention_fwd"] <= 0 or k4["paged_attention"] <= 0:
+        raise SystemExit(f"PD must launch K1 on the prefill side and K4 on "
+                         f"the decode side: {k1}, {k4}")
+    if stats["handoff_bytes"] != want_bytes:
+        raise SystemExit("handoff_bytes is not the block-granular payload")
+    flips = check_streams(
+        model, cfg, "PD vs unified", prompts,
+        [o["tokens"] for o, _, _ in runs], ref["streams"],
+        exact=[i for i, p in enumerate(prompts) if len(p) <= 512])
+    return dict(prefill=k1, decode=k4, flips=flips,
+                handoff_bytes=stats["handoff_bytes"])
 
 
 def check_train_kernels(fa, gen) -> dict:
@@ -846,11 +1237,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_flash(fa, gen)
     k4 = check_paged(pa, gen)
-    launches, model, cfg = run_engine(card)
-    breakdown(model, cfg, card)
+    launches, model, cfg, ref = run_engine(card)
+    mono = run_monolithic(model, cfg, ref, card)
+    spec = run_spec(model, cfg, pa, gen, card)
+    pd = run_pd(model, cfg, ref, card)
+    breakdown(model, cfg, card, mono["step"], spec["step"])
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+    serve_k1 = {"serve": launches["flash_attention_fwd"],
+                "serve_monolithic": mono["launches"]["flash_attention_fwd"],
+                "serve_spec": spec["launches"]["flash_attention_fwd"],
+                "serve_pd": pd["prefill"]["flash_attention_fwd"]}
+    serve_k4 = {"serve": launches["paged_attention"],
+                "serve_monolithic": mono["launches"]["paged_attention"],
+                "serve_spec": spec["launches"]["paged_attention"],
+                "serve_pd": pd["decode"]["paged_attention"]}
 
     tk = check_train_kernels(fa, gen)
     check_train_parity(fa, card)
@@ -865,11 +1268,10 @@ def main() -> int:
              tensor_cores=sass["flash_attention_fwd"],
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:79",
-             launches=launches["flash_attention_fwd"]
-             + tl["flash_attention_fwd"],
-             launches_by_path={"serve": launches["flash_attention_fwd"],
-                               "train": tl["flash_attention_fwd"],
-                               "train_with_lse": tl["flash_attention_fwd_lse"]},
+             launches=sum(serve_k1.values()) + tl["flash_attention_fwd"],
+             launches_by_path=dict(
+                 serve_k1, train=tl["flash_attention_fwd"],
+                 train_with_lse=tl["flash_attention_fwd_lse"]),
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal, with lse",
              tolerance={"row_rel_l2": K1_ROW_REL_TOL,
                         "lse_abs": LSE_ABS_TOL},
@@ -897,7 +1299,7 @@ def main() -> int:
              tensor_cores=sass["paged_attention"],
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/pallas/paged_attention.py:60",
-             launches=launches["paged_attention"],
+             launches=sum(serve_k4.values()), launches_by_path=serve_k4,
              at="8 slots, 8 kv heads, g 4, hd 128, bs 16, bf16 pool, "
                 "3044 live tokens",
              library_note="no single PyTorch call computes paged decode",

@@ -1,21 +1,37 @@
-"""Continuous-batching LLM engine over the paged KV pool.
+"""Continuous-batching LLM engine.
 
-Counterpart of ``ray_tpu/llm/engine.py`` in paged mode: requests join and
-leave a fixed set of decode SLOTS at token granularity; prompts prefill
-into the block pool through shape buckets (long prompts and prefix hits
-through chunked prefill over a gathered accumulator); every decode block
-runs ``steps_per_sync`` chained steps on the device with one host sync.
+Counterpart of ``ray_tpu/llm/engine.py``: requests join and leave a fixed
+set of decode SLOTS at token granularity; prompts prefill through shape
+buckets (prompts past the largest bucket through chunked prefill); every
+decode block runs ``steps_per_sync`` chained steps on the device with one
+host sync. The KV lives in one of two caches:
+
+- the paged pool (``kv_block_size > 0``, the default): fixed-size token
+  blocks, a block table per request reserved for its whole horizon at
+  admission, prefix reuse across requests, decode attention through the
+  paged kernel;
+- the monolithic slot cache (``kv_block_size=0``): (layers, slots, L,
+  kvh, hd), L starting at min(max_len, max(1024, largest bucket)) and
+  doubling up to max_len when an admitted request needs the room; decode
+  attends the whole slot view with plain PyTorch, as the JAX package's
+  einsum does.
+
+``spec=True`` (paged only) adds speculative decoding: each round, slots
+whose prompt-lookup drafter proposes a continuation are scored in one
+verify forward and accept their longest agreeing prefix (``llm/spec.py``);
+when no slot drafts, the round is an ordinary decode block.
+``generate(..., prefilled=payload)`` admits KV that a ``PrefillEngine``
+(``llm/pd.py``) computed, with no prompt forward of its own.
 
 The engine is asyncio-native; device work runs on executor threads, one
-admit or decode block at a time, so pool mutation stays serialized. Each
-thread launches on its own current CUDA stream, and the host syncs only
-where it needs the tokens.
+admit, decode block or verify round at a time, so cache mutation stays
+serialized. Each thread launches on its own current CUDA stream, and the
+host syncs only where it needs the tokens.
 
 Not ported in this slice, and rejected with an error rather than
-ignored: the monolithic cache (``kv_block_size=0``), speculative decoding
-(``spec=True``), the prefill/decode handoff (``prefilled=``),
-tensor-parallel meshes (``mesh=``), and the metrics, tracing and device
-monitoring hooks.
+ignored: tensor-parallel meshes (``mesh=``) and device-resident KV
+handles in a ``prefilled`` payload. The metrics, tracing and device
+monitoring hooks are left out.
 """
 
 from __future__ import annotations
@@ -29,15 +45,22 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.llm import kvcache, model as lm
+from ray_tpu_torch.llm import kvcache, model as lm, spec as specdec
 from ray_tpu_torch.models.llama import Llama, LlamaConfig
 
 
 class DeadlineExceeded(RuntimeError):
     """The request's deadline budget was spent: before submission, while
     queued, or mid-generation (the engine then reclaims the slot)."""
+
+
+class KVHandoffError(RuntimeError):
+    """A prefilled request's shipped KV could not be taken (a handle
+    that is not a plain array). Fails only its own request, never the
+    shared scheduler loop."""
 
 
 @dataclass
@@ -66,6 +89,16 @@ class _Request:
     kv_alloc: Optional[dict] = None
     prefix_hit: int = 0
     kv_written: bool = False    # prefill scatter reached the pool
+    # KV a PrefillEngine computed for this prompt: {"k", "v": (layers,
+    # ship, kvh, hd), "logits": (vocab,), "length": n}, dropped once
+    # written; handoff_bytes counts the KV bytes as shipped
+    prefilled: Optional[dict] = None
+    handoff_bytes: int = 0
+    # speculative decoding: the request's prompt-lookup drafter (its
+    # history is tokens + out) and its drafted/accepted totals
+    drafter: Optional[specdec.PromptLookupDrafter] = None
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 class LLMEngine:
@@ -78,23 +111,22 @@ class LLMEngine:
                  kv_pool_blocks: int = 0,
                  prefix_cache: bool = True,
                  kv_impl: str = "auto",
+                 spec: bool = False,
                  device=None,
-                 mesh=None, spec: bool = False,
+                 mesh=None,
                  detokenize: Optional[Callable[[List[int]], str]] = None):
         """``params`` is the port's ``Llama`` module, already on
         ``device``. ``device=None`` means the CUDA device and raises when
         none is available; tests pass ``device="cpu"`` explicitly, which
-        runs every kernel's plain version."""
-        if kv_block_size <= 0:
-            raise NotImplementedError(
-                "the monolithic KV cache (kv_block_size=0) is not ported; "
-                "the port serves from the paged pool only")
+        runs every kernel's plain version. ``kv_block_size=0`` selects
+        the monolithic cache; ``spec`` (paged only, ignored on the
+        monolithic cache as in the JAX package) drafts through
+        ``spec.PromptLookupDrafter`` with its defaults (the JAX package's
+        Config defaults: up to 4 tokens from n-grams of up to 3)."""
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet")
-        if spec:
-            raise NotImplementedError(
-                "speculative decoding (spec=True) is not ported yet")
+                "tensor-parallel serving (mesh=) is not ported yet: "
+                "ROADMAP Queue 1 item 11")
         self.device = resolve_device(device)
         if params.device != self.device:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -108,29 +140,42 @@ class LLMEngine:
         self.detokenize = detokenize
         cdt = getattr(torch, cache_dtype) if isinstance(cache_dtype, str) \
             else cache_dtype
+        self._cdt = cdt
+        self._paged = kv_block_size > 0
+        self._spec = bool(spec) and self._paged
+        self._spec_buckets = specdec.width_buckets(specdec.DRAFT_K)
         self._kv_impl = kvcache.resolve_attn_impl(kv_impl, self.device)
-        # the effective block size divides every prefill bucket and
-        # max_len (prefill writes land block-aligned)
-        b = kv_block_size
-        for v in (*self.buckets, max_len):
-            b = math.gcd(b, v)
-        self._block = max(1, b)
-        self._table_w = max_len // self._block
-        itemsize = torch.empty((), dtype=cdt).element_size()
-        per_tok = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * itemsize
-        nb = kvcache.auto_pool_blocks(max_slots, self._table_w,
-                                      per_tok * self._block, kv_pool_blocks,
-                                      self.device)
-        self._cache_len = max_len     # no growth: tables span it
-        self._pool = kvcache.init_pool(cfg, nb, self._block, cdt,
-                                       self.device)
-        self._kv = kvcache.KVBlockManager(
-            nb, self._block, table_width=self._table_w,
-            prefix_cache=prefix_cache)
-        self._tables = np.full((max_slots, self._table_w), kvcache.TRASH,
-                               np.int32)
         self._blocked: deque = deque()   # admits parked on the pool
         self._seq_counter = 0
+        if self._paged:
+            # the effective block size divides every prefill bucket and
+            # max_len (prefill writes land block-aligned)
+            b = kv_block_size
+            for v in (*self.buckets, max_len):
+                b = math.gcd(b, v)
+            self._block = max(1, b)
+            self._table_w = max_len // self._block
+            itemsize = torch.empty((), dtype=cdt).element_size()
+            per_tok = (cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+                       * itemsize)
+            nb = kvcache.auto_pool_blocks(max_slots, self._table_w,
+                                          per_tok * self._block,
+                                          kv_pool_blocks, self.device)
+            self._cache_len = max_len     # no growth: tables span it
+            self._pool = kvcache.init_pool(cfg, nb, self._block, cdt,
+                                           self.device)
+            self._kv = kvcache.KVBlockManager(
+                nb, self._block, table_width=self._table_w,
+                prefix_cache=prefix_cache)
+            self._tables = np.full((max_slots, self._table_w),
+                                   kvcache.TRASH, np.int32)
+            self._cache = None
+        else:
+            # the cache starts small and doubles, up to max_len, only when
+            # an admitted request needs the room (_grow_cache)
+            self._cache_len = min(max_len, max(1024, self.buckets[-1]))
+            self._cache = lm.init_cache(cfg, max_slots, self._cache_len,
+                                        cdt, self.device)
         self._slots: List[Optional[_Request]] = [None] * max_slots
         self._waiting: "asyncio.Queue[_Request]" = asyncio.Queue()
         self._rng = np.random.default_rng(seed)
@@ -142,22 +187,49 @@ class LLMEngine:
         self._tokens_generated = 0
         self._ttft_sum = 0.0
         self._ttft_count = 0
+        self._handoff_bytes = 0
 
     @property
     def stats(self) -> dict:
-        return {"requests": self._requests,
-                "tokens_generated": self._tokens_generated,
-                "ttft_sum": self._ttft_sum,
-                "ttft_count": self._ttft_count,
-                "cache_len": self._cache_len,
-                "paged": True,
-                "block_size": self._block,
-                "blocks_used": self._kv.used_blocks(),
-                "blocks_cached": self._kv.cached_blocks(),
-                "blocks_free": self._kv.free_blocks(),
-                "prefix_hit_tokens": self._kv.hit_tokens_total,
-                "kv_impl": self._kv_impl,
-                "device": str(self.device)}
+        """Scalar engine counters, with the JAX engine's keys (paged-only
+        keys only when paged), plus ``handoff_bytes`` (KV bytes admitted
+        through ``prefilled=``, as shipped) and ``device``."""
+        out = {"requests": self._requests,
+               "tokens_generated": self._tokens_generated,
+               "ttft_sum": self._ttft_sum,
+               "ttft_count": self._ttft_count,
+               "cache_len": self._cache_len,
+               "paged": self._paged,
+               "handoff_bytes": self._handoff_bytes,
+               "device": str(self.device)}
+        if self._paged:
+            out.update(block_size=self._block,
+                       blocks_used=self._kv.used_blocks(),
+                       blocks_cached=self._kv.cached_blocks(),
+                       blocks_free=self._kv.free_blocks(),
+                       prefix_hit_tokens=self._kv.hit_tokens_total,
+                       kv_impl=self._kv_impl,
+                       spec=self._spec)
+        return out
+
+    def _grow_cache(self, need: int) -> None:
+        """Double the monolithic cache's per-slot length until >= need,
+        capped at max_len; active slots' KV is kept (zero-padded on the
+        length axis, into new tensors: the old ones are held until the
+        copy is made)."""
+        new_len = self._cache_len
+        while new_len < need:
+            new_len *= 2
+        new_len = min(new_len, self.max_len)
+        pad = new_len - self._cache_len
+        if pad <= 0:
+            return
+        c = self._cache
+        widths = (0, 0, 0, 0, 0, pad)
+        self._cache = {"k": F.pad(c["k"], widths),
+                       "v": F.pad(c["v"], widths),
+                       "length": c["length"]}
+        self._cache_len = new_len
 
     # --- public API -----------------------------------------------------
 
@@ -172,8 +244,10 @@ class LLMEngine:
         """Generate up to ``max_new_tokens`` after ``tokens``. ``top_p``/
         ``top_k`` filter the sampler (1.0/0 disable); ``stop`` is a list
         of token-id sequences that end generation (matched suffix
-        trimmed); ``deadline_ts`` (absolute wall clock) cancels the
-        request, freeing its slot, with ``DeadlineExceeded``."""
+        trimmed); ``prefilled`` is a ``PrefillEngine`` payload for these
+        tokens, admitted with no prompt forward; ``deadline_ts``
+        (absolute wall clock) cancels the request, freeing its slot,
+        with ``DeadlineExceeded``."""
         r = self._submit(tokens, max_new_tokens, temperature, eos_id,
                          top_p=top_p, top_k=top_k, stop=stop,
                          prefilled=prefilled, deadline_ts=deadline_ts)
@@ -203,14 +277,18 @@ class LLMEngine:
                 raise t
             yield t
 
+    async def generate_prefilled(self, tokens, prefilled: dict,
+                                 **kw) -> dict:
+        return await self.generate(tokens, prefilled=prefilled, **kw)
+
+    def generate_stream_prefilled(self, tokens, prefilled: dict, **kw):
+        return self.generate_stream(tokens, prefilled=prefilled, **kw)
+
     def _submit(self, tokens, max_new_tokens, temperature, eos_id,
                 top_p=1.0, top_k=0, stop=None, prefilled=None,
                 deadline_ts=None):
         if self._stopped:
             raise RuntimeError("engine is stopped")
-        if prefilled is not None:
-            raise NotImplementedError(
-                "prefilled KV (prefill/decode handoff) is not ported yet")
         if deadline_ts is not None and time.time() > deadline_ts:
             raise DeadlineExceeded("budget spent before submission")
         tokens = list(map(int, tokens))
@@ -229,11 +307,29 @@ class LLMEngine:
         stop = [list(map(int, s)) for s in stop] if stop else None
         if stop and any(not s for s in stop):
             raise ValueError("empty stop sequence")
+        if prefilled is not None:
+            # a malformed payload fails this request here, never the
+            # shared scheduler loop mid-admit
+            for k in ("k", "v", "logits", "length"):
+                if k not in prefilled:
+                    raise ValueError(f"prefilled payload missing {k!r}")
+            if int(prefilled["length"]) != len(tokens):
+                raise ValueError(
+                    f"prefilled length {prefilled['length']} != prompt "
+                    f"length {len(tokens)}")
+            if prefilled["k"].shape[1] > self.max_len:
+                raise ValueError(
+                    f"prefilled KV spans {prefilled['k'].shape[1]} "
+                    f"positions > decode max_len {self.max_len} "
+                    "(prefill/decode bucket configs disagree)")
         r = _Request(tokens, max_new_tokens, temperature, eos_id,
                      top_p=float(top_p), top_k=int(top_k), stop=stop,
-                     deadline_ts=deadline_ts)
-        self._seq_counter += 1
-        r.seq = self._seq_counter
+                     deadline_ts=deadline_ts, prefilled=prefilled)
+        if self._paged:
+            self._seq_counter += 1
+            r.seq = self._seq_counter
+        if self._spec:
+            r.drafter = specdec.PromptLookupDrafter()
         self._waiting.put_nowait(r)
         self._requests += 1
         self._ensure_loop()
@@ -241,8 +337,9 @@ class LLMEngine:
 
     def _result(self, r: _Request) -> dict:
         out = {"tokens": r.out,
-               "ttft_s": (r.first_token_at or 0) - r.submitted,
-               "prefix_hit_tokens": r.prefix_hit}
+               "ttft_s": (r.first_token_at or 0) - r.submitted}
+        if self._paged:
+            out["prefix_hit_tokens"] = r.prefix_hit
         if self.detokenize is not None:
             out["text"] = self.detokenize(r.out)
         return out
@@ -296,7 +393,7 @@ class LLMEngine:
                     r = self._pop_candidate()
                     if r is None:
                         continue
-                    if r.kv_alloc is None:
+                    if self._paged and r.kv_alloc is None:
                         # full-horizon block reservation at admission:
                         # decode never fails mid-flight on pool pressure;
                         # overload parks the admit (FIFO) instead
@@ -313,7 +410,12 @@ class LLMEngine:
                         r.prefix_hit = alloc["hit_tokens"]
                     try:
                         tok = await loop.run_in_executor(
-                            None, self._admit_paged, slot, r)
+                            None, self._admit_impl, slot, r)
+                    except KVHandoffError as e:
+                        # an unusable KV handle fails its own request
+                        # only; it was taken before any cache write
+                        self._fail(r, slot, e)
+                        continue
                     except BaseException as e:  # noqa: BLE001
                         # the candidate is in no queue and no slot yet:
                         # fail it here or its caller waits forever
@@ -337,6 +439,30 @@ class LLMEngine:
                     if self._waiting.empty():
                         r = await self._waiting.get()
                         self._waiting.put_nowait(r)
+                    continue
+                # 2a) speculative round: ask each active slot's drafter
+                #     for a continuation; if any slot drafts, one verify
+                #     forward scores every slot (non-drafting ones at
+                #     width 1); if none does, fall through to a decode
+                #     block
+                drafts: dict = {}
+                if self._spec:
+                    for i in active:
+                        r = self._slots[i]
+                        # leave room for the bonus token; never draft
+                        # past the request's horizon
+                        budget = min(r.drafter.k,
+                                     r.max_new_tokens - len(r.out) - 1,
+                                     self._cache_len - len(r.tokens)
+                                     - len(r.out) - 1)
+                        if budget < 1:
+                            continue
+                        d = r.drafter.propose(r.tokens + r.out, budget)
+                        if d:
+                            drafts[i] = d
+                if drafts:
+                    await self._spec_round(loop, active, drafts)
+                    await asyncio.sleep(0)
                     continue
                 # 2) a block of decode steps for every active slot, one
                 #    host sync per block, bounded by each slot's budget
@@ -404,29 +530,122 @@ class LLMEngine:
         chunk = self.buckets[-1]
         return (hit // chunk) * chunk
 
+    @staticmethod
+    def _take_handoff(x) -> np.ndarray:
+        """A shipped payload entry as a host array: numpy arrays (float32,
+        or the JAX package's bf16, widened on the way in) pass through;
+        anything else, such as a device-resident handle, fails its
+        request with ``KVHandoffError``."""
+        if isinstance(x, np.ndarray):
+            return x
+        raise KVHandoffError(
+            f"prefilled KV handle of type {type(x).__name__} cannot be "
+            "taken: the port admits host arrays only (device-resident "
+            "handles are serving glue, ROADMAP Queue 1 item 8.5)")
+
+    def _take_prefilled(self, r: _Request):
+        """The request's shipped KV on the device in the cache dtype,
+        {"k", "v": (layers, ship, kvh, hd)}, and its logits on the host.
+        Counts the KV bytes as shipped; drops the host payload."""
+        p = r.prefilled
+        r.prefilled = None
+        k, v, logits = (self._take_handoff(p[key])
+                        for key in ("k", "v", "logits"))
+        r.handoff_bytes = k.nbytes + v.nbytes
+        self._handoff_bytes += r.handoff_bytes
+        # torch.tensor copies: the device copy never aliases the payload
+        kv = {key: torch.tensor(np.asarray(x, np.float32)).to(
+            self.device, self._cdt) for key, x in (("k", k), ("v", v))}
+        return kv, np.asarray(logits, np.float32)
+
+    def _admit_impl(self, slot: int, r: _Request) -> int:
+        """Prefill entry (executor thread): the paged or the monolithic
+        admit. Returns the first sampled token."""
+        if self._paged:
+            return self._admit_paged(slot, r)
+        return self._admit_monolithic(slot, r)
+
+    @torch.no_grad()
+    def _admit_monolithic(self, slot: int, r: _Request) -> int:
+        """Monolithic prefill: grow the cache if the request needs the
+        room, then fill the slot with the prompt's KV, from one bucketed
+        ``prefill``, chunked prefill (long prompts) or the shipped
+        payload re-padded to a bucket multiple (as the JAX engine pads
+        it, so the cache grows to the same length)."""
+        n = len(r.tokens)
+        need = n + r.max_new_tokens
+        pad_to = 0
+        if r.prefilled is not None:
+            length = int(r.prefilled["k"].shape[1])
+            big = self.buckets[-1]
+            pad_to = (self._bucket_for(length) if length <= big
+                      else -(-length // big) * big)
+            pad_to = min(pad_to, self.max_len)
+            need = max(need, pad_to)
+        if need > self._cache_len:
+            self._grow_cache(need)
+        if r.prefilled is not None:
+            kv, logits_np = self._take_prefilled(r)
+            pad = pad_to - kv["k"].shape[1]
+            if pad > 0:
+                kv = {k: F.pad(x, (0, 0, 0, 0, 0, pad))
+                      for k, x in kv.items()}
+            lm.write_prefill_to_cache(self._cache, kv, slot, n)
+        else:
+            if n <= self.buckets[-1]:
+                padded = self._to_dev(lm.pad_prompt(
+                    r.tokens, self._bucket_for(n)))
+                logits, kv = lm.prefill(self.params, padded, n, self.cfg,
+                                        self._cache_len)
+            else:
+                # accumulate into a bucket multiple >= the cache length,
+                # so a padded last piece never overruns it, then slice
+                # back to the cache length
+                chunk = self.buckets[-1]
+                acc = lm.zero_acc(self.cfg, -(-self._cache_len // chunk)
+                                  * chunk, self._cdt, self.device)
+                logits, acc = lm.chunked_prefill(self.params, r.tokens,
+                                                 self.buckets, acc, self.cfg)
+                kv = {k: x[:, :self._cache_len] for k, x in acc.items()}
+            lm.write_prefill_to_cache(self._cache, kv, slot, n)
+            logits_np = logits.float().cpu().numpy()   # host sync
+        self._slots[slot] = r
+        return self._sample_one(logits_np, r)
+
     @torch.no_grad()
     def _admit_paged(self, slot: int, r: _Request) -> int:
         """Paged prefill (executor thread): the scheduler already reserved
-        the block table; write the prompt's KV through it. Cold short
+        the block table; write the prompt's KV through it. A shipped
+        payload is padded to the accumulator and scattered; cold short
         prompts take one bucketed ``prefill`` and a scatter; prefix hits
         and long prompts take chunked prefill over a gathered
-        accumulator. Returns the first sampled token."""
+        accumulator. Prefix-hit blocks are never written (their targets
+        are trash). Returns the first sampled token."""
         n = len(r.tokens)
         table = r.kv_alloc["table"]
         hit = r.prefix_hit
         B = self._block
         self._tables[slot] = table
-        if hit == 0 and n <= self.buckets[-1]:
-            b = self._bucket_for(n)
-            padded = self._to_dev(lm.pad_prompt(r.tokens, b))
-            logits, kv = lm.prefill(self.params, padded, n, self.cfg, b)
-            nb = b // B
-            phys = np.full((nb,), kvcache.TRASH, np.int32)
-            phys[:min(nb, self._table_w)] = table[:min(nb, self._table_w)]
-            kvcache.scatter_bucket(self._pool, kv, phys, nb)
+        if r.prefilled is not None:
+            kv, logits_np = self._take_prefilled(r)
+            pad = self._acc_len() - kv["k"].shape[1]
+            acc = {k: F.pad(x, (0, 0, 0, 0, 0, pad)) for k, x in kv.items()}
+            targets = table.copy()
+            targets[:hit // B] = kvcache.TRASH
+            kvcache.scatter_table(self._pool, acc, targets)
         else:
-            logits = self._prefill_into_blocks(r, table, hit)
-        logits_np = logits.float().cpu().numpy()   # host sync
+            if hit == 0 and n <= self.buckets[-1]:
+                b = self._bucket_for(n)
+                padded = self._to_dev(lm.pad_prompt(r.tokens, b))
+                logits, kv = lm.prefill(self.params, padded, n, self.cfg, b)
+                nb = b // B
+                phys = np.full((nb,), kvcache.TRASH, np.int32)
+                phys[:min(nb, self._table_w)] = \
+                    table[:min(nb, self._table_w)]
+                kvcache.scatter_bucket(self._pool, kv, phys, nb)
+            else:
+                logits = self._prefill_into_blocks(r, table, hit)
+            logits_np = logits.float().cpu().numpy()   # host sync
         r.kv_written = True
         self._slots[slot] = r
         return self._sample_one(logits_np, r)
@@ -435,22 +654,12 @@ class LLMEngine:
                              hit: int) -> torch.Tensor:
         """Prefix-hit (and long-prompt) prefill: gather the table's cached
         blocks into a contiguous accumulator, run the suffix through
-        ``prefill_chunk`` in pieces aligned to the absolute chunk grid,
-        then scatter the new positions' KV back into the request's own
+        ``chunked_prefill`` from ``_prefill_start``, then scatter the new positions' KV back into the request's own
         blocks (shared prefix blocks target trash)."""
-        n = len(r.tokens)
-        chunk = self.buckets[-1]
         acc = kvcache.gather_table(self._pool, table, self._acc_len())
-        off = self._prefill_start(hit)
-        logits = None
-        while off < n:
-            end = min(n, ((off // chunk) + 1) * chunk)
-            part = r.tokens[off:end]
-            b = self._bucket_for(len(part))
-            padded = self._to_dev(lm.pad_prompt(part, b))
-            logits, acc = lm.prefill_chunk(self.params, padded, len(part),
-                                           off, acc, self.cfg)
-            off = end
+        logits, acc = lm.chunked_prefill(self.params, r.tokens, self.buckets,
+                                         acc, self.cfg,
+                                         self._prefill_start(hit))
         targets = table.copy()
         targets[:hit // self._block] = kvcache.TRASH
         kvcache.scatter_table(self._pool, acc, targets)
@@ -460,10 +669,11 @@ class LLMEngine:
     def _decode_impl(self, tokens: np.ndarray, temps: np.ndarray,
                      top_ps: np.ndarray, top_ks: np.ndarray,
                      block: int) -> np.ndarray:
-        """Returns (block, slots) int32 sampled tokens. Per-slot write
-        positions are host-derived (prompt + emitted - 1: the last
-        emitted token's KV lands this step); empty slots write into the
-        trash block."""
+        """Returns (block, slots) int32 sampled tokens. Paged: per-slot
+        write positions are host-derived (prompt + emitted - 1: the last
+        emitted token's KV lands this step), and empty slots write into
+        the trash block. Monolithic: the cache's length counters are the
+        write positions."""
         # decided on the host, so the device loop never syncs to branch:
         # all-greedy blocks skip the sampler, filters cost sorts only when
         # some active request enabled one
@@ -472,6 +682,12 @@ class LLMEngine:
         tv = self._to_dev(temps) if sampled else None
         tp = self._to_dev(top_ps) if filters_on else None
         tk = self._to_dev(top_ks) if filters_on else None
+        if not self._paged:
+            # write positions are the cache's own length counters
+            out, self._cache = lm.decode_steps(
+                self.params, self._cache, self._to_dev(tokens), tv,
+                self._gen, self.cfg, block, tp, tk)
+            return out.cpu().numpy()   # the block's one host sync
         lengths = np.zeros((self.max_slots,), np.int32)
         for i, r in enumerate(self._slots):
             if r is not None:
@@ -483,19 +699,73 @@ class LLMEngine:
             impl=self._kv_impl)
         return out.cpu().numpy()   # the block's one host sync
 
+    async def _spec_round(self, loop, active: List[int],
+                          drafts: dict) -> None:
+        """One draft-and-verify round: pad every active slot's
+        [last token, draft...] row to a verify-width bucket (repeating
+        the last token: pad columns write KV beyond the slot's logical
+        length, masked out of every attention and overwritten by the
+        next real write), score all positions in one forward, accept per
+        slot (``spec.accept_tokens``), roll back the host block
+        accounting of rejected tails, and emit 1..k+1 tokens per slot."""
+        w = specdec.bucket_width(
+            self._spec_buckets, 1 + max(len(d) for d in drafts.values()))
+        tokens_bw = np.zeros((self.max_slots, w), np.int32)
+        lengths = np.zeros((self.max_slots,), np.int32)
+        for i in active:
+            r = self._slots[i]
+            row = [r.out[-1]] + drafts.get(i, [])
+            row += [row[-1]] * (w - len(row))
+            tokens_bw[i] = row
+            lengths[i] = len(r.tokens) + len(r.out) - 1
+        logits = await loop.run_in_executor(
+            None, self._verify_impl, tokens_bw, lengths)
+        for i in active:
+            r = self._slots[i]
+            if r is None:
+                continue
+            d = drafts.get(i, [])
+            emitted, n_acc = specdec.accept_tokens(
+                logits[i, :len(d) + 1], d, temperature=r.temperature,
+                top_k=r.top_k, top_p=r.top_p, rng=self._rng)
+            if d:
+                r.drafter.record(len(d), n_acc)
+                r.spec_drafted += len(d)
+                r.spec_accepted += n_acc
+                if len(d) > n_acc:
+                    # host rollback of the rejected tail: under the
+                    # full-horizon reservation (min_blocks) it frees no
+                    # block, and it keeps the hash chain honest
+                    self._kv.truncate_seq(
+                        r.seq, len(r.tokens) + len(r.out) + len(emitted),
+                        min_blocks=self._kv.blocks_needed(
+                            len(r.tokens), r.max_new_tokens))
+            for t in emitted:
+                if self._slots[i] is not r:
+                    break   # finished mid-accept (eos/stop/max_new): the
+                            # tail of an accepted draft is dropped
+                self._emit_token(r, int(t), i)
+
+    @torch.no_grad()
+    def _verify_impl(self, tokens_bw: np.ndarray,
+                     lengths: np.ndarray) -> np.ndarray:
+        """Returns (slots, w, vocab) f32 verify logits on the host (the
+        round's one host sync)."""
+        logits, self._pool = kvcache.paged_verify_steps(
+            self.params, self._pool, self._to_dev(self._tables),
+            self._to_dev(lengths), self._to_dev(tokens_bw), self.cfg)
+        return logits.cpu().numpy()
+
     def _sample_one(self, logits: np.ndarray, r: _Request) -> int:
         """Host-side sampling of the first token (prefill output is one
-        logits vector), through the same ``filter_logits`` the device
-        sampler uses."""
+        logits vector), through ``spec.host_probs``: the temperature ->
+        top-k -> top-p transform the device sampler and the speculative
+        acceptance share."""
         if r.temperature <= 0:
             return int(np.argmax(logits))
-        scaled = (np.asarray(logits, np.float32)
-                  / max(float(r.temperature), 1e-6))[None]
-        masked = lm.filter_logits(
-            scaled, np.asarray([r.top_k], np.int32),
-            np.asarray([r.top_p], np.float32))[0].astype(np.float64)
-        e = np.exp(masked - masked.max())
-        return int(self._rng.choice(len(e), p=e / e.sum()))
+        p = specdec.host_probs(np.asarray(logits), r.temperature, r.top_k,
+                               r.top_p)
+        return int(self._rng.choice(len(p), p=p))
 
     def _emit_token(self, r: _Request, tok: int, slot: int):
         """Append one sampled token; finish the request if done."""
@@ -549,8 +819,8 @@ class LLMEngine:
 
     def _fail(self, r: _Request, slot: Optional[int], e: BaseException):
         self._free_kv(r, slot)
-        err = e if isinstance(e, DeadlineExceeded) else RuntimeError(
-            f"llm engine failed: {e}")
+        err = e if isinstance(e, (DeadlineExceeded, KVHandoffError)) \
+            else RuntimeError(f"llm engine failed: {e}")
         if slot is not None and self._slots[slot] is r:
             self._slots[slot] = None
         if r.stream is not None:

@@ -545,3 +545,59 @@ def paged_decode_steps(model, pool, tables, lengths, tokens, temps,
                                   impl=impl)
         outs.append(toks)
     return torch.stack(outs), pool
+
+
+def _paged_verify_core(model, pool, tables, lengths, tokens, cfg):
+    """Speculative verify against the block pool: score w in-flight
+    tokens per slot (the last emitted one and up to w-1 drafts) in one
+    forward, ``verify_tokens_core`` with the block-table write and
+    ``paged_attention_verify`` plugged in (the JAX package's gather twin:
+    the one-query kernel takes no multi-query rows). tokens (b, w) int32,
+    column 0 at cache position ``lengths``; all w KVs are written through
+    the table in place. A write past a slot's table clamps its block
+    index into the table's last row (as the JAX package's clip does):
+    within the full-horizon reservation such a write lands beyond the
+    logical length, masked out of every attention and overwritten by the
+    next real write, so a rejected draft needs no device rollback.
+    Returns (b, w, vocab) f32 logits; row j is the distribution for
+    position lengths+j+1."""
+    from ray_tpu_torch.llm.model import verify_tokens_core
+    from ray_tpu_torch.ops.paged_attention import paged_attention_verify
+    b, wq = tokens.shape
+    bs = pool["k"].shape[2]
+    w = tables.shape[1]
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    pos = lengths[:, None] + torch.arange(wq, dtype=lengths.dtype,
+                                          device=lengths.device)[None]
+    blk = torch.clamp(pos // bs, 0, w - 1).long()
+    off = (pos % bs).long()
+    phys = torch.take_along_dim(tables.long(), blk, dim=1)   # (b, wq)
+
+    def write(ck, cv, k, v):    # k/v: (b, wq, kvh, hd)
+        ck.index_put_((phys, off), k.to(ck.dtype))
+        cv.index_put_((phys, off), v.to(cv.dtype))
+
+    def attend(q, ck, cv, pos_grid):    # q: (b, wq, h, hd)
+        qg = q.reshape(b, wq, kvh, cfg.n_heads // kvh, hd)
+        o = paged_attention_verify(qg, ck, cv, tables, pos_grid + 1)
+        return o.reshape(b, wq, cfg.n_heads * hd)
+
+    return verify_tokens_core(model, pool["k"], pool["v"], tokens, lengths,
+                              cfg, write, attend)
+
+
+@torch.no_grad()
+def paged_verify_steps(model, pool, tables, lengths, tokens, cfg):
+    """One speculative verify round, the verify twin of
+    ``paged_decode_steps``: tokens (b, w) int32 with w from the engine's
+    verify-width buckets, tables (b, W) int32 and lengths (b,) int32 on
+    the pool's device. Returns ((b, w, vocab) f32 logits on the device,
+    pool); the pool is updated in place. Each call adds one to
+    ``paged_verify_steps.launches`` (verify forwards, read by
+    chip_smoke.py)."""
+    logits = _paged_verify_core(model, pool, tables, lengths, tokens, cfg)
+    paged_verify_steps.launches += 1
+    return logits, pool
+
+
+paged_verify_steps.launches = 0   # verify forwards, for chip_smoke.py

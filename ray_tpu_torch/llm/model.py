@@ -1,5 +1,6 @@
-"""Cache-aware Llama forwards for inference: prefill, chunked prefill and
-the single-token decode step.
+"""Cache-aware Llama forwards for inference: prefill, chunked prefill,
+the single-token decode step over the paged pool or the monolithic slot
+cache, and the speculative verify forward.
 
 Counterpart of ``ray_tpu/llm/model.py`` on the port's ``Llama`` module.
 PyTorch runs eagerly, so there is no jit and no per-shape compile: the
@@ -35,6 +36,22 @@ def pad_prompt(tokens, bucket: int) -> np.ndarray:
     out = np.zeros((bucket,), np.int32)
     out[:len(tokens)] = tokens
     return out
+
+
+def init_cache(cfg: LlamaConfig, slots: int, max_len: int,
+               dtype: torch.dtype, device, mesh=None) -> dict:
+    """The monolithic slot cache: k/v (layers, slots, max_len, kvh, hd),
+    zeroed, and ``length`` (slots,) int32, the cache position of each
+    slot's next token."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a cache sharded over a mesh (tensor-parallel serving) is not "
+            "ported yet: ROADMAP Queue 1 item 11")
+    shape = (cfg.n_layers, slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": torch.zeros((slots,), dtype=torch.int32,
+                                  device=device)}
 
 
 def _qkv(y, lyr, cfg: LlamaConfig):
@@ -138,6 +155,40 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, length: int,
     flash = flash_capable(cfg, tokens.device)
     return _prefill_chunk(model, tokens, int(length), int(offset), acc,
                           cfg, flash)
+
+
+def zero_acc(cfg: LlamaConfig, length: int, dtype: torch.dtype,
+             device) -> dict:
+    """A zeroed chunked-prefill accumulator: k/v (layers, length, kvh,
+    hd)."""
+    shape = (cfg.n_layers, length, cfg.n_kv_heads, cfg.head_dim)
+    return {key: torch.zeros(shape, dtype=dtype, device=device)
+            for key in ("k", "v")}
+
+
+@torch.no_grad()
+def chunked_prefill(model: Llama, tokens, buckets, acc: dict,
+                    cfg: LlamaConfig, start: int = 0
+                    ) -> Tuple[torch.Tensor, dict]:
+    """A long prompt (or a prefix hit's suffix) through ``prefill_chunk``:
+    ``tokens[start:]`` in pieces cut at multiples of the largest bucket
+    (the chunk grid), each padded to its own bucket and attending to every
+    earlier position of ``acc``, which is updated in place and must hold
+    the last padded piece. Returns (the last token's logits (vocab,) f32,
+    acc)."""
+    chunk = buckets[-1]
+    n = len(tokens)
+    off = start
+    logits = None
+    while off < n:
+        end = min(n, (off // chunk + 1) * chunk)
+        part = tokens[off:end]
+        padded = torch.tensor(pad_prompt(part, bucket_for(buckets,
+                                                          len(part))),
+                              device=acc["k"].device)
+        logits, acc = prefill_chunk(model, padded, len(part), off, acc, cfg)
+        off = end
+    return logits, acc
 
 
 def _prefill_chunk(model: Llama, tokens, length: int, offset: int,
@@ -323,3 +374,108 @@ def decode_token_core(model: Llama, kcache, vcache, tokens: torch.Tensor,
     x = _rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = model.lm_head(x[:, 0]).float()
     return sample(logits, temps, generator, top_ps, top_ks)
+
+
+@torch.no_grad()
+def verify_tokens_core(model: Llama, kcache, vcache, tokens: torch.Tensor,
+                       positions: torch.Tensor, cfg: LlamaConfig, write,
+                       attend) -> torch.Tensor:
+    """The speculative-verify transformer: decode_token_core widened from
+    one token per slot to w, with its write and attend hooks.
+    tokens: (b, w) int, column 0 the last emitted token and columns 1..w-1
+    the draft; positions: (b,) cache position of column 0. All w KVs are
+    written (position p+j for column j) in place; ``write(ck, cv, k, v)``
+    takes (b, w, kvh, hd) slabs, ``attend(q, ck, cv, pos)`` q (b, w, h,
+    hd) and the (b, w) position grid. Returns (b, w, vocab) f32 logits:
+    row j is the distribution for position p+j+1, the verdict on draft
+    token j+1. No device sampling: acceptance is a host decision
+    (``llm/spec.py``)."""
+    b, w = tokens.shape
+    x = model.embed(tokens.long())                          # (b, w, dim)
+    pos = positions[:, None] + torch.arange(
+        w, dtype=positions.dtype, device=positions.device)[None]
+    rc, rs = _rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    for i, lyr in enumerate(model.layers):
+        ck, cv = kcache[i], vcache[i]
+        y = _rmsnorm(x, lyr.attn_norm, cfg.norm_eps)
+        q, k, v = _qkv(y, lyr, cfg)                         # (b, w, ...)
+        q, k = _rope(q, rc, rs), _rope(k, rc, rs)
+        write(ck, cv, k, v)
+        o = attend(q, ck, cv, pos)
+        x = _layer_tail(x, o.reshape(b, w, -1), lyr, cfg)
+    x = _rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return model.lm_head(x).float()
+
+
+def _decode_core(model: Llama, cache: dict, tokens: torch.Tensor,
+                 temps: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator], cfg: LlamaConfig,
+                 top_ps: Optional[torch.Tensor] = None,
+                 top_ks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token for every slot against the monolithic cache: the new
+    token's KV lands at each slot's ``length``, the slot cache is the
+    attention view, and ``length`` advances by one, all in place (where
+    the JAX package donates the cache). A slot past the cache (an empty
+    slot whose length kept counting) writes its last position instead
+    of off the end, as JAX drops such a write: both are garbage that no
+    live request reads. Returns the sampled tokens (slots,) int32."""
+    b = tokens.shape[0]
+    positions = cache["length"]
+    rows = torch.arange(b, device=tokens.device)
+    at = torch.clamp(positions, max=cache["k"].shape[2] - 1).long()
+
+    def write(ck, cv, k, v):    # ck/cv: (slots, L, kvh, hd)
+        ck.index_put_((rows, at), k.to(ck.dtype))
+        cv.index_put_((rows, at), v.to(cv.dtype))
+
+    def view(ck, cv):
+        return ck, cv
+
+    out = decode_token_core(model, cache["k"], cache["v"], tokens,
+                            positions, temps, generator, cfg, write, view,
+                            top_ps, top_ks)
+    cache["length"] += 1
+    return out
+
+
+@torch.no_grad()
+def decode_step(model: Llama, cache: dict, tokens: torch.Tensor,
+                temps: Optional[torch.Tensor],
+                generator: Optional[torch.Generator],
+                cfg: LlamaConfig) -> Tuple[torch.Tensor, dict]:
+    """One decode step for every slot; returns (tokens (slots,) int32,
+    cache), the cache updated in place."""
+    return _decode_core(model, cache, tokens, temps, generator, cfg), cache
+
+
+@torch.no_grad()
+def decode_steps(model: Llama, cache: dict, tokens: torch.Tensor,
+                 temps: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator], cfg: LlamaConfig,
+                 n: int, top_ps: Optional[torch.Tensor] = None,
+                 top_ks: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, dict]:
+    """n chained decode steps as a loop on the device, each feeding its
+    sampled tokens to the next with no host sync; ``temps=None`` samples
+    greedily. Returns (tokens (n, slots) int32 on the device, cache); the
+    caller syncs once when it copies the tokens. Slots whose request
+    finishes mid-block produce discardable garbage."""
+    outs = []
+    toks = tokens
+    for _ in range(n):
+        toks = _decode_core(model, cache, toks, temps, generator, cfg,
+                            top_ps, top_ks)
+        outs.append(toks)
+    return torch.stack(outs), cache
+
+
+@torch.no_grad()
+def write_prefill_to_cache(cache: dict, kv: dict, slot: int,
+                           length: int) -> dict:
+    """Install a prefilled request's KV (layers, n, kvh, hd), n <= the
+    cache length, into ``slot`` in place, and set its length."""
+    n = kv["k"].shape[1]
+    for key in ("k", "v"):
+        cache[key][:, slot, :n] = kv[key].to(cache[key].dtype)
+    cache["length"][slot] = int(length)
+    return cache

@@ -70,6 +70,39 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths):
     return torch.einsum("bkgl,blkd->bkgd", probs, vv)
 
 
+def paged_attention_verify(q, k_pool, v_pool, tables, lengths):
+    """Multi-query verify attention through block tables, for
+    speculative decoding: w in-flight queries per slot (the last emitted
+    token and up to w-1 draft tokens), query j attending the cached
+    history plus the draft tokens written ahead of it this round.
+
+    q (slots, w, kvh, g, hd); k/v pool one layer (num_blocks, bs, kvh,
+    hd); tables (slots, width) int; lengths (slots, w) int, valid
+    positions per query including its own token (column j = cached + j
+    + 1) -> (slots, w, kvh, g, hd) float32.
+
+    The plain gather twin of ``ray_tpu.ops.pallas.paged_attention.
+    paged_attention_verify``, which is jnp and no Pallas kernel: it
+    gathers the table view once per layer, so one verify round pays one
+    gather where w sequential decode steps walked the table w times.
+    Exact-zero masking (NEG_INF, then softmax) keeps pool bytes beyond
+    each query's mask out of its row. It runs as the same PyTorch ops on
+    any device and counts no launches."""
+    b, wq, kvh, g, hd = q.shape
+    bs = k_pool.shape[1]
+    w = tables.shape[1]
+    t = tables.long()
+    vk = k_pool[t].reshape(b, w * bs, kvh, hd).float()
+    vv = v_pool[t].reshape(b, w * bs, kvh, hd).float()
+    scores = torch.einsum("bwkgd,blkd->bwkgl", q.float(), vk) / math.sqrt(hd)
+    mask = (torch.arange(w * bs, device=q.device)[None, None]
+            < lengths.to(q.device)[:, :, None])           # (b, wq, w*bs)
+    scores = torch.where(mask[:, :, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bwkgl,blkd->bwkgd", probs, vv)
+
+
 # split blocks the grid aims at per SM (the kernel fits four at once): at
 # 8 slots x 8 kv heads, width 64 and 132 SMs, 16 splits of 4 entries (one
 # 64-position stage at block size 16), 1024 blocks before the splits past
@@ -204,5 +237,5 @@ def work(lengths, kvh: int, g: int, hd: int, pool_itemsize: int,
     return {"bytes": nbytes, "flops": 4 * hd * kvh * g * live}
 
 
-__all__ = ["paged_attention", "paged_attention_reference", "split_span",
-           "work"]
+__all__ = ["paged_attention", "paged_attention_reference",
+           "paged_attention_verify", "split_span", "work"]

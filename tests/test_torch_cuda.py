@@ -260,6 +260,97 @@ def test_tiny_engine_on_card_matches_cpu(dev):
     assert hit_gpu == hit_cpu > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("wq", [2, 3, 5])
+def test_paged_attention_verify_matches_k4_per_row(dev, dtype, wq):
+    """paged_attention_verify (plain PyTorch on the card) against K4: row
+    j at cached lengths on both sides of block and split edges equals K4
+    with row j's query at lengths + j + 1."""
+    slots, kvh, g, hd, bs, w = 8, 8, 4, 128, 16, 64
+    _, kp, vp, tables = _paged_inputs(dev, 40 + wq, slots, kvh, g, hd, bs,
+                                      w, dtype)
+    gen = torch.Generator(device=dev).manual_seed(wq)
+    q = torch.randn((slots, wq, kvh, g, hd), generator=gen, device=dev,
+                    dtype=dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    span = pa.split_span(slots, kvh, w, bs, sms) * bs
+    cached = [0, bs - wq, bs - 1, bs, span - wq, span - 1, span + 1,
+              w * bs - wq]
+    lens = torch.tensor(cached, dtype=torch.int32, device=dev)
+    steps = torch.arange(1, wq + 1, dtype=torch.int32, device=dev)
+    got = pa.paged_attention_verify(q, kp, vp, tables,
+                                    lens[:, None] + steps[None])
+    assert got.dtype == torch.float32
+    for j in range(wq):
+        want = pa.paged_attention(q[:, j].contiguous(), kp, vp, tables,
+                                  lens + j + 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[:, j], want, atol=2e-5, rtol=2e-5)
+
+
+def _tiny_streams(model, device, mode, reqs):
+    """Greedy streams of the tiny engine in one of the serving modes:
+    speculative (periodic prompts draft), monolithic, or prefill/decode
+    handoff (PrefillEngine payloads admitted by a paged engine)."""
+    from ray_tpu_torch.llm.engine import LLMEngine
+    from ray_tpu_torch.llm.pd import PrefillEngine
+    cfg = model.cfg
+    kw = dict(max_slots=2, max_len=128, prefill_buckets=(16, 32),
+              cache_dtype="float32", device=device)
+    if mode == "spec":
+        kw["spec"] = True
+    if mode == "monolithic":
+        kw["kv_block_size"] = 0
+    payloads = [None] * len(reqs)
+    if mode == "pd":
+        pre = PrefillEngine(cfg, model, prefill_buckets=(16, 32),
+                            max_len=128, cache_dtype="float32",
+                            device=device)
+        payloads = [pre.prefill(p) for p, _ in reqs]
+
+    async def run():
+        eng = LLMEngine(cfg, model, **kw)
+        outs = await asyncio.gather(*[
+            eng.generate(p, max_new_tokens=n, prefilled=pl)
+            for (p, n), pl in zip(reqs, payloads)])
+        await eng.stop()
+        return [o["tokens"] for o in outs]
+
+    return asyncio.run(run())
+
+
+@pytest.mark.parametrize("mode", ["spec", "monolithic", "pd"])
+def test_tiny_serving_modes_on_card_match_cpu(dev, mode):
+    """Speculative decoding, the monolithic cache and the prefill/decode
+    handoff on the card (K1, K4 where the mode runs it, the verify
+    forward) against the same engines on the CPU's plain versions: f32
+    weights, so greedy streams agree."""
+    from ray_tpu_torch.llm import kvcache
+    from ray_tpu_torch.models import llama
+    cfg = llama.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                     n_kv_heads=2, ffn_dim=512, dtype="float32")
+    cpu = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu = llama.empty_model(cfg, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    pat = [int(t) for t in rng.integers(1, 255, 12)]
+    reqs = [((pat * 6)[:60], 24), ([int(t) for t in
+                                    rng.integers(1, 255, 70)], 12),
+            ([int(t) for t in rng.integers(1, 255, 9)], 8)]
+    counts0 = (fa.flash_attention_fwd.launches, pa.paged_attention.launches,
+               kvcache.paged_verify_steps.launches)
+    on_gpu = _tiny_streams(gpu, dev, mode, reqs)
+    k1, k4, verify = (a - b for a, b in zip(
+        (fa.flash_attention_fwd.launches, pa.paged_attention.launches,
+         kvcache.paged_verify_steps.launches), counts0))
+    assert k1 > 0
+    if mode != "spec":      # spec decodes through K4 when no slot drafts
+        assert (k4 == 0) == (mode == "monolithic")
+    assert (verify > 0) == (mode == "spec")
+    assert on_gpu == _tiny_streams(cpu, "cpu", mode, reqs)
+
+
 LSE_CASES = [
     # b, sq, sk, h, kvh, causal
     (1, 64, 64, 4, 4, True),

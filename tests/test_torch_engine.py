@@ -152,9 +152,7 @@ def test_deadline_exceeded(models):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kv_block_size=0), "monolithic"),
     (dict(mesh=object()), "tensor-parallel"),
-    (dict(spec=True), "speculative"),
 ])
 def test_unported_options_raise(models, kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -164,8 +162,9 @@ def test_unported_options_raise(models, kw, match):
 def test_prefilled_and_bad_requests_raise(models):
     async def go():
         eng = _engine(models)
-        with pytest.raises(NotImplementedError, match="prefilled"):
-            await eng.generate([1, 2], prefilled={"k": None})
+        with pytest.raises(ValueError, match="prefilled payload missing"):
+            await eng.generate([1, 2], max_new_tokens=4,
+                               prefilled={"k": None})
         with pytest.raises(ValueError, match="max_len"):
             await eng.generate([1] * 60, max_new_tokens=8)
         with pytest.raises(ValueError, match="empty prompt"):

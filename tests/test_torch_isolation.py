@@ -30,7 +30,8 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.ops.flash_attention",
                 "ray_tpu_torch.ops.paged_attention",
                 "ray_tpu_torch.llm.model", "ray_tpu_torch.llm.kvcache",
-                "ray_tpu_torch.llm.engine", "ray_tpu_torch.parallel",
+                "ray_tpu_torch.llm.engine", "ray_tpu_torch.llm.spec",
+                "ray_tpu_torch.llm.pd", "ray_tpu_torch.parallel",
                 "ray_tpu_torch.parallel.mesh"]
 
 

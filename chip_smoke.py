@@ -26,8 +26,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      through prefilled=), each with its launch counts and its streams
      held to the paged engine's (a stream passes a difference only if,
      from the first one on, each of its tokens is a near tie of a
-     teacher-forced plain-attention forward's top logit); then a
-     steady-state decode step (paged and monolithic), a verify forward
+     teacher-forced plain-attention forward's top logit). Every request
+     runs under its own trace context; what the engine's observability
+     reports is held to the phase's own counts (``check_obs``: K4's
+     decode steps, prefix hits, the KV gauges, one queue, prefill and
+     generate span per request, the decode batch spans, the device
+     windows and duty cycle, the HBM row; the spec phase's drafted,
+     accepted and rejected tokens; the PD phase's handoff bytes, now the
+     bf16 payload's). Then the hooks' host cost: the decode step's host
+     wall with tracing and the device monitor on, off, on, off, and the
+     host seconds inside the hooks per decode block (``run_hooks``); then
+     a steady-state decode step (paged and monolithic), a verify forward
      and a prefill, timed and traced for the device's busy share;
   5. the training kernels (K1 with lse, K2, K3) against their plain
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
@@ -403,6 +412,137 @@ def serving_counts() -> dict:
             "verify_forwards": kvcache.paged_verify_steps.launches}
 
 
+def reset_obs() -> None:
+    """Empty the port's metrics registry, event buffers and device-monitor
+    state just before a serving path is driven (each engine registers its
+    series when it is built), so what they hold after it is that path's."""
+    from ray_tpu_torch.util import devmon, events, metrics
+    metrics.reset()
+    events.clear()
+    devmon._reset_for_tests()
+
+
+def metric(name: str, **tags) -> float:
+    """A counter's or gauge's value in the port's registry (0 if unset)."""
+    from ray_tpu_torch.util import metrics
+    m = metrics._REGISTRY.get(name)
+    return 0.0 if m is None else m._values.get(
+        tuple(sorted(tags.items())), 0.0)
+
+
+def hist(name: str):
+    """(count, sum) of an untagged histogram in the port's registry."""
+    from ray_tpu_torch.util import metrics
+    m = metrics._REGISTRY.get(name)
+    if m is None:
+        return 0, 0.0
+    return sum(m._counts.get((), [])), m._sums.get((), 0.0)
+
+
+def live_hbm(model, into: dict):
+    """A ``serve`` ``live`` hook: ``hbm_snapshot()`` taken while the
+    engine still holds its KV pool, with the bytes the weights and the
+    whole pool (every block, the trash block too) must hold on the card,
+    stored in ``into``."""
+    from ray_tpu_torch.llm import kvcache
+    from ray_tpu_torch.util import devmon
+
+    def hook(eng):
+        into.update(
+            rows=devmon.hbm_snapshot(),
+            weights=sum(t.nbytes for t in model.parameters()),
+            pool=kvcache.pool_block_bytes(eng._pool)
+            * eng._pool["k"].shape[1])
+    return hook
+
+
+def check_obs(label: str, runs, prompts, stats, launches, cfg,
+              card: str, hbm: dict) -> dict:
+    """What the engine reported of a paged serving path just driven
+    (``reset_obs`` before it), held to the path's own counts: K4's decode
+    steps (its launches over the layers) equal
+    ``llm_paged_attn_steps_total{impl="paged_flash"}``; the prefix-hit
+    counter equals ``stats``; the KV gauges equal the pool's block bytes
+    times (used + cached) and times free blocks; every request's trace
+    has one queue, one prefill and one generate span, the generate
+    span's kv_bytes the block's per-token bytes times prompt + output;
+    every decode batch span names paged_flash; prefill and decode device
+    windows exist and the duty cycle is in (0, 1]; ``hbm_snapshot`` taken
+    while the engine was live (``live_hbm``) has one row, cuda:0, with
+    weights + KV pool <= used <= peak <= limit = mem_get_info's total;
+    llm_ttft_wall_s and llm_queue_s count every request. Prints one
+    ``metrics`` line."""
+    from ray_tpu_torch.util import devmon, events
+    n = len(runs)
+    bb = (cfg.n_layers * stats["block_size"] * cfg.n_kv_heads * cfg.head_dim
+          * 2 * 2)                           # k and v, bf16
+    steps = metric("llm_paged_attn_steps_total", impl="paged_flash")
+    evs = events.dump()
+    spans = {}
+    for e in evs:
+        if e.get("cat") == "request" and e.get("name") == "span":
+            spans.setdefault(e["trace"], []).append(e)
+    batches = [e for e in evs if e.get("cat") == "request"
+               and e.get("name") == "batch"]
+    windows = sorted({e["seg"] for e in evs
+                      if e.get("cat") == "device_window"})
+    duty = devmon.duty_cycle()
+    rows = hbm["rows"]
+    total = torch.cuda.mem_get_info()[1]
+    ttft_n, ttft_sum = hist("llm_ttft_wall_s")
+    queue_n, queue_sum = hist("llm_queue_s")
+    bad = []
+    if steps * cfg.n_layers != launches["paged_attention"] or steps <= 0:
+        bad.append(f"paged_attn_steps {steps} x {cfg.n_layers} layers != "
+                   f"K4 launches {launches['paged_attention']}")
+    if metric("llm_prefix_hit_tokens_total") != stats["prefix_hit_tokens"]:
+        bad.append("prefix hit tokens")
+    kv = metric("llm_kv_cache_bytes")
+    head = metric("llm_kv_cache_headroom_bytes")
+    if kv != bb * (stats["blocks_used"] + stats["blocks_cached"]) \
+            or head != bb * stats["blocks_free"]:
+        bad.append(f"KV gauges {kv}, {head} vs block bytes {bb} and {stats}")
+    for (out, _, _), p in zip(runs, prompts):
+        segs = sorted(e["seg"] for e in spans.get(out["trace_id"], []))
+        gen = [e for e in spans.get(out["trace_id"], [])
+               if e["seg"] == "generate"]
+        want = int(bb / stats["block_size"] * (len(p) + len(out["tokens"])))
+        if segs != ["generate", "prefill", "queue"] or \
+                gen[0]["kv_bytes"] != want:
+            bad.append(f"trace {out['trace_id']}: spans {segs}, kv_bytes "
+                       f"{[e.get('kv_bytes') for e in gen]} vs {want}")
+    if not batches or {b["kv_impl"] for b in batches} != {"paged_flash"}:
+        bad.append(f"batch spans {len(batches)}, impls "
+                   f"{sorted({b['kv_impl'] for b in batches})}")
+    if windows != ["decode", "prefill"] or not 0.0 < duty <= 1.0:
+        bad.append(f"device windows {windows}, duty cycle {duty}")
+    held = hbm["weights"] + hbm["pool"]
+    if len(rows) != 1 or rows[0]["device"] != "cuda:0" or not (
+            held <= rows[0]["used"] <= rows[0]["peak"] <= rows[0]["limit"]
+            == total):
+        bad.append(f"live hbm rows {rows}: weights {hbm['weights']} + KV "
+                   f"pool {hbm['pool']} bytes (mem_get_info total {total})")
+    if ttft_n != n or queue_n != n:
+        bad.append(f"ttft/queue counts {ttft_n}/{queue_n} for {n} requests")
+    out = dict(paged_attn_steps=steps, decode_batch_spans=len(batches),
+               prefix_hit_tokens=metric("llm_prefix_hit_tokens_total"),
+               kv_cache_bytes=kv, kv_headroom_bytes=head,
+               gather_bytes_avoided=metric(
+                   "llm_kv_gather_bytes_avoided_total"),
+               ttft_wall_mean_s=ttft_sum / max(1, ttft_n),
+               queue_mean_s=queue_sum / max(1, queue_n),
+               tpot_mean_s=hist("llm_tpot_s")[1] / max(
+                   1, hist("llm_tpot_s")[0]),
+               duty_cycle=duty, hbm=rows[0] if rows else None,
+               weights_bytes=hbm["weights"], kv_pool_bytes=hbm["pool"],
+               traces=len(spans))
+    print(f"metrics {label} [{card}]: {json.dumps(out)}")
+    if bad:
+        raise SystemExit(f"{label}: the engine's metrics, spans or device "
+                         "monitor disagree: " + "; ".join(bad))
+    return out
+
+
 def latency_line(runs, wall: float) -> str:
     """TTFT and TPOT p50 and generated tok/s of concurrent requests, each
     run (result, submitted at, done at) on the host clock."""
@@ -420,18 +560,28 @@ SERVE_KW = dict(max_slots=8, max_len=1024,
                 prefill_buckets=(64, 128, 256, 512))
 
 
-def serve(model, cfg, prompts, new, then=(), payloads=None, **kw):
+def serve(model, cfg, prompts, new, then=(), payloads=None, live=None,
+          **kw):
     """Drive one LLMEngine (SERVE_KW and ``kw``): every prompt submitted
     at once (through ``prefilled=`` payloads where given), then each
-    prompt of ``then`` alone, greedy, ``new`` tokens each. Returns (runs,
+    prompt of ``then`` alone, greedy, ``new`` tokens each; ``live(eng)``,
+    where given, is called after the last request, before ``stop()``
+    frees the engine's cache. Each request
+    runs under its own trace context, minted and bound inside its
+    coroutine as a serve replica binds it (none while request tracing is
+    off); its result carries the context's ``trace_id``. Returns (runs,
     wall seconds of the concurrent part, runs of ``then``, stats); a run
     is (result, submitted at, done at) on the host clock."""
     from ray_tpu_torch.llm.engine import LLMEngine
+    from ray_tpu_torch.util import tracing
 
     async def one(eng, p, payload=None):
+        ctx = tracing.mint_context()
+        tracing.set_request_context(ctx)
         t_sub = time.monotonic()
         extra = {} if payload is None else {"prefilled": payload}
         out = await eng.generate(p, max_new_tokens=new, **extra)
+        out["trace_id"] = ctx.trace_id if ctx is not None else None
         return out, t_sub, time.monotonic()
 
     async def go():
@@ -442,6 +592,8 @@ def serve(model, cfg, prompts, new, then=(), payloads=None, **kw):
             for i, p in enumerate(prompts)])
         wall = time.monotonic() - t0
         later = [await one(eng, p) for p in then]
+        if live is not None:
+            live(eng)
         stats = eng.stats
         await eng.stop()
         return runs, wall, later, stats
@@ -520,10 +672,15 @@ def run_engine(card: str):
     repeat = prompts[0][:256] + [int(t) for t in
                                  rng.integers(0, cfg.vocab_size, 40)]
     new = 32
+    hbm = {}
     reset_serving_counts()
+    reset_obs()
     first, wall, (hit,), stats = serve(model, cfg, prompts, new,
-                                       then=[repeat])
+                                       then=[repeat],
+                                       live=live_hbm(model, hbm))
     launches = serving_counts()
+    obs = check_obs("engine", first + [hit], prompts + [repeat], stats,
+                    launches, cfg, card, hbm)
     for out, _, _ in first + [hit]:
         toks = out["tokens"]
         if len(toks) != new or not all(0 <= t < cfg.vocab_size
@@ -556,7 +713,7 @@ def run_engine(card: str):
         raise SystemExit("prefill logits through K1 disagree")
     ref = dict(prompts=prompts, repeat=repeat, new=new,
                streams=[o["tokens"] for o, _, _ in first],
-               hit_stream=hit[0]["tokens"])
+               hit_stream=hit[0]["tokens"], obs=obs)
     return launches, model, cfg, ref
 
 
@@ -800,6 +957,7 @@ def run_spec(model, cfg, pa, gen, card: str) -> dict:
                     blocks=blocks, verify_s=parts["_verify_impl"][1],
                     decode_s=parts["_decode_impl"][1], done=done)
 
+    reset_obs()
     spec_a = drive(True)
     van_a = drive(False)
     van_b = drive(False)
@@ -824,6 +982,18 @@ def run_spec(model, cfg, pa, gen, card: str) -> dict:
     if launches["verify_forwards"] <= 0 or seen["drafted"] <= 0:
         raise SystemExit(f"the spec drive ran no verify forward or drafted "
                          f"nothing: {launches}, {seen}")
+    kinds = {k: metric("llm_spec_tokens_total", kind=k)
+             for k in ("drafted", "accepted", "rejected")}
+    print(f"metrics spec [{card}]: llm_spec_tokens_total {kinds}, "
+          f"llm_spec_accept_rate (last finished request) "
+          f"{metric('llm_spec_accept_rate'):.4f}; drafts counted by "
+          f"wrapping accept_tokens: {seen['drafted']} drafted, "
+          f"{seen['accepted']} accepted")
+    if kinds["drafted"] != seen["drafted"] or kinds["accepted"] != \
+            seen["accepted"] or \
+            kinds["accepted"] + kinds["rejected"] != kinds["drafted"]:
+        raise SystemExit(f"llm_spec_tokens_total {kinds} disagrees with "
+                         f"the drafts counted: {seen}")
     want = [o["tokens"] for o, _, _ in van_a["runs"]]
     flips = []
     for tag, d in (("spec A", spec_a), ("spec B", spec_b),
@@ -857,8 +1027,10 @@ def run_pd(model, cfg, ref: dict, card: str) -> dict:
     prompts (K1 launches), then a paged LLMEngine admitting the payloads
     through prefilled= (K4 launches). Streams of prompts of at most 512
     tokens equal run_engine's; the 700-token prompt's may differ by a
-    near-tie flip. handoff_bytes is the block-granular ship length x
-    layers x kv heads x head_dim x 4 bytes x 2 (k and v, float32)."""
+    near-tie flip. The payload ships in the cache dtype (bf16 as uint16
+    bits), so handoff_bytes and llm_kv_handoff_bytes_total are the
+    block-granular ship length x layers x kv heads x head_dim x 2 bytes x
+    2 (k and v)."""
     from ray_tpu_torch.llm.pd import PrefillEngine
     prompts = ref["prompts"]
     pre = PrefillEngine(cfg, model, max_len=SERVE_KW["max_len"],
@@ -870,27 +1042,154 @@ def run_pd(model, cfg, ref: dict, card: str) -> dict:
     k1 = serving_counts()
     ship = [-(-len(p) // pre.block_size) * pre.block_size for p in prompts]
     want_bytes = (sum(ship) * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
-                  * 4 * 2)
+                  * 2 * 2)
+    dtypes = sorted({(p["kv_dtype"], str(p["k"].dtype)) for p in payloads})
     reset_serving_counts()
+    reset_obs()
     runs, wall, _, stats = serve(model, cfg, prompts, ref["new"],
                                  payloads=payloads)
     k4 = serving_counts()
+    counted = metric("llm_kv_handoff_bytes_total")
     print(f"PD handoff [{card}]: PrefillEngine over {len(prompts)} prompts "
           f"in {prefill_s:.2f} s (launches {k1}); decode engine "
-          f"{latency_line(runs, wall)} (launches {k4}); handoff_bytes "
-          f"{stats['handoff_bytes']} (expected {want_bytes}, ship lengths "
-          f"{ship})")
+          f"{latency_line(runs, wall)} (launches {k4}); payload KV "
+          f"{dtypes}; handoff_bytes {stats['handoff_bytes']}, "
+          f"llm_kv_handoff_bytes_total {counted:.0f} (expected "
+          f"{want_bytes}, ship lengths {ship})")
     if k1["flash_attention_fwd"] <= 0 or k4["paged_attention"] <= 0:
         raise SystemExit(f"PD must launch K1 on the prefill side and K4 on "
                          f"the decode side: {k1}, {k4}")
-    if stats["handoff_bytes"] != want_bytes:
-        raise SystemExit("handoff_bytes is not the block-granular payload")
+    if dtypes != [("bfloat16", "uint16")]:
+        raise SystemExit(f"the payload is not bf16 bits: {dtypes}")
+    if stats["handoff_bytes"] != want_bytes or counted != want_bytes:
+        raise SystemExit("handoff bytes are not the block-granular bf16 "
+                         "payload")
     flips = check_streams(
         model, cfg, "PD vs unified", prompts,
         [o["tokens"] for o, _, _ in runs], ref["streams"],
         exact=[i for i, p in enumerate(prompts) if len(p) <= 512])
     return dict(prefill=k1, decode=k4, flips=flips,
                 handoff_bytes=stats["handoff_bytes"])
+
+
+def hook_timers(timers: dict):
+    """Wrap the observability hooks the engine calls (the tracing and
+    device-monitor record paths, context binding, the metric updates, the
+    KV accounting) to add their host seconds and calls to ``timers`` by
+    name, counting only the outermost hook of a nested call; returns the
+    undo."""
+    import threading
+
+    from ray_tpu_torch.llm.engine import LLMEngine
+    from ray_tpu_torch.util import devmon, metrics, tracing
+    depth = threading.local()
+    saved = []
+    for owner, name in ((tracing, "record_request_span"),
+                        (tracing, "record_batch_span"),
+                        (tracing, "set_request_context"),
+                        (tracing, "reset_request_context"),
+                        (devmon, "record_device_window"),
+                        (metrics.Counter, "inc"), (metrics.Gauge, "set"),
+                        (metrics.Histogram, "observe"),
+                        (LLMEngine, "_kv_account")):
+        real = getattr(owner, name)
+        saved.append((owner, name, real))
+        key = f"{getattr(owner, '__name__', owner)}.{name}".split(".")[-2:]
+
+        def wrap(*args, _real=real, _key=".".join(key), **kw):
+            outer = getattr(depth, "n", 0) == 0
+            depth.n = getattr(depth, "n", 0) + 1
+            t0 = time.monotonic()
+            try:
+                return _real(*args, **kw)
+            finally:
+                depth.n -= 1
+                if outer:
+                    rec = timers.setdefault(_key, [0, 0.0])
+                    rec[0] += 1
+                    rec[1] += time.monotonic() - t0
+        setattr(owner, name, wrap)
+
+    def undo():
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+    return undo
+
+
+def run_hooks(model, cfg, card: str) -> dict:
+    """What the observability hooks cost on the host: LLMEngine
+    (SERVE_KW) serving 8 random 480-token prompts (seed 3), 65 new greedy
+    tokens each (one from the prefill, then 8 blocks of 8 decode steps at
+    480-544 cached tokens, 512 on average), six times: request tracing
+    and the device monitor on, off, on, off, on, off. They are switched
+    by the module switches ``tracing._REQ`` and ``devmon._ENABLED``; the
+    metrics registry has no switch and stays on; with tracing off no
+    request gets a trace context, as behind an ingress that mints none. A
+    drive's decode step host wall is the mean interval between
+    consecutive decode blocks' starts (``_decode_impl`` entries; all 8
+    slots are active from the first block on) over the block's steps.
+    Its hook seconds per decode block are the host seconds inside the
+    wrapped hooks (``hook_timers``) over the drive, divided by its decode
+    blocks. K1 and K4 must launch."""
+    from ray_tpu_torch.llm.engine import LLMEngine
+    from ray_tpu_torch.util import devmon, tracing
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, 480)]
+               for _ in range(8)]
+    new = 65
+    switches = (tracing._REQ, devmon._ENABLED)
+    real_decode = LLMEngine._decode_impl
+    drives = []
+    reset_serving_counts()
+    try:
+        for on in (True, False) * 3:
+            tracing._REQ = devmon._ENABLED = on
+            starts, timers = [], {}
+
+            def decode_impl(self, tokens, temps, top_ps, top_ks, block):
+                starts.append((time.monotonic(), block))
+                return real_decode(self, tokens, temps, top_ps, top_ks,
+                                   block)
+
+            LLMEngine._decode_impl = decode_impl
+            undo = hook_timers(timers)
+            try:
+                runs, wall, _, _ = serve(model, cfg, prompts, new)
+            finally:
+                undo()
+                LLMEngine._decode_impl = real_decode
+            step_ms = [(b[0] - a[0]) / a[1] * 1e3
+                       for a, b in zip(starts, starts[1:])]
+            hook_s = sum(v[1] for v in timers.values())
+            drives.append(dict(
+                on=on, blocks=len(starts), step_ms=float(np.mean(step_ms)),
+                hook_ms_per_block=hook_s / len(starts) * 1e3,
+                hooks={k: [v[0], round(v[1] * 1e3, 3)]
+                       for k, v in sorted(timers.items())},
+                traced=sum(o["trace_id"] is not None for o, _, _ in runs)))
+            d = drives[-1]
+            print(f"hooks {'on ' if on else 'off'} [{card}]: decode step "
+                  f"host wall {d['step_ms']:.3f} ms (mean of "
+                  f"{len(step_ms)} block intervals / 8 steps; "
+                  f"{[round(x, 2) for x in step_ms]}), hooks "
+                  f"{d['hook_ms_per_block']:.4f} ms per decode block "
+                  f"({d['blocks']} blocks; calls and ms by hook "
+                  f"{d['hooks']}), {d['traced']} requests traced; "
+                  f"{latency_line(runs, wall)}")
+    finally:
+        tracing._REQ, devmon._ENABLED = switches
+    launches = serving_counts()
+    if min(launches["flash_attention_fwd"], launches["paged_attention"]) <= 0:
+        raise SystemExit(f"the hooks phase launched no K1 or K4: {launches}")
+    if [d["traced"] for d in drives] != [8, 0] * 3:
+        raise SystemExit(f"traced requests {[d['traced'] for d in drives]}")
+    on = [d["step_ms"] for d in drives if d["on"]]
+    off = [d["step_ms"] for d in drives if not d["on"]]
+    print(f"hooks [{card}]: decode step host wall on {on} ms, off {off} ms "
+          f"(on - off {np.mean(on) - np.mean(off):+.3f} ms); hooks "
+          f"{[round(d['hook_ms_per_block'], 4) for d in drives]} ms per "
+          f"decode block (on, off in turns); launches {launches}")
+    return dict(launches=launches, drives=drives)
 
 
 def check_train_kernels(fa, gen) -> dict:
@@ -1226,8 +1525,12 @@ def main() -> int:
 
     t0 = time.monotonic()
     reports = _build.build_all()
+    from ray_tpu_torch.util import events
+    compiles = [(e["fn"], round(e["dur"], 2)) for e in events.dump()
+                if e.get("name") == "compile"]
     print(f"build: {len(reports)} kernel sources in "
-          f"{time.monotonic() - t0:.1f} s")
+          f"{time.monotonic() - t0:.1f} s; compiles recorded by the device "
+          f"monitor (source, nvcc s): {compiles}")
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1241,6 +1544,7 @@ def main() -> int:
     mono = run_monolithic(model, cfg, ref, card)
     spec = run_spec(model, cfg, pa, gen, card)
     pd = run_pd(model, cfg, ref, card)
+    hooks = run_hooks(model, cfg, card)
     breakdown(model, cfg, card, mono["step"], spec["step"])
     del model
     gc.collect()
@@ -1249,11 +1553,13 @@ def main() -> int:
     serve_k1 = {"serve": launches["flash_attention_fwd"],
                 "serve_monolithic": mono["launches"]["flash_attention_fwd"],
                 "serve_spec": spec["launches"]["flash_attention_fwd"],
-                "serve_pd": pd["prefill"]["flash_attention_fwd"]}
+                "serve_pd": pd["prefill"]["flash_attention_fwd"],
+                "serve_hooks": hooks["launches"]["flash_attention_fwd"]}
     serve_k4 = {"serve": launches["paged_attention"],
                 "serve_monolithic": mono["launches"]["paged_attention"],
                 "serve_spec": spec["launches"]["paged_attention"],
-                "serve_pd": pd["decode"]["paged_attention"]}
+                "serve_pd": pd["decode"]["paged_attention"],
+                "serve_hooks": hooks["launches"]["paged_attention"]}
 
     tk = check_train_kernels(fa, gen)
     check_train_parity(fa, card)

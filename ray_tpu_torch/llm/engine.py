@@ -26,12 +26,23 @@ when no slot drafts, the round is an ordinary decode block.
 The engine is asyncio-native; device work runs on executor threads, one
 admit, decode block or verify round at a time, so cache mutation stays
 serialized. Each thread launches on its own current CUDA stream, and the
-host syncs only where it needs the tokens.
+host syncs only where it needs the tokens (and after a shipped payload's
+cache write, to bound its device time).
+
+Observability, as in the JAX engine: the request-phase histograms
+(``engine_metrics``), the pool's and the drafter's series
+(``kvcache_metrics``, ``spec_metrics``), the KV bytes attributed in
+device memory (``_kv_account``), one ``queue``, ``prefill`` and
+``generate`` span per traced request and one batch span per decode block
+or verify round (``util/tracing.py``), a device window per prefill and
+per block (``util/devmon.py``), the engine's deadline counter
+(``serve/fault.py``) and a forensics state provider holding ``stats``.
+A request is traced when a ``tracing.TraceContext`` is bound where it is
+submitted.
 
 Not ported in this slice, and rejected with an error rather than
 ignored: tensor-parallel meshes (``mesh=``) and device-resident KV
-handles in a ``prefilled`` payload. The metrics, tracing and device
-monitoring hooks are left out.
+handles in a ``prefilled`` payload.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from __future__ import annotations
 import asyncio
 import math
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
@@ -48,19 +60,62 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.llm import kvcache, model as lm, spec as specdec
+from ray_tpu_torch.llm import kvcache, model as lm, pd, spec as specdec
 from ray_tpu_torch.models.llama import Llama, LlamaConfig
-
-
-class DeadlineExceeded(RuntimeError):
-    """The request's deadline budget was spent: before submission, while
-    queued, or mid-generation (the engine then reclaims the slot)."""
+from ray_tpu_torch.serve.fault import DeadlineExceeded, fault_metrics
+from ray_tpu_torch.util import devmon, forensics, tracing
 
 
 class KVHandoffError(RuntimeError):
     """A prefilled request's shipped KV could not be taken (a handle
     that is not a plain array). Fails only its own request, never the
     shared scheduler loop."""
+
+
+def engine_metrics() -> dict:
+    """Get-or-create the engine's request-phase series (the JAX engine's
+    names; every engine in the process observes into the same series).
+    Catalog:
+
+      llm_queue_s        submit -> slot admission (waiting for a slot)
+      llm_ttft_device_s  prefill device compute (launch to host sync)
+      llm_ttft_wall_s    submit -> first token, wall clock
+      llm_tpot_s         decode wall time per output token
+      llm_batch_size     active decode slots per step block
+
+    Device-memory attribution:
+
+      llm_kv_cache_bytes           live KV cache bytes on device
+      llm_kv_cache_headroom_bytes  growth left before max_len capacity
+    """
+    from ray_tpu_torch.util import metrics as m
+    return {
+        "queue": m.Histogram(
+            "llm_queue_s",
+            "Wait from request submission to slot admission"),
+        "ttft_device": m.Histogram(
+            "llm_ttft_device_s",
+            "Device compute time producing the first token (prefill "
+            "forward + cache write, block_until_ready-bounded)"),
+        "ttft_wall": m.Histogram(
+            "llm_ttft_wall_s",
+            "Wall time from submission to first token"),
+        "tpot": m.Histogram(
+            "llm_tpot_s", "Decode wall time per output token",
+            boundaries=(.0005, .001, .0025, .005, .01, .025, .05, .1,
+                        .25, .5, 1, 2.5)),
+        "batch": m.Histogram(
+            "llm_batch_size", "Active decode slots per step block",
+            boundaries=(1, 2, 4, 8, 16, 32, 64, 128, 256)),
+        "kv_bytes": m.Gauge(
+            "llm_kv_cache_bytes",
+            "Bytes of the engine's static KV cache currently on device"),
+        "kv_headroom": m.Gauge(
+            "llm_kv_cache_headroom_bytes",
+            "Bytes of bucketed KV growth left before the cache reaches "
+            "its max_len capacity (0 = fully grown; watch next to "
+            "device_hbm_used_bytes for OOM creep)"),
+    }
 
 
 @dataclass
@@ -81,7 +136,14 @@ class _Request:
     # absolute wall-clock deadline: an expired request is refused at
     # admission and an active one is cancelled at the next block boundary
     deadline_ts: Optional[float] = None
+    admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
+    prefill_device_s: float = 0.0           # launch to host sync
+    # trace context bound where the request was submitted: its queue,
+    # prefill and generate spans parent to it; cleared once the
+    # terminal "generate" span is recorded (one per request)
+    trace: Optional[tracing.TraceContext] = None
+    t_submit_wall: float = field(default_factory=time.time)
     # paged-KV state: engine-unique sequence id, the block allocation
     # handed out at admission, and the prompt tokens served from cached
     # prefix blocks
@@ -144,6 +206,8 @@ class LLMEngine:
         self._paged = kv_block_size > 0
         self._spec = bool(spec) and self._paged
         self._spec_buckets = specdec.width_buckets(specdec.DRAFT_K)
+        self._specm = specdec.spec_metrics() if self._spec else None
+        self._kvm = kvcache.kvcache_metrics()
         self._kv_impl = kvcache.resolve_attn_impl(kv_impl, self.device)
         self._blocked: deque = deque()   # admits parked on the pool
         self._seq_counter = 0
@@ -164,9 +228,15 @@ class LLMEngine:
             self._cache_len = max_len     # no growth: tables span it
             self._pool = kvcache.init_pool(cfg, nb, self._block, cdt,
                                            self.device)
+            # what one decode step would copy materialising the gathered
+            # (slots, table_w * block) view: the bytes K4 keeps out of
+            # device memory
+            self._gather_step_bytes = (
+                max_slots * self._table_w
+                * kvcache.pool_block_bytes(self._pool))
             self._kv = kvcache.KVBlockManager(
                 nb, self._block, table_width=self._table_w,
-                prefix_cache=prefix_cache)
+                prefix_cache=prefix_cache, metrics=self._kvm)
             self._tables = np.full((max_slots, self._table_w),
                                    kvcache.TRASH, np.int32)
             self._cache = None
@@ -188,6 +258,20 @@ class LLMEngine:
         self._ttft_sum = 0.0
         self._ttft_count = 0
         self._handoff_bytes = 0
+        self._m = engine_metrics()
+        self._kv_account()
+        # postmortem state through a weakref: the provider must not keep
+        # a dead engine (and its KV cache) alive
+        ref = weakref.ref(self)
+
+        def provider():
+            eng = ref()
+            return eng.stats if eng is not None else None
+        forensics.register_state_provider(self._provider_name, provider)
+
+    @property
+    def _provider_name(self) -> str:
+        return f"llm_engine:{id(self):x}"
 
     @property
     def stats(self) -> dict:
@@ -212,6 +296,32 @@ class LLMEngine:
                        spec=self._spec)
         return out
 
+    def _kv_per_token_bytes(self) -> float:
+        """Device bytes one KV position of one slot costs (k and v, all
+        layers): the unit a request's device memory is priced in."""
+        if self._paged:
+            return kvcache.pool_block_bytes(self._pool) / self._block
+        n = self._cache["k"].nbytes + self._cache["v"].nbytes
+        return n / float(self.max_slots * self._cache_len)
+
+    def _kv_account(self) -> None:
+        """Publish the KV bytes held in device memory. Paged: live bytes
+        are the blocks live requests reference plus the resident
+        prefix-cache blocks; headroom is the free blocks. Monolithic: the
+        cache's bytes, and the growth left before max_len."""
+        if self._paged:
+            bb = kvcache.pool_block_bytes(self._pool)
+            live = self._kv.used_blocks() + self._kv.cached_blocks()
+            self._m["kv_bytes"].set(bb * live)
+            self._m["kv_headroom"].set(bb * self._kv.free_blocks())
+            return
+        cur = self._cache["k"].nbytes + self._cache["v"].nbytes
+        per_tok = self._kv_per_token_bytes()
+        headroom = per_tok * self.max_slots \
+            * (self.max_len - self._cache_len)
+        self._m["kv_bytes"].set(cur)
+        self._m["kv_headroom"].set(headroom)
+
     def _grow_cache(self, need: int) -> None:
         """Double the monolithic cache's per-slot length until >= need,
         capped at max_len; active slots' KV is kept (zero-padded on the
@@ -230,6 +340,7 @@ class LLMEngine:
                        "v": F.pad(c["v"], widths),
                        "length": c["length"]}
         self._cache_len = new_len
+        self._kv_account()
 
     # --- public API -----------------------------------------------------
 
@@ -322,9 +433,13 @@ class LLMEngine:
                     f"prefilled KV spans {prefilled['k'].shape[1]} "
                     f"positions > decode max_len {self.max_len} "
                     "(prefill/decode bucket configs disagree)")
+            for k in ("k", "v"):
+                if isinstance(prefilled[k], np.ndarray):
+                    pd.kv_dtype_of(prefilled[k], prefilled.get("kv_dtype"))
         r = _Request(tokens, max_new_tokens, temperature, eos_id,
                      top_p=float(top_p), top_k=int(top_k), stop=stop,
-                     deadline_ts=deadline_ts, prefilled=prefilled)
+                     deadline_ts=deadline_ts, prefilled=prefilled,
+                     trace=tracing.current_context())
         if self._paged:
             self._seq_counter += 1
             r.seq = self._seq_counter
@@ -346,6 +461,7 @@ class LLMEngine:
 
     async def stop(self):
         self._stopped = True
+        forensics.unregister_state_provider(self._provider_name)
         if self._loop_task is not None:
             self._loop_task.cancel()
             try:
@@ -408,9 +524,14 @@ class LLMEngine:
                             break
                         r.kv_alloc = alloc
                         r.prefix_hit = alloc["hit_tokens"]
+                        # publish the reservation now, not at the first
+                        # finish: the overload window is what the gauges
+                        # are for
+                        self._kv_account()
                     try:
                         tok = await loop.run_in_executor(
-                            None, self._admit_impl, slot, r)
+                            None, self._in_context, r.trace,
+                            self._admit_impl, slot, r)
                     except KVHandoffError as e:
                         # an unusable KV handle fails its own request
                         # only; it was taken before any cache write
@@ -482,9 +603,19 @@ class LLMEngine:
                     temps[i] = self._slots[i].temperature
                     top_ps[i] = self._slots[i].top_p
                     top_ks[i] = self._slots[i].top_k
+                member_traces, first_ctx = self._member_traces(active)
+                t_dec = time.monotonic()
+                t_dec_wall = time.time()
                 out = await loop.run_in_executor(
-                    None, self._decode_impl, tokens, temps, top_ps,
-                    top_ks, block)
+                    None, self._in_context, first_ctx, self._decode_impl,
+                    tokens, temps, top_ps, top_ks, block)
+                avoided = (block * self._gather_step_bytes
+                           if self._paged and self._kv_impl == "paged_flash"
+                           else 0)
+                self._record_round(
+                    active, member_traces, first_ctx, t_dec, t_dec_wall,
+                    block, block=block, gather_bytes_avoided=avoided,
+                    kv_impl=self._kv_impl if self._paged else "monolithic")
                 for step in range(block):
                     for i in active:
                         r = self._slots[i]
@@ -505,6 +636,35 @@ class LLMEngine:
             for i, r in enumerate(self._slots):
                 if r is not None:
                     self._finish(r, i)
+
+    def _member_traces(self, active: List[int]):
+        """The sorted trace ids of the active slots' requests (a decode
+        block's or verify round's span links to each) and the first
+        active request's context (bound while the block runs, and named
+        by the block's exemplar)."""
+        ctxs = [self._slots[i].trace for i in active
+                if self._slots[i] is not None
+                and self._slots[i].trace is not None]
+        return sorted({c.trace_id for c in ctxs}), \
+            (ctxs[0] if ctxs else None)
+
+    def _record_round(self, active, member_traces, first_ctx, t_dec: float,
+                      t_dec_wall: float, per_slot: float, **span) -> None:
+        """A decode block's or verify round's batch-size histogram, its
+        wall per emitted token (over ``per_slot`` tokens a slot), its
+        batch span linked to every member trace (``span``: the tokens,
+        the attention impl, the gather bytes K4 avoided, the verify
+        width) and its device window, which ends at the host sync; the
+        exemplars name the first member's trace."""
+        ex = first_ctx.trace_id if first_ctx is not None else None
+        self._m["batch"].observe(len(active), exemplar=ex)
+        self._m["tpot"].observe((time.monotonic() - t_dec) / per_slot,
+                                exemplar=ex)
+        tracing.record_batch_span("engine", "decode", member_traces,
+                                  t_dec_wall, time.time(),
+                                  slots=len(active), **span)
+        devmon.record_device_window("decode", t_dec_wall, time.time(),
+                                    trace=ex or "")
 
     def _to_dev(self, x: np.ndarray) -> torch.Tensor:
         """A copy of a host array on the engine's device (never a view
@@ -532,10 +692,9 @@ class LLMEngine:
 
     @staticmethod
     def _take_handoff(x) -> np.ndarray:
-        """A shipped payload entry as a host array: numpy arrays (float32,
-        or the JAX package's bf16, widened on the way in) pass through;
-        anything else, such as a device-resident handle, fails its
-        request with ``KVHandoffError``."""
+        """A shipped payload entry as a host array: numpy arrays pass
+        through; anything else, such as a device-resident handle, fails
+        its request with ``KVHandoffError``."""
         if isinstance(x, np.ndarray):
             return x
         raise KVHandoffError(
@@ -546,21 +705,55 @@ class LLMEngine:
     def _take_prefilled(self, r: _Request):
         """The request's shipped KV on the device in the cache dtype,
         {"k", "v": (layers, ship, kvh, hd)}, and its logits on the host.
-        Counts the KV bytes as shipped; drops the host payload."""
+        The KV arrives in its shipped dtype (the port's ``uint16`` bf16
+        bits, the JAX package's ml_dtypes bf16, or a float dtype) and is
+        widened or cast on the device. Counts the KV bytes as shipped;
+        drops the host payload."""
         p = r.prefilled
         r.prefilled = None
         k, v, logits = (self._take_handoff(p[key])
                         for key in ("k", "v", "logits"))
         r.handoff_bytes = k.nbytes + v.nbytes
         self._handoff_bytes += r.handoff_bytes
-        # torch.tensor copies: the device copy never aliases the payload
-        kv = {key: torch.tensor(np.asarray(x, np.float32)).to(
-            self.device, self._cdt) for key, x in (("k", k), ("v", v))}
+        self._kvm["handoff_bytes"].inc(r.handoff_bytes)
+        tag = p.get("kv_dtype")
+        # kv_to_torch copies: the device copy never aliases the payload
+        kv = {key: pd.kv_to_torch(x, tag).to(self.device).to(self._cdt)
+              for key, x in (("k", k), ("v", v))}
         return kv, np.asarray(logits, np.float32)
 
+    def _sync(self) -> None:
+        """Wait for the work this thread launched (a shipped payload's
+        cache write has no host copy of its own to wait on)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    @staticmethod
+    def _in_context(ctx: Optional[tracing.TraceContext], fn, *args):
+        """``fn(*args)`` on the executor thread with ``ctx`` bound as the
+        request context when it is not None: context variables do not
+        cross into ``run_in_executor``, and a kernel build that the call
+        triggers is stamped with the bound trace id. The admit binds its
+        own request; a decode block or a verify round its first member."""
+        if ctx is None:
+            return fn(*args)
+        tok = tracing.set_request_context(ctx)
+        try:
+            return fn(*args)
+        finally:
+            tracing.reset_request_context(tok)
+
     def _admit_impl(self, slot: int, r: _Request) -> int:
-        """Prefill entry (executor thread): the paged or the monolithic
-        admit. Returns the first sampled token."""
+        """The paged or the monolithic admit, after the request's queue
+        wait is observed (and spanned, if traced). Returns the first
+        sampled token."""
+        r.admitted_at = time.monotonic()
+        self._m["queue"].observe(r.admitted_at - r.submitted)
+        if r.trace is not None:
+            tracing.record_request_span(
+                "engine", "queue", r.trace, r.trace.span_id,
+                r.t_submit_wall,
+                r.t_submit_wall + (r.admitted_at - r.submitted))
         if self._paged:
             return self._admit_paged(slot, r)
         return self._admit_monolithic(slot, r)
@@ -584,6 +777,7 @@ class LLMEngine:
             need = max(need, pad_to)
         if need > self._cache_len:
             self._grow_cache(need)
+        t0 = time.monotonic()
         if r.prefilled is not None:
             kv, logits_np = self._take_prefilled(r)
             pad = pad_to - kv["k"].shape[1]
@@ -591,6 +785,7 @@ class LLMEngine:
                 kv = {k: F.pad(x, (0, 0, 0, 0, 0, pad))
                       for k, x in kv.items()}
             lm.write_prefill_to_cache(self._cache, kv, slot, n)
+            self._sync()
         else:
             if n <= self.buckets[-1]:
                 padded = self._to_dev(lm.pad_prompt(
@@ -609,6 +804,8 @@ class LLMEngine:
                 kv = {k: x[:, :self._cache_len] for k, x in acc.items()}
             lm.write_prefill_to_cache(self._cache, kv, slot, n)
             logits_np = logits.float().cpu().numpy()   # host sync
+        r.prefill_device_s = time.monotonic() - t0
+        self._record_prefill_span(r)
         self._slots[slot] = r
         return self._sample_one(logits_np, r)
 
@@ -626,6 +823,7 @@ class LLMEngine:
         hit = r.prefix_hit
         B = self._block
         self._tables[slot] = table
+        t0 = time.monotonic()
         if r.prefilled is not None:
             kv, logits_np = self._take_prefilled(r)
             pad = self._acc_len() - kv["k"].shape[1]
@@ -633,6 +831,7 @@ class LLMEngine:
             targets = table.copy()
             targets[:hit // B] = kvcache.TRASH
             kvcache.scatter_table(self._pool, acc, targets)
+            self._sync()
         else:
             if hit == 0 and n <= self.buckets[-1]:
                 b = self._bucket_for(n)
@@ -647,8 +846,25 @@ class LLMEngine:
                 logits = self._prefill_into_blocks(r, table, hit)
             logits_np = logits.float().cpu().numpy()   # host sync
         r.kv_written = True
+        r.prefill_device_s = time.monotonic() - t0
+        self._record_prefill_span(r)
         self._slots[slot] = r
         return self._sample_one(logits_np, r)
+
+    @staticmethod
+    def _record_prefill_span(r: _Request) -> None:
+        """The prefill's device window (launch to host sync, ending now)
+        and, for a traced request, its ``prefill`` span: the device share
+        of TTFT."""
+        now = time.time()
+        devmon.record_device_window(
+            "prefill", now - r.prefill_device_s, now,
+            trace=r.trace.trace_id if r.trace is not None else "")
+        if r.trace is None:
+            return
+        tracing.record_request_span(
+            "engine", "prefill", r.trace, r.trace.span_id,
+            now - r.prefill_device_s, now, tokens=len(r.tokens))
 
     def _prefill_into_blocks(self, r: _Request, table: np.ndarray,
                              hit: int) -> torch.Tensor:
@@ -697,6 +913,9 @@ class LLMEngine:
             self._to_dev(lengths), self._to_dev(tokens),
             tv, self._gen, self.cfg, block, tp, tk,
             impl=self._kv_impl)
+        self._kvm["attn_steps"].inc(block, tags={"impl": self._kv_impl})
+        if self._kv_impl == "paged_flash":
+            self._kvm["gather_avoided"].inc(block * self._gather_step_bytes)
         return out.cpu().numpy()   # the block's one host sync
 
     async def _spec_round(self, loop, active: List[int],
@@ -718,8 +937,13 @@ class LLMEngine:
             row += [row[-1]] * (w - len(row))
             tokens_bw[i] = row
             lengths[i] = len(r.tokens) + len(r.out) - 1
+        member_traces, first_ctx = self._member_traces(active)
+        t_dec = time.monotonic()
+        t_dec_wall = time.time()
         logits = await loop.run_in_executor(
-            None, self._verify_impl, tokens_bw, lengths)
+            None, self._in_context, first_ctx, self._verify_impl,
+            tokens_bw, lengths)
+        emitted_total = 0
         for i in active:
             r = self._slots[i]
             if r is None:
@@ -732,7 +956,13 @@ class LLMEngine:
                 r.drafter.record(len(d), n_acc)
                 r.spec_drafted += len(d)
                 r.spec_accepted += n_acc
+                self._specm["tokens"].inc(len(d), tags={"kind": "drafted"})
+                if n_acc:
+                    self._specm["tokens"].inc(n_acc,
+                                              tags={"kind": "accepted"})
                 if len(d) > n_acc:
+                    self._specm["tokens"].inc(len(d) - n_acc,
+                                              tags={"kind": "rejected"})
                     # host rollback of the rejected tail: under the
                     # full-horizon reservation (min_blocks) it frees no
                     # block, and it keeps the hash chain honest
@@ -740,11 +970,17 @@ class LLMEngine:
                         r.seq, len(r.tokens) + len(r.out) + len(emitted),
                         min_blocks=self._kv.blocks_needed(
                             len(r.tokens), r.max_new_tokens))
+            emitted_total += len(emitted)
             for t in emitted:
                 if self._slots[i] is not r:
                     break   # finished mid-accept (eos/stop/max_new): the
                             # tail of an accepted draft is dropped
                 self._emit_token(r, int(t), i)
+        self._record_round(
+            active, member_traces, first_ctx, t_dec, t_dec_wall,
+            max(1.0, emitted_total / max(1, len(active))),
+            block=emitted_total, kv_impl=self._kv_impl,
+            gather_bytes_avoided=0, spec_k=w - 1)
 
     @torch.no_grad()
     def _verify_impl(self, tokens_bw: np.ndarray,
@@ -754,6 +990,7 @@ class LLMEngine:
         logits, self._pool = kvcache.paged_verify_steps(
             self.params, self._pool, self._to_dev(self._tables),
             self._to_dev(lengths), self._to_dev(tokens_bw), self.cfg)
+        self._kvm["attn_steps"].inc(1, tags={"impl": self._kv_impl})
         return logits.cpu().numpy()
 
     def _sample_one(self, logits: np.ndarray, r: _Request) -> int:
@@ -771,8 +1008,14 @@ class LLMEngine:
         """Append one sampled token; finish the request if done."""
         if r.first_token_at is None:
             r.first_token_at = time.monotonic()
-            self._ttft_sum += r.first_token_at - r.submitted
+            wall = r.first_token_at - r.submitted
+            self._ttft_sum += wall
             self._ttft_count += 1
+            self._m["ttft_wall"].observe(wall)
+            # the device time is a sub-interval of the wall interval
+            self._m["ttft_device"].observe(
+                min(r.prefill_device_s, wall),
+                exemplar=r.trace.trace_id if r.trace else None)
         r.out.append(tok)
         self._tokens_generated += 1
         if r.stream is not None:
@@ -786,6 +1029,31 @@ class LLMEngine:
         if (len(r.out) >= r.max_new_tokens
                 or (r.eos_id is not None and tok == r.eos_id)):
             self._finish(r, slot)
+
+    def _record_done(self, r: _Request, error: bool) -> None:
+        """The request's terminal ``generate`` span (submit to done, its
+        token count and its KV high-watermark priced at the cache's
+        per-token bytes), at most once; and, for a speculative request,
+        the accept-rate gauge, traced or not."""
+        if r.spec_drafted and self._specm is not None:
+            self._specm["accept_rate"].set(r.spec_accepted / r.spec_drafted)
+        if r.trace is None:
+            return
+        extra = {}
+        if self._paged:
+            extra["prefix_hit_tokens"] = r.prefix_hit
+        if r.handoff_bytes:
+            extra["kv_handoff_bytes"] = r.handoff_bytes
+        if r.spec_drafted:
+            extra["spec_accept_rate"] = round(
+                r.spec_accepted / r.spec_drafted, 4)
+        tracing.record_request_span(
+            "engine", "generate", r.trace, r.trace.span_id,
+            r.t_submit_wall, time.time(), error=error,
+            tokens=len(r.out),
+            kv_bytes=int(self._kv_per_token_bytes()
+                         * (len(r.tokens) + len(r.out))), **extra)
+        r.trace = None
 
     def _free_kv(self, r: _Request, slot: Optional[int]) -> None:
         """Return a finished/failed request's blocks to the pool; its
@@ -802,8 +1070,10 @@ class LLMEngine:
         r.kv_alloc = None
         if slot is not None:
             self._tables[slot] = kvcache.TRASH
+        self._kv_account()
 
     def _finish(self, r: _Request, slot: Optional[int]):
+        self._record_done(r, error=False)
         self._free_kv(r, slot)
         if slot is not None and self._slots[slot] is r:
             self._slots[slot] = None
@@ -813,11 +1083,15 @@ class LLMEngine:
             r.fut.set_result(True)
 
     def _expire(self, r: _Request, slot: Optional[int]):
+        """Cancel a request whose deadline passed (queued or mid-
+        generation), counting it at the engine's enforcement point."""
+        fault_metrics()["deadline"].inc(tags={"where": "engine"})
         self._fail(r, slot, DeadlineExceeded(
             f"generation cancelled at the deadline after "
             f"{len(r.out)} token(s)"))
 
     def _fail(self, r: _Request, slot: Optional[int], e: BaseException):
+        self._record_done(r, error=True)
         self._free_kv(r, slot)
         err = e if isinstance(e, (DeadlineExceeded, KVHandoffError)) \
             else RuntimeError(f"llm engine failed: {e}")

@@ -1,9 +1,10 @@
 """Paged KV cache: fixed-size token blocks, prefix reuse, COW, LRU.
 
 Counterpart of ``ray_tpu/llm/kvcache.py``. The host bookkeeping
-(``chain_hashes``, ``KVBlockManager``, ``TRASH``, ``BlockPoolExhausted``)
-is a copy of the JAX package's, without its metrics hooks, so the port
-never imports ``ray_tpu``. The device half works on torch tensors:
+(``chain_hashes``, ``KVBlockManager`` with its ``metrics=`` hooks,
+``TRASH``, ``BlockPoolExhausted``) and ``kvcache_metrics`` are copies of
+the JAX package's, on the port's own metrics registry, so the port never
+imports ``ray_tpu``. The device half works on torch tensors:
 
 - the POOL is one preallocated tensor pair per engine,
   ``(layers, num_blocks, block_size, kv_heads, head_dim)``;
@@ -31,6 +32,59 @@ import numpy as np
 import torch
 
 TRASH = 0   # physical block 0: garbage-write target, never allocated
+
+
+def kvcache_metrics() -> dict:
+    """Get-or-create the paged-KV gauges/counters (shared process
+    registry, pushed to the head like every llm_* series). Catalog:
+
+      llm_kv_blocks_used          blocks referenced by live requests
+      llm_kv_blocks_cached        refcount-0 blocks held by the prefix
+                                  index (reclaimable via LRU eviction)
+      llm_kv_blocks_evicted_total cached chains evicted under pressure
+      llm_prefix_hit_tokens_total prompt tokens whose prefill was
+                                  skipped via a prefix-cache hit
+      llm_kv_handoff_bytes_total  KV bytes shipped prefill->decode at
+                                  block granularity (llm/pd.py)
+      llm_paged_attn_steps_total  paged decode steps by attention impl
+                                  ({impl}: paged_flash | gather)
+      llm_kv_gather_bytes_avoided_total
+                                  HBM bytes the fused kernel did NOT
+                                  copy materializing the gathered view
+    """
+    from ray_tpu_torch.util import metrics as m
+    return {
+        "used": m.Gauge(
+            "llm_kv_blocks_used",
+            "KV pool blocks referenced by live requests"),
+        "cached": m.Gauge(
+            "llm_kv_blocks_cached",
+            "Refcount-0 KV pool blocks held by the prefix index "
+            "(reclaimable by LRU eviction)"),
+        "evicted": m.Counter(
+            "llm_kv_blocks_evicted_total",
+            "Cached KV blocks evicted from the prefix index under "
+            "pool pressure"),
+        "hit_tokens": m.Counter(
+            "llm_prefix_hit_tokens_total",
+            "Prompt tokens served from cached prefix blocks instead "
+            "of prefill compute"),
+        "handoff_bytes": m.Counter(
+            "llm_kv_handoff_bytes_total",
+            "KV bytes shipped prefill->decode at block granularity "
+            "in the disaggregated path"),
+        "attn_steps": m.Counter(
+            "llm_paged_attn_steps_total",
+            "Paged decode steps taken, tagged by attention impl "
+            "(paged_flash = fused block-table kernel, gather = "
+            "materialized view)",
+            tag_keys=("impl",)),
+        "gather_avoided": m.Counter(
+            "llm_kv_gather_bytes_avoided_total",
+            "HBM bytes the fused paged-attention kernel avoided "
+            "copying versus materializing the gathered "
+            "(slots, max_len) attention view every decode step"),
+    }
 
 
 def chain_hashes(tokens: Sequence[int], block_size: int, *,
@@ -81,7 +135,8 @@ class KVBlockManager:
     scheduler loop, matching the monolithic cache's discipline."""
 
     def __init__(self, num_blocks: int, block_size: int, *,
-                 table_width: int, prefix_cache: bool = True):
+                 table_width: int, prefix_cache: bool = True,
+                 metrics: Optional[dict] = None):
         if num_blocks < 2:
             raise ValueError("pool needs >= 2 blocks (one is trash)")
         self.num_blocks = int(num_blocks)
@@ -96,6 +151,7 @@ class KVBlockManager:
         self.evicted_total = 0
         self.hit_tokens_total = 0
         self._tick = 0
+        self._m = metrics
 
     # -- introspection ---------------------------------------------------
 
@@ -108,6 +164,12 @@ class KVBlockManager:
 
     def free_blocks(self) -> int:
         return len(self.free)
+
+    def _publish(self) -> None:
+        if self._m is None:
+            return
+        self._m["used"].set(self.used_blocks())
+        self._m["cached"].set(self.cached_blocks())
 
     def blocks_needed(self, n_tokens: int, max_new: int) -> int:
         """Full-horizon reservation: admission allocates every block
@@ -194,6 +256,9 @@ class KVBlockManager:
             new_blocks.append(p)
         self.seqs[seq_id] = _Seq(list(table), n, hit_tokens, hashes)
         self.hit_tokens_total += hit_tokens
+        if self._m is not None and hit_tokens:
+            self._m["hit_tokens"].inc(hit_tokens)
+        self._publish()
         return {"table": table, "hit_tokens": hit_tokens,
                 "new_blocks": new_blocks}
 
@@ -263,6 +328,7 @@ class KVBlockManager:
         for phys in seq.table:
             if phys != TRASH:
                 self._release(phys)
+        self._publish()
 
     # -- copy-on-write / fork --------------------------------------------
 
@@ -280,6 +346,7 @@ class KVBlockManager:
                 self.ref[p] = self.ref.get(p, 0) + 1
         self.seqs[dst_id] = _Seq(list(src.table), src.n_prompt,
                                  src.hit_tokens, list(src.hashes))
+        self._publish()
         return list(src.table)
 
     def ensure_writable(self, seq_id,
@@ -303,6 +370,7 @@ class KVBlockManager:
         self.ref[new] = 1
         seq.table[logical] = new
         self._release(phys)
+        self._publish()
         return phys, new
 
     def truncate_seq(self, seq_id, n_tokens: int, *,
@@ -341,6 +409,7 @@ class KVBlockManager:
             freed.append(phys)
         seq.hashes = seq.hashes[:n_tokens // self.block_size]
         seq.n_prompt = min(seq.n_prompt, n_tokens)
+        self._publish()
         return freed
 
     # -- eviction --------------------------------------------------------
@@ -375,6 +444,10 @@ class KVBlockManager:
             self.free.append(e.phys)
             freed += 1
             self.evicted_total += 1
+            if self._m is not None:
+                self._m["evicted"].inc()
+        if freed:
+            self._publish()
         return freed
 
 

@@ -27,9 +27,9 @@ bookkeeping only.
 Rejected drafts need no device rollback: their KV lands beyond the
 sequence's logical length, masked out of every attention and overwritten
 by the next real write, and the host block accounting rolls back through
-``KVBlockManager.truncate_seq``. The JAX package's accept-rate and token
-counters (``spec_metrics``) wait for the port's metrics hooks; the engine
-keeps each request's drafted and accepted totals on the request.
+``KVBlockManager.truncate_seq``. The engine counts drafted, accepted and
+rejected tokens into ``spec_metrics`` and keeps each request's totals on
+the request, for its accept rate.
 """
 
 from __future__ import annotations
@@ -42,6 +42,30 @@ import numpy as np
 # the drafter's default draft length (the JAX package's Config default),
 # which sets the engine's verify-width buckets
 DRAFT_K = 4
+
+
+def spec_metrics() -> dict:
+    """Get-or-create the speculative-decoding series (shared process
+    registry, pushed to the head like every llm_* family). Catalog:
+
+      llm_spec_accept_rate    drafted-token accept rate of the most
+                              recently finished speculative request
+      llm_spec_tokens_total   draft pipeline volume, tagged {kind}:
+                              drafted | accepted | rejected
+    """
+    from ray_tpu_torch.util import metrics as m
+    return {
+        "accept_rate": m.Gauge(
+            "llm_spec_accept_rate",
+            "Draft-token accept rate of the most recently finished "
+            "speculative request (accepted / drafted)"),
+        "tokens": m.Counter(
+            "llm_spec_tokens_total",
+            "Speculative-decode token volume by kind (drafted = "
+            "proposed by the drafter, accepted = survived verify, "
+            "rejected = rolled back)",
+            tag_keys=("kind",)),
+    }
 
 
 def width_buckets(k_max: int) -> Tuple[int, ...]:

@@ -9,7 +9,9 @@ the hash of the source and the shared headers (``csrc/*.cuh``) is
 unchanged. Nothing here runs at import time: a CPU-only install imports
 the port without a CUDA toolkit, and only a kernel launch on a CUDA
 tensor reaches the build. A build that fails raises; there is no
-fallback.
+fallback. Each source actually compiled (not one whose library was
+reused) is reported to the device monitor as one compile of
+``<stem>.cu`` with its nvcc seconds (``util/devmon.record_compile``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+from ray_tpu_torch.util import devmon
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -101,6 +107,12 @@ def nvcc_command(name: str, out: Path) -> List[str]:
             str(source(name))]
 
 
+def _collect(proc: subprocess.Popen, t0: float):
+    """(output, seconds since ``t0``) of one nvcc, once it exits."""
+    log, _ = proc.communicate()
+    return log, time.monotonic() - t0
+
+
 class _Loader:
     """Process-wide cache of loaded kernel libraries; thread-safe (the
     engine launches kernels from executor threads)."""
@@ -111,8 +123,9 @@ class _Loader:
 
     def build(self, names: Iterable[str]) -> Dict[str, str]:
         """Compile the source of every listed kernel whose library is
-        missing, one nvcc per source, all started together. Returns each
-        source stem's ptxas report (empty when the build was reused)."""
+        missing, one nvcc per source, all started together, and record
+        each compile with its own nvcc seconds. Returns each source
+        stem's ptxas report (empty when the build was reused)."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         reports = {}
@@ -127,24 +140,30 @@ class _Loader:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = nvcc_command(name, tmp)
             try:
+                t0 = time.monotonic()
                 proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
             except FileNotFoundError as e:
-                for _, _, p in procs.values():
+                for _, _, p, _ in procs.values():
                     p.kill()
                     p.wait()
                 raise KernelBuildError(
                     f"nvcc not found ({cmd[0]}): the CUDA kernels need "
                     "the CUDA toolkit") from e
-            procs[stem] = (out, tmp, proc)
+            procs[stem] = (out, tmp, proc, t0)
         failed = []
-        for stem, (out, tmp, proc) in procs.items():
-            log, _ = proc.communicate()
+        # one waiter per nvcc, so each compile's seconds are its own
+        with ThreadPoolExecutor(max(1, len(procs))) as pool:
+            waits = {stem: pool.submit(_collect, proc, t0)
+                     for stem, (_, _, proc, t0) in procs.items()}
+        for stem, (out, tmp, proc, _) in procs.items():
+            log, seconds = waits[stem].result()
             reports[stem] = log
             if proc.returncode != 0:
                 failed.append(f"{stem}:\n{log}")
                 continue
             os.replace(tmp, out)
+            devmon.record_compile(f"{stem}.cu", seconds)
         if failed:
             raise KernelBuildError("nvcc failed for " + "\n".join(failed))
         return reports

@@ -1,0 +1,222 @@
+"""In-process event/timeline buffer.
+
+The port's copy of ``ray_tpu/util/events.py`` (it imports nothing of the
+package, and the port never imports ``ray_tpu``). Lightweight analog of
+the reference's task-event pipeline (reference:
+core_worker/task_event_buffer.h -> gcs/gcs_task_manager.h -> ray.timeline at
+_private/state.py:1010): components append structured events; `dump()`
+returns chrome-trace-style records.
+
+Buffers are bounded PER CATEGORY: chatty categories get their own
+sub-budget so they age out against themselves instead of evicting
+everything else — a chunk-level collective trace (dag/ring.py can emit
+hundreds of spans per allreduce round) must not wipe the task exec
+spans `ray-tpu timeline` / `ray-tpu list tasks` are built on.
+Categories without a dedicated cap share the default budget.
+
+``CATEGORIES`` is the registry of every category the framework
+records; scripts/check_metrics_lint.py greps the source tree for
+``events.record(`` calls and fails on categories not listed here
+(tests/test_metrics_lint.py runs the same lint tier-1).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Deque, Dict, List
+
+# Every category the framework records (lint-enforced; see module doc).
+#   trace       task/actor submit edges + exec spans (util/tracing.py)
+#   collective  ring collective rounds / chunk phases (dag/ring.py)
+#   train       train-group lifecycle: reshard / restart / rewire spans
+#               (train/controller.py, train/zero.py)
+#   worker      worker lifecycle incidents (runtime/agent.py)
+#   cgroup      cgroup attach/availability incidents (runtime/agent.py)
+#   memory      memory-monitor OOM kills (runtime/agent.py)
+#   request     per-request trace spans: proxy/handle/replica/engine
+#               segments + engine batch spans (util/tracing.py request
+#               layer, serve/*, llm/engine.py)
+#   device      accelerator-plane spans: XLA compile spans, HBM
+#               snapshots, recompile-storm flags (util/devmon.py) —
+#               rare, minutes-relevant events
+#   device_window  per-block device-compute duty windows
+#               (util/devmon.py record_device_window) — HIGH RATE
+#               (one per engine decode block), so they get their own
+#               bucket: a steady serving load must not age the rare
+#               compile/storm/hbm events out of "device"
+#   pipeline    pipeline-parallel stage spans: per-microbatch F/B op
+#               spans + per-step bubble spans (dag/runtime.py
+#               pipe_exec_loop) — rendered as pipe:stage<k> timeline
+#               lanes with microbatch flow edges
+#   health      SLO alert / regression-sentinel state transitions
+#               (util/health.py) — firing/resolved instants rendered
+#               on a "health" timeline lane next to the traces that
+#               explain them (exemplar trace ids attached)
+#   ckpt        durable checkpoint plane (train/ckptio.py): manifest
+#               commits, restores, preemption-notice flushes — rare,
+#               but a crash-looping saver must age against itself
+#   serve       serve control-plane actuation: SLO autoscale decisions
+#               (serve/autoscale.py) — instants on a "serve" timeline
+#               lane next to the health alerts that triggered them
+#   goodput     step-anatomy ledger (util/goodput.py): one "step" span
+#               per training step with the category breakdown, plus
+#               controller-side "straggler" instants naming the rank
+#   forensics   hang/desync diagnoses (util/forensics.py): typed
+#               collective_stall / collective_desync instants naming
+#               the culprit rank, plus autopsy/bundle markers
+CATEGORIES = ("trace", "collective", "train", "worker", "cgroup",
+              "memory", "request", "device", "device_window",
+              "pipeline", "health", "ckpt", "serve", "goodput",
+              "forensics")
+
+_DEFAULT_CAP = 65536
+# Dedicated sub-budgets: the key also names the bucket. Everything
+# else shares the "" bucket at _DEFAULT_CAP. "train" is budget-capped
+# like "collective": a crash-looping group emitting restart/reshard
+# spans every few seconds must age out against itself, not evict the
+# task exec spans the timeline is built on. "request" likewise: a
+# high-QPS serve path emits ~6 spans per request — a traffic burst
+# must age out against its own bucket, never the task exec or
+# collective spans. "device"/"device_window" (util/devmon.py) are
+# capped for the same reason — a recompile storm is by definition a
+# flood — and capped SEPARATELY from each other: duty windows arrive
+# per decode block (~continuous under load) while compile spans and
+# storm flags are rare and must stay visible for minutes, so windows
+# get their own bucket to drain.
+_CATEGORY_CAPS: Dict[str, int] = {"collective": 16384, "train": 4096,
+                                  "request": 8192, "device": 4096,
+                                  "device_window": 4096,
+                                  # 2 op spans per microbatch per stage
+                                  # per step: a long pipeline run must
+                                  # age against itself, not evict task
+                                  # exec or collective spans
+                                  "pipeline": 8192,
+                                  # alert transitions are rare, but a
+                                  # flapping objective must flap
+                                  # against its own budget
+                                  "health": 2048,
+                                  # one commit span per save interval
+                                  # — but a tight-loop saver (bench,
+                                  # chaos) must age against itself
+                                  "ckpt": 2048,
+                                  # scale decisions are rare, but a
+                                  # misconfigured (thrashing) loop
+                                  # must thrash against its own budget
+                                  "serve": 2048,
+                                  # one span per training step — a
+                                  # long run's anatomy must age out
+                                  # against itself, not the task spans
+                                  "goodput": 4096,
+                                  # stall/desync diagnoses + audit
+                                  # instants are rare, but a watchdog
+                                  # firing every poll during a long
+                                  # hang must age against itself
+                                  "forensics": 2048}
+
+_BUFS: Dict[str, Deque[dict]] = {}
+_LOCK = threading.Lock()
+
+
+def _buf(category: str) -> Deque[dict]:
+    """Bucket for a category (callers hold _LOCK)."""
+    key = category if category in _CATEGORY_CAPS else ""
+    buf = _BUFS.get(key)
+    if buf is None:
+        buf = deque(maxlen=_CATEGORY_CAPS.get(key, _DEFAULT_CAP))
+        _BUFS[key] = buf
+    return buf
+
+
+class CategoryBuffer:
+    """Per-category bounded buffer for aggregated span streams — the
+    agent's worker-pushed events (report_events) and the head's
+    archived node buffers (report_node_events). Same budgeting rule as
+    the module-level buffer: categories with a dedicated cap age out
+    against themselves, everything else shares the default bucket.
+    Without this the aggregation points re-flatten the stream and a
+    chunk-level collective flood evicts task exec spans there even
+    though the worker-side buckets held."""
+
+    def __init__(self, maxlen: int = _DEFAULT_CAP):
+        self._maxlen = int(maxlen)
+        self._bufs: Dict[str, Deque[dict]] = {}
+        self._lock = threading.Lock()
+
+    def _bucket(self, category: str) -> Deque[dict]:
+        key = category if category in _CATEGORY_CAPS else ""
+        buf = self._bufs.get(key)
+        if buf is None:
+            # dedicated caps scale with the configured total so
+            # event_buffer_size keeps meaning "total budget"
+            cap = (max(1, _CATEGORY_CAPS[key] * self._maxlen
+                       // _DEFAULT_CAP)
+                   if key else self._maxlen)
+            buf = deque(maxlen=cap)
+            self._bufs[key] = buf
+        return buf
+
+    def extend(self, events) -> None:
+        with self._lock:
+            for e in events:
+                self._bucket(e.get("cat", "")).append(e)
+
+    def dump(self) -> List[dict]:
+        with self._lock:
+            out: List[dict] = []
+            for buf in self._bufs.values():
+                out.extend(buf)
+            out.sort(key=lambda e: e.get("ts", 0.0))
+            return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return sum(len(b) for b in self._bufs.values())
+
+
+def record(category: str, name: str, **fields) -> None:
+    ev = {"cat": category, "name": name, "ts": time.time(), **fields}
+    with _LOCK:
+        _buf(category).append(ev)
+
+
+def _merged() -> List[dict]:
+    """All buckets merged in timestamp order (callers hold _LOCK).
+    Consumers (to_chrome, tasks_from_events) sort or bucket by ts
+    themselves, but a stable time order keeps dumps readable."""
+    out: List[dict] = []
+    for buf in _BUFS.values():
+        out.extend(buf)
+    out.sort(key=lambda e: e.get("ts", 0.0))
+    return out
+
+
+def dump() -> List[dict]:
+    with _LOCK:
+        return _merged()
+
+
+def drain() -> List[dict]:
+    """Atomically take-and-clear (the worker's periodic flush to its
+    agent — events must not be double-shipped or lost in between)."""
+    with _LOCK:
+        out = _merged()
+        for buf in _BUFS.values():
+            buf.clear()
+        return out
+
+
+def requeue(evs: List[dict]) -> None:
+    """Put a drained batch back at the FRONT of its buckets (a failed
+    flush retries on the next tick instead of losing that window's
+    spans)."""
+    with _LOCK:
+        for e in reversed(evs):
+            _buf(e.get("cat", "")).appendleft(e)
+
+
+def clear() -> None:
+    with _LOCK:
+        for buf in _BUFS.values():
+            buf.clear()

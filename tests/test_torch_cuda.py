@@ -701,3 +701,107 @@ def test_fold_scale_on_card_matches_cpu(dev, dtype):
     for scale in (128 ** -0.5, 0.2):
         assert torch.equal(fa.fold_scale(x.to(dev), scale).cpu(),
                            fa.fold_scale(x, scale))
+
+
+def _tiny_series(model, device, mode, reqs):
+    """{(name, labels): value} of the llm_* counters and gauges, and
+    {(name + "_count", labels): count} of the llm_* histograms, that one
+    tiny drive leaves in an empty registry of its own: the serving modes
+    of ``_tiny_streams`` plus the paged engine and a bf16 PD handoff; the
+    paged modes run K4 (``kv_impl="paged_flash"``, its plain version on
+    the CPU)."""
+    from unittest import mock
+
+    from ray_tpu_torch.llm.engine import LLMEngine
+    from ray_tpu_torch.llm.pd import PrefillEngine
+    from ray_tpu_torch.util import metrics
+    cdt = "bfloat16" if mode == "pd_bf16" else "float32"
+    kw = dict(max_slots=2, max_len=128, prefill_buckets=(16, 32),
+              cache_dtype=cdt, device=device, kv_impl="paged_flash",
+              spec=mode == "spec", kv_block_size=0 if mode == "monolithic"
+              else 16)
+    payloads = [None] * len(reqs)
+    if mode.startswith("pd"):
+        pre = PrefillEngine(model.cfg, model, prefill_buckets=(16, 32),
+                            max_len=128, cache_dtype=cdt, device=device)
+        payloads = [pre.prefill(p) for p, _ in reqs]
+
+    async def run():
+        eng = LLMEngine(model.cfg, model, **kw)
+        await asyncio.gather(*[
+            eng.generate(p, max_new_tokens=n, prefilled=pl)
+            for (p, n), pl in zip(reqs, payloads)])
+        await eng.stop()
+
+    out = {}
+    with mock.patch.object(metrics, "_REGISTRY", {}):
+        asyncio.run(run())
+        for m in metrics._REGISTRY.values():
+            if m.kind == "histogram":
+                out.update({(m.name + "_count", k): sum(c)
+                            for k, c in m._counts.items()})
+            elif m.name.startswith("llm_"):
+                out.update({(m.name, k): v for k, v in m._values.items()})
+    return out
+
+
+@pytest.mark.parametrize("mode", ["paged", "spec", "monolithic", "pd",
+                                  "pd_bf16"])
+def test_tiny_engine_metrics_on_card_match_cpu(dev, mode):
+    """The engine's llm_* counters, gauges and histogram counts from a
+    tiny drive on the card equal the same drive's on the CPU (f32
+    weights: the same greedy streams, so the same drafts, steps, blocks
+    and bytes)."""
+    from ray_tpu_torch.models import llama
+    cfg = llama.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                     n_kv_heads=2, ffn_dim=512, dtype="float32")
+    cpu = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu = llama.empty_model(cfg, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    pat = [int(t) for t in rng.integers(1, 255, 12)]
+    reqs = [((pat * 6)[:60], 24), ([int(t) for t in
+                                    rng.integers(1, 255, 70)], 12),
+            ([int(t) for t in rng.integers(1, 255, 9)], 8)]
+    on_gpu = _tiny_series(gpu, dev, mode, reqs)
+    assert on_gpu == _tiny_series(cpu, "cpu", mode, reqs)
+    steps = on_gpu.get(("llm_paged_attn_steps_total",
+                        (("impl", "paged_flash"),)), 0)
+    assert (steps > 0) == (mode != "monolithic")
+    assert on_gpu[("llm_ttft_wall_s_count", ())] == len(reqs)
+
+
+def test_hbm_snapshot_rows_match_torch_cuda(dev):
+    from ray_tpu_torch.util import devmon
+    keep = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = devmon.hbm_snapshot(record=False)
+    assert [r["device"] for r in rows] == \
+        [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    for i, r in enumerate(rows):
+        assert r["used"] == torch.cuda.memory_allocated(i)
+        assert r["limit"] == torch.cuda.mem_get_info(i)[1]
+        assert r["used"] <= r["peak"] <= r["limit"]
+        assert r["peak"] >= torch.cuda.max_memory_allocated(i)
+        assert r["source"] == "memory_stats" and 0 <= r["duty"] <= 1
+    assert rows[dev.index or 0]["used"] >= keep.numel()
+
+
+def test_forced_rebuild_records_exactly_one_compile(dev, tmp_path,
+                                                    monkeypatch):
+    """nvcc building paged_attention.cu into an empty build directory is
+    one compile of that source; loading it again reuses the build."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.util import devmon
+
+    def compiles():
+        return devmon.devmon_metrics()["compiles"]._values.get(
+            (("fn", "paged_attention.cu"),), 0.0)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    before = compiles()
+    loader = _build._Loader()
+    loader.build(["paged_attention"])
+    assert compiles() == before + 1
+    loader.load("paged_attention")
+    loader.build(["paged_attention"])
+    assert compiles() == before + 1

@@ -32,15 +32,20 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.llm.model", "ray_tpu_torch.llm.kvcache",
                 "ray_tpu_torch.llm.engine", "ray_tpu_torch.llm.spec",
                 "ray_tpu_torch.llm.pd", "ray_tpu_torch.parallel",
-                "ray_tpu_torch.parallel.mesh"]
+                "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.config",
+                "ray_tpu_torch.util.events", "ray_tpu_torch.util.metrics",
+                "ray_tpu_torch.util.tracing", "ray_tpu_torch.util.devmon",
+                "ray_tpu_torch.util.forensics", "ray_tpu_torch.serve.fault"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
+    """Every port module, the observability planes included, imports
+    without loading jax, ml_dtypes or any ray_tpu module."""
     code = (
         "import sys, importlib\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'ray_tpu' or "
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes') "
+        "or m.startswith(('jax.', 'ml_dtypes.')) or m == 'ray_tpu' or "
         "m.startswith('ray_tpu.'))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -64,7 +69,8 @@ def _imports(path: pathlib.Path):
 def test_no_jax_or_ray_tpu_import_in_source(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "ray_tpu", "optax"), \
+        assert top not in ("jax", "jaxlib", "ray_tpu", "optax",
+                           "ml_dtypes"), \
             f"{path.name} imports {name}"
 
 

@@ -4,7 +4,8 @@ package's, on the JAX package's own seeded weights carried through the
 bridge.
 
 Payloads (KV, logits) agree with the JAX PrefillEngine's within 1e-5
-relative to their scale and ship the same block-granular length; greedy
+relative to their scale and ship the same block-granular length, in the
+cache dtype: a bf16 payload's bits (uint16) are the JAX payload's; greedy
 streams of a decode engine that admits them equal the unified engine's,
 paged and monolithic, and the JAX package's own payload (f32 or ml_dtypes
 bf16) gives the JAX engine's stream in the port.
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from ray_tpu.llm import pd as jpd
 from ray_tpu.llm.engine import LLMEngine as JaxEngine
@@ -74,12 +76,51 @@ def test_payloads_match_jax(models, dtype):
         assert g["length"] == w["length"] == len(p)
         assert g["k"].shape == w["k"].shape
         assert g["k"].shape[1] == -(-len(p) // 16) * 16
-        assert g["k"].dtype == np.float32 and g["logits"].shape == (128,)
-        for key in ("k", "v", "logits"):
-            _close(g[key], w[key])
-        if dtype == "bfloat16":     # bf16 values carried exactly in f32
-            assert np.array_equal(
-                g["k"], torch.from_numpy(g["k"]).bfloat16().float().numpy())
+        assert g["logits"].shape == (128,) and g["kv_dtype"] == dtype
+        # bf16 ships as its raw bits, the same bytes as JAX's ml_dtypes
+        assert g["k"].dtype == (np.uint16 if dtype == "bfloat16"
+                                else np.float32)
+        assert g["k"].nbytes == w["k"].nbytes
+        for key in ("k", "v"):
+            _close(tpd.kv_to_torch(g[key], g["kv_dtype"]).float().numpy(),
+                   np.asarray(w[key], np.float32))
+        _close(g["logits"], w["logits"])
+
+
+def _bf16_bits(x):
+    """The JAX package's cast of f32 values to bf16, as uint16 bits."""
+    return np.asarray(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
+                      ).view(np.uint16)
+
+
+def test_bf16_payload_bits_equal_jax(models):
+    """The port's bf16 payload is the JAX package's byte format: uint16
+    bits, bit for bit the JAX payload's ``.view(np.uint16)`` wherever the
+    two packages' f32 forwards agree. A one-bucket prompt's payload is
+    the bf16 cast of its f32 KV (the same prompt at cache float32) in
+    both packages, so each element that differs is one whose f32 values
+    differ (XLA and torch round a few to neighbouring ulps): the encoding
+    never differs, only its input. The chunked prompt's later pieces
+    attend to bf16 KV, so it is held to the same small share of flips."""
+    jcfg, params, tcfg, model = models
+    want = _prefill(jpd, params, jcfg, "bfloat16")
+    want32 = _prefill(jpd, params, jcfg, "float32")
+    got = _prefill(tpd, model, tcfg, "bfloat16", device="cpu")
+    got32 = _prefill(tpd, model, tcfg, "float32", device="cpu")
+    flips = total = 0
+    for (p, _), g, w, g32, w32 in zip(PROMPTS, got, want, got32, want32):
+        assert w["k"].dtype.name == "bfloat16"
+        for key in ("k", "v"):
+            bits, jbits = g[key], w[key].view(np.uint16)
+            assert bits.dtype == np.uint16 and bits.shape == jbits.shape
+            differ = bits != jbits
+            if len(p) <= KW["prefill_buckets"][-1]:
+                assert np.array_equal(bits, _bf16_bits(g32[key]))
+                assert np.array_equal(jbits, _bf16_bits(w32[key]))
+                assert np.all(g32[key][differ] != w32[key][differ])
+            flips += int(differ.sum())
+            total += bits.size
+    assert flips <= total // 1000, (flips, total)
 
 
 def test_block_size_follows_the_engine_gcd_and_zero_ships_buckets(models):
@@ -178,6 +219,58 @@ def test_malformed_payload_raises(models):
         await eng.stop()
 
     asyncio.run(go())
+
+
+def _retag(p, case):
+    """A payload whose KV arrays and ``"kv_dtype"`` tag disagree."""
+    bits = {key: p[key].astype(np.float32).view(np.uint32).astype(
+        np.uint16) for key in ("k", "v")}
+    return {
+        "untagged_bits": dict(p, kv_dtype=None, **bits),
+        "bits_tagged_float32": dict(p, kv_dtype="float32", **bits),
+        "floats_tagged_bfloat16": dict(p, kv_dtype="bfloat16"),
+        "untagged_int32": dict(p, k=p["k"].astype(np.int32),
+                               v=p["v"].astype(np.int32)),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["untagged_bits", "bits_tagged_float32",
+                                  "floats_tagged_bfloat16",
+                                  "untagged_int32"])
+def test_mistagged_payload_raises(models, case):
+    """KV arrays that do not hold what the payload's tag says (integer
+    bits without the bf16 tag, a tag naming another dtype) fail their
+    request at submit, before any cache write, and the engine serves on."""
+    _, _, tcfg, model = models
+    good = _prefill(tpd, model, tcfg, "float32", device="cpu")[0]
+    prompt = PROMPTS[0][0]
+
+    async def go():
+        eng = LLMEngine(tcfg, model, device="cpu", cache_dtype="float32",
+                        **ENGINE_KW)
+        with pytest.raises(ValueError, match="kv_dtype"):
+            await eng.generate(prompt, prefilled=_retag(good, case))
+        out = await eng.generate_prefilled(prompt, good, max_new_tokens=4)
+        await eng.stop()
+        return out
+
+    assert len(asyncio.run(go())["tokens"]) == 4
+
+
+@pytest.mark.parametrize("kv_block_size", [16, 0],
+                         ids=["paged", "monolithic"])
+def test_bf16_payload_streams_equal_unified(models, kv_block_size):
+    """The port's own tagged bf16 payload, admitted by a bf16-cache
+    engine, gives the unified engine's greedy streams."""
+    _, _, tcfg, model = models
+    kw = dict(ENGINE_KW, kv_block_size=kv_block_size, device="cpu",
+              cache_dtype="bfloat16")
+    want, _ = _drive(LLMEngine(tcfg, model, **kw), PROMPTS)
+    payloads = _prefill(tpd, model, tcfg, "bfloat16", device="cpu")
+    got, st = _drive(LLMEngine(tcfg, model, **kw), PROMPTS, payloads)
+    assert got == want
+    assert st["handoff_bytes"] == sum(p["k"].nbytes + p["v"].nbytes
+                                      for p in payloads)
 
 
 class _Handle:

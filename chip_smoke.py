@@ -33,23 +33,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      generate span per request, the decode batch spans, the device
      windows and duty cycle, the HBM row; the spec phase's drafted,
      accepted and rejected tokens; the PD phase's handoff bytes, now the
-     bf16 payload's). Then the hooks' host cost: the decode step's host
+     bf16 payload's). The PD phase then runs again by handle in one
+     process (prefill(device=True) parks the KV on the card; the engine
+     admits the parked tensors and frees them; streams equal the host
+     payload's). Then the hooks' host cost: the decode step's host
      wall with tracing and the device monitor on, off, on, off, and the
      host seconds inside the hooks per decode block (``run_hooks``); then
      a steady-state decode step (paged and monolithic), a verify forward
      and a prefill, timed and traced for the device's busy share;
-  5. the training kernels (K1 with lse, K2, K3) against their plain
+  5. the same PD handoff through the port's runtime, after the driver
+     frees its model: init() and two actors in their own worker
+     processes, a prefill tier (K1) and a decode tier (K4), each with its
+     own Llama-3-8B; the decode tier fetches each KV handle from the
+     prefill tier (bytes and ms per handle), frees it, and its streams
+     are held to the engine phase's; both tiers' device stores end
+     empty and neither process loads jax or ray_tpu;
+  6. the training kernels (K1 with lse, K2, K3) against their plain
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
      timed beside the plain versions, SDPA and their bounds (ms and
      TF/s), and K2 and K3 each twice on the same inputs (bitwise equal);
-  6. a 2-layer full-width model's loss and gradients through the kernels
+  7. a 2-layer full-width model's loss and gradients through the kernels
      against the same through plain attention;
-  7. make_train_step on Llama-3-8B at full width cut to 8 layers (bf16,
+  8. make_train_step on Llama-3-8B at full width cut to 8 layers (bf16,
      full remat, batch 2 x 4096): 2 warm-up and 5 timed steps with the
      kernels' launch counts, step time, tok/s and MFU, then one step
      traced for the device's busy share;
-  8. one JSON line with every kernel's numbers;
-  9. the last line, {"ok": true, "device": {...}}.
+  9. one JSON line with every kernel's numbers;
+  10. the last line, {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -59,6 +69,7 @@ import asyncio
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1068,8 +1079,255 @@ def run_pd(model, cfg, ref: dict, card: str) -> dict:
         model, cfg, "PD vs unified", prompts,
         [o["tokens"] for o, _, _ in runs], ref["streams"],
         exact=[i for i, p in enumerate(prompts) if len(p) <= 512])
+    handle = run_pd_handles(model, cfg, pre, prompts, ref["new"],
+                            [o["tokens"] for o, _, _ in runs], want_bytes,
+                            card)
     return dict(prefill=k1, decode=k4, flips=flips,
-                handoff_bytes=stats["handoff_bytes"])
+                handoff_bytes=stats["handoff_bytes"], want_bytes=want_bytes,
+                handle=handle)
+
+
+def run_pd_handles(model, cfg, pre, prompts, new, want, want_bytes,
+                   card: str) -> dict:
+    """The handoff by handle in one process: ``prefill(device=True)``
+    parks each prompt's bf16 KV on the card behind TensorRef handles; a
+    handle resolves to the parked CUDA tensor itself (no host copy); the
+    engine admits the handles, and its streams equal the host payload's
+    (``want``) token for token, with the same block-granular bytes
+    counted. The engine frees every handle it admits."""
+    from ray_tpu_torch.runtime.device_store import _store, get_device
+    live0 = _store().live_count()
+    reset_serving_counts()
+    t0 = time.monotonic()
+    handles = [pre.prefill(p, device=True) for p in prompts]
+    prefill_s = time.monotonic() - t0
+    k1 = serving_counts()
+    for h in handles:
+        for key in ("k", "v"):
+            t = get_device(h[key])
+            if not (t.is_cuda and t.dtype == torch.bfloat16
+                    and get_device(h[key], "cuda") is t
+                    and tuple(t.shape) == h[key].shape):
+                raise SystemExit(f"handle {h[key]} does not resolve to its "
+                                 "parked bf16 CUDA tensor")
+    if _store().live_count() != live0 + 2 * len(prompts):
+        raise SystemExit("prefill(device=True) parked "
+                         f"{_store().live_count() - live0} tensors")
+    reset_serving_counts()
+    runs, wall, _, stats = serve(model, cfg, prompts, new, payloads=handles)
+    k4 = serving_counts()
+    got = [o["tokens"] for o, _, _ in runs]
+    print(f"PD handoff by handle, one process [{card}]: prefill "
+          f"{prefill_s:.2f} s (launches {k1}); decode "
+          f"{latency_line(runs, wall)} (launches {k4}); handoff_bytes "
+          f"{stats['handoff_bytes']} (expected {want_bytes}); store "
+          f"{_store().stats()} after the drive")
+    if k1["flash_attention_fwd"] <= 0 or k4["paged_attention"] <= 0:
+        raise SystemExit(f"the handle path must launch K1 and K4: {k1}, "
+                         f"{k4}")
+    if got != want:
+        raise SystemExit(f"PD by handle differs from the host payload's "
+                         f"streams: {got} vs {want}")
+    if stats["handoff_bytes"] != want_bytes:
+        raise SystemExit("handle handoff bytes are not the block-granular "
+                         "bf16 payload")
+    if _store().live_count() != live0:
+        raise SystemExit("the engine left admitted handles parked")
+    return dict(prefill=k1, decode=k4)
+
+
+def foreign_modules() -> list:
+    """This process's modules of jax, ml_dtypes or the JAX package."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "ml_dtypes", "ray_tpu"))
+
+
+class PrefillTier:
+    """The prefill tier of the runtime PD phase, in its own worker
+    process: Llama-3-8B at full width with run_engine's random bf16
+    weights (seed 0), behind a PrefillEngine whose ``prefill`` parks the
+    prompt KV on the card and returns TensorRef handles."""
+
+    def __init__(self, cfg):
+        from ray_tpu_torch.llm.pd import PrefillEngine
+        from ray_tpu_torch.models import llama
+        model = llama.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        self.engine = PrefillEngine(
+            cfg, model, max_len=SERVE_KW["max_len"],
+            prefill_buckets=SERVE_KW["prefill_buckets"])
+
+    def reset_counts(self):
+        reset_serving_counts()
+
+    def counts(self):
+        """This process's launch counts, device store, foreign modules
+        and pid."""
+        from ray_tpu_torch.runtime.device_store import _store
+        return (serving_counts(), _store().stats(), foreign_modules(),
+                os.getpid())
+
+    def prefill(self, tokens):
+        return self.engine.prefill(tokens, device=True)
+
+
+class DecodeTier:
+    """The decode tier of the runtime PD phase, in its own worker
+    process: the same model behind a paged LLMEngine with an explicit
+    pool (``pool_blocks``, so its footprint does not depend on which
+    tier initialises first). ``generate`` admits a prefill result whose
+    handles the engine fetches from the prefill tier (one fetch each,
+    timed here with its bytes) and frees."""
+
+    def __init__(self, cfg, pool_blocks: int):
+        from ray_tpu_torch.llm.engine import LLMEngine
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.runtime import device_store
+        self.cfg = cfg
+        self.model = llama.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        self.engine = LLMEngine(cfg, self.model, **SERVE_KW,
+                                kv_pool_blocks=pool_blocks)
+        self.fetches = []       # (bytes, seconds) per cross-process fetch
+        real = device_store.DeviceStore.get
+
+        def timed(store, ref, device=None):
+            t0 = time.monotonic()
+            t = real(store, ref, device)
+            self.fetches.append((t.nbytes, time.monotonic() - t0))
+            return t
+        device_store.DeviceStore.get = timed
+
+    def reset_counts(self):
+        reset_serving_counts()
+        self.fetches.clear()
+
+    def counts(self):
+        from ray_tpu_torch.runtime.device_store import _store
+        return (serving_counts(), _store().stats(), foreign_modules(),
+                os.getpid(), list(self.fetches), self.engine.stats)
+
+    async def generate(self, tokens, prefilled, new: int):
+        """One request admitted from ``prefilled`` (the prefill tier's
+        result: the runtime resolves the ObjectRef the driver passed),
+        as (result, submitted at, done at) on this process's clock."""
+        t_sub = time.monotonic()
+        out = await self.engine.generate_prefilled(
+            tokens, prefilled, max_new_tokens=new)
+        return out, t_sub, time.monotonic()
+
+    def check(self, prompts, got, want, exact):
+        """check_streams on this tier's copy of the model (the driver has
+        freed its own)."""
+        return check_streams(self.model, self.cfg, "runtime PD vs unified",
+                             prompts, got, want, exact=exact)
+
+
+def run_runtime_pd(cfg, ref: dict, want_bytes: int, card: str) -> dict:
+    """The disaggregated serving path through the port's runtime: init()
+    starts a head, an agent and worker processes; a PrefillTier actor and
+    a DecodeTier actor, each in its own process with its own Llama-3-8B
+    on the card, serve run_engine's 9 prompts (32 new greedy tokens
+    each). The driver submits every prefill, then hands each prefill
+    result's ObjectRef to the decode tier, as the JAX package's PD
+    ingress does (ray_tpu/serve/llm.py). Each tier reports its own
+    process's launch counts (K1 > 0 in the prefill tier, K4 > 0 in the
+    decode tier), device store (empty after the drive: the decode tier
+    freed every handle it admitted) and modules (no jax, ml_dtypes or
+    ray_tpu). The bytes fetched equal run_pd's block-granular bf16
+    payload; streams are held to run_engine's at run_pd's bar."""
+    import ray_tpu_torch
+    prompts, new = ref["prompts"], ref["new"]
+    table_w = SERVE_KW["max_len"] // 16
+    # the engine phase's pool: every slot at max_len plus one chain
+    pool_blocks = SERVE_KW["max_slots"] * table_w + table_w
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        t0 = time.monotonic()
+        pre = ray_tpu_torch.remote(PrefillTier).remote(cfg)
+        dec = ray_tpu_torch.remote(DecodeTier).remote(cfg, pool_blocks)
+        ray_tpu_torch.get([pre.reset_counts.remote(),
+                           dec.reset_counts.remote()], timeout=600)
+        print(f"runtime PD [{card}]: two tiers up, each with its own "
+              f"Llama-3-8B, in {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        results = [pre.prefill.remote(p) for p in prompts]
+        runs = ray_tpu_torch.get(
+            [dec.generate.remote(p, r, new)
+             for p, r in zip(prompts, results)], timeout=600)
+        wall = time.monotonic() - t0
+        k1, pre_store, pre_mods, pre_pid = ray_tpu_torch.get(
+            pre.counts.remote(), timeout=60)
+        k4, dec_store, dec_mods, dec_pid, fetches, stats = \
+            ray_tpu_torch.get(dec.counts.remote(), timeout=60)
+        got = [o["tokens"] for o, _, _ in runs]
+        fetched = sum(b for b, _ in fetches)
+        fetch_ms = [round(s * 1e3, 3) for _, s in fetches]
+        # each handle's rate from its own bytes and time, GB/s
+        rates = [b / s / 1e9 for b, s in fetches]
+        print(f"runtime PD [{card}]: {len(prompts)} requests, {new} new "
+              f"tokens each, drive wall {wall:.2f} s; decode tier "
+              f"{latency_line(runs, wall)}; prefill tier launches {k1}, "
+              f"decode tier launches {k4}; {len(fetches)} handles fetched, "
+              f"{fetched} bytes (expected {want_bytes}), fetch ms per "
+              f"handle p50 {np.median(fetch_ms):.3f} max "
+              f"{max(fetch_ms):.3f}; GB/s per handle {min(rates):.3f}-"
+              f"{max(rates):.3f}, all handles "
+              f"{fetched / sum(s for _, s in fetches) / 1e9:.3f}; "
+              f"(bytes, ms) per handle in fetch order "
+              f"{[(b, m) for (b, _), m in zip(fetches, fetch_ms)]}; "
+              f"handoff_bytes {stats['handoff_bytes']}; stores after the "
+              f"drive: prefill {pre_store}, decode {dec_store}")
+        if k1["flash_attention_fwd"] <= 0 or k4["paged_attention"] <= 0:
+            raise SystemExit(f"runtime PD must launch K1 in the prefill "
+                             f"tier and K4 in the decode tier: {k1}, {k4}")
+        if pre_mods or dec_mods:
+            raise SystemExit(f"a tier loaded jax or ray_tpu: {pre_mods}, "
+                             f"{dec_mods}")
+        if len(fetches) != 2 * len(prompts) or fetched != want_bytes \
+                or stats["handoff_bytes"] != want_bytes:
+            raise SystemExit("the fetched bytes are not the block-granular "
+                             "bf16 payload")
+        if pre_store["live_count"] or dec_store["live_count"]:
+            raise SystemExit("a tier's device store is not empty")
+        for toks in got:
+            if len(toks) != new or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+                raise SystemExit(f"bad generation: {toks}")
+        flips = ray_tpu_torch.get(dec.check.remote(
+            prompts, got, ref["streams"],
+            [i for i, p in enumerate(prompts) if len(p) <= 512]),
+            timeout=300)
+        for a in (pre, dec):
+            ray_tpu_torch.kill(a)
+    finally:
+        ray_tpu_torch.shutdown()
+    wait_exited([pre_pid, dec_pid], 60.0)
+    print(f"runtime PD [{card}]: streams at run_pd's bar, "
+          f"{len(flips)} near-tie flips "
+          f"{[(f['stream'], f['position']) for f in flips]} (stream, "
+          f"position); both tier processes exited")
+    return dict(prefill=k1, decode=k4, flips=flips, wall_s=wall,
+                fetch_ms=fetch_ms, fetched_bytes=fetched)
+
+
+def wait_exited(pids, timeout_s: float) -> None:
+    """Wait until each process in ``pids`` has exited (gone, or a zombie
+    that holds nothing), so the tiers' models leave the card before the
+    next phase; fails after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    for pid in pids:
+        while True:
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    state = f.read().rsplit(")", 1)[1].split()[0]
+            except FileNotFoundError:
+                break
+            if state in ("Z", "X"):
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit(f"worker process {pid} did not exit")
+            time.sleep(0.2)
 
 
 def hook_timers(timers: dict):
@@ -1549,17 +1807,23 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    rpd = run_runtime_pd(cfg, ref, pd["want_bytes"], card)
 
     serve_k1 = {"serve": launches["flash_attention_fwd"],
                 "serve_monolithic": mono["launches"]["flash_attention_fwd"],
                 "serve_spec": spec["launches"]["flash_attention_fwd"],
                 "serve_pd": pd["prefill"]["flash_attention_fwd"],
-                "serve_hooks": hooks["launches"]["flash_attention_fwd"]}
+                "serve_pd_handle": pd["handle"]["prefill"][
+                    "flash_attention_fwd"],
+                "serve_hooks": hooks["launches"]["flash_attention_fwd"],
+                "serve_runtime_pd": rpd["prefill"]["flash_attention_fwd"]}
     serve_k4 = {"serve": launches["paged_attention"],
                 "serve_monolithic": mono["launches"]["paged_attention"],
                 "serve_spec": spec["launches"]["paged_attention"],
                 "serve_pd": pd["decode"]["paged_attention"],
-                "serve_hooks": hooks["launches"]["paged_attention"]}
+                "serve_pd_handle": pd["handle"]["decode"]["paged_attention"],
+                "serve_hooks": hooks["launches"]["paged_attention"],
+                "serve_runtime_pd": rpd["decode"]["paged_attention"]}
 
     tk = check_train_kernels(fa, gen)
     check_train_parity(fa, card)

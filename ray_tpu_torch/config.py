@@ -1,47 +1,211 @@
-"""The knobs the port's modules read.
+"""Central config table for the runtime.
 
-A subset of ``ray_tpu/config.py``: the fields that ``util/tracing.py`` and
-``util/devmon.py`` read, with the reference's defaults and its
-``RAY_TPU_<NAME>`` environment overrides. A field comes in with the first
-port module that reads it.
+The port's copy of ``ray_tpu/config.py``, cut to the fields the port's
+code reads, each with the reference's default. Equivalent in spirit to
+the reference's ``RAY_CONFIG`` X-macro table (reference:
+src/ray/common/ray_config_def.h) — every tunable has a typed default and
+is overridable from the environment as ``RAY_TPU_<NAME>`` or from the
+``system_config`` dict handed to :func:`ray_tpu_torch.init`. A field of
+the reference comes here with the port's code that reads it (the
+collective, pipeline, checkpoint, goodput, forensics, serve, KV-cache
+and speculative-decoding knobs have none yet), so no knob is accepted
+and then ignored; a ``system_config`` key that names no field lands in
+``extra``.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
+from typing import Any
 
 
-def _env(name: str, default, typ: type):
+def _env(name: str, default: Any, typ: type) -> Any:
     raw = os.environ.get(f"RAY_TPU_{name.upper()}")
-    return default if raw is None else typ(raw)
+    if raw is None:
+        return default
+    if typ is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    if typ in (dict, list):
+        return json.loads(raw)
+    return typ(raw)
 
 
 @dataclass
 class Config:
-    # Request tracing (util/tracing.py): tail-based sampling when a
-    # request FINISHES. Error / deadline-exceeded traces and traces
-    # slower than trace_slow_threshold_s are always kept; healthy ones
-    # keep with this probability (deterministic on the trace id).
+    # --- control service (head) ---
+    head_host: str = "127.0.0.1"
+    head_port: int = 0                      # 0 = pick a free port
+    health_check_period_s: float = 1.0      # head -> agent liveness probes
+    health_check_failure_threshold: int = 5
+    # Cluster-view snapshot staleness bound: heartbeat replies ship a
+    # cached pickled view rebuilt at most this often (O(nodes) to build,
+    # so per-beat rebuilds are O(nodes^2)/s cluster-wide — see
+    # SCALE_BENCH_STRETCH.json for the measured collapse at 1k nodes).
+    view_snapshot_interval_s: float = 0.5
+
+    # --- node agent / workers ---
+    num_workers_prestart: int = 2           # warm pool per node
+    worker_start_timeout_s: float = 60.0
+    max_workers_per_node: int = 64
+
+    # --- scheduling ---
+    scheduler_policy: str = "hybrid"        # hybrid | spread | random
+    lease_timeout_s: float = 30.0
+    infeasible_wait_window_s: float = 10.0  # grace for joining/scaled nodes
+
+    # --- object plane ---
+    inline_object_max_bytes: int = 100 * 1024   # small objects ride RPC replies
+    shm_store_bytes: int = 2 * 1024 * 1024 * 1024
+    object_transfer_chunk_bytes: int = 4 * 1024 * 1024
+    object_spill_dir: str = ""              # "" = <session>/spill
+    stream_backpressure_window: int = 64    # unconsumed items per stream
+    stream_producer_inflight: int = 8       # unacked pushes per producer
+
+    # --- rpc ---
+    rpc_connect_timeout_s: float = 10.0
+    rpc_retry_max_attempts: int = 5
+    rpc_retry_backoff_s: float = 0.1
+    # Deterministic fault injection, reference: src/ray/rpc/rpc_chaos.h.
+    # Format: "Method=max_failures:deadline_ms,Method2=..."
+    testing_rpc_failure: str = ""
+
+    # --- tasks / actors ---
+    default_max_task_retries: int = 3
+    # how long an actor's __init__ may run (model-loading actors — an
+    # LLM replica binding hundreds of MB of weights over a slow device
+    # link — legitimately take minutes)
+    actor_init_timeout_s: float = 600.0
+
+    # --- memory monitor (0 = disabled) ---
+    memory_monitor_interval_s: float = 0.0
+    memory_usage_threshold: float = 0.95    # node-wide usage fraction
+    worker_rss_limit_bytes: int = 0         # per-worker soft cap (monitor)
+    worker_cgroup_memory_bytes: int = 0     # per-worker KERNEL cap (cgroup)
+
+    # --- observability ---
+    event_buffer_size: int = 65536
+    metrics_export_interval_s: float = 5.0
+    metrics_port: int = -1                  # -1 off, 0 ephemeral, >0 fixed
+    log_dir: str = ""                       # "" = workers inherit stdio
+    # Request tracing (util/tracing.py request layer): tail-based
+    # sampling at the proxy when a request FINISHES. Error /
+    # deadline-exceeded traces and traces slower than
+    # trace_slow_threshold_s are always kept; healthy ones keep with
+    # this probability (deterministic on the trace id). 1.0 = keep
+    # everything (small clusters), 0.0 = only errors/slow survive
+    # (high-QPS production). Segment spans are budget-capped in the
+    # "request" event category either way; sampling gates which traces
+    # SURFACE (root span recorded), not which record.
     trace_sample_rate: float = 1.0
     trace_slow_threshold_s: float = 1.0
     # Device-plane observability (util/devmon.py; master switch is the
-    # RAY_TPU_DEVMON env var). A source built >= devmon_recompile_threshold
-    # times within devmon_recompile_window_s seconds flags a recompile
-    # STORM. 0 disables the gate.
+    # RAY_TPU_DEVMON env var, read at process start like the tracing
+    # flags). A function compiled >= devmon_recompile_threshold times
+    # within devmon_recompile_window_s seconds flags a recompile STORM
+    # (xla_recompile_storms_total counter + a log naming the function)
+    # — the silent mid-serving recompile loop no host profiler can
+    # see. 0 disables the gate.
+    # The default sits above the engine's LEGITIMATE warmup variants
+    # (one compile per prefill bucket; log2(steps_per_sync)+1 decode
+    # block variants x2 filter modes) so healthy cold starts don't
+    # flag; a real storm — an unbucketed shape reaching a jit boundary
+    # on the request path — blows past it within a few requests.
     devmon_recompile_threshold: int = 10
     devmon_recompile_window_s: float = 60.0
-    # The trailing horizon the device_duty_cycle gauge integrates
+    # HBM snapshot cadence (per-device used/limit/peak gauges + the
+    # "device" events behind `/devices` and `ray-tpu devices`), and
+    # the trailing horizon the device_duty_cycle gauge integrates
     # device-compute windows over.
+    devmon_hbm_interval_s: float = 5.0
     devmon_duty_horizon_s: float = 30.0
+
+    # --- preemption-aware shutdown (runtime/worker.py + ckptio) ---
+    # Grace window a worker gets on SIGTERM before the exit backstop
+    # fires: preemption hooks run inside it — finish flushing the
+    # in-flight async checkpoint save (+ rank-0 manifest commit),
+    # mirror the ZeRO shard to the ring successor, drain metrics.
+    # TPU preemption delivers SIGTERM with advance notice; this is
+    # how much of that notice the worker spends saving work instead
+    # of dying with it. 0 restores die-now semantics.
+    preempt_grace_s: float = 5.0
+
+    # --- cluster health plane (util/timeseries.py + util/health.py) ---
+    # Master runtime off-switch for the head-side metrics time-series
+    # store + SLO engine (the RAY_TPU_HEALTH env var is the process-
+    # start master switch, same pattern as RAY_TPU_DEVMON). Off: no
+    # store, no evaluation loop, report_metrics keeps only the latest
+    # snapshot as before.
+    health_enabled: bool = True
+    # Raw-resolution window width and retention. Rollups derive from
+    # these (timeseries.RESOLUTION_SCALES): 10s raw for 15 min, 1-min
+    # for 2 h, 10-min for 24 h by default.
+    health_window_s: float = 10.0
+    health_retention_s: float = 900.0
+    # Memory bound: max labelled series tracked; past it the least-
+    # recently-updated series is evicted (health_series_dropped_total).
+    health_max_series: int = 4096
+    # Pinned regression baselines for the sentinels ("" = look for
+    # HEALTH_BASELINE.json in the working directory).
+    health_baseline_path: str = ""
+    # SLO engine (Google-SRE multi-window multi-burn-rate): the "page"
+    # tier fires when the error-budget burn rate exceeds slo_fast_burn
+    # over BOTH fast windows ("short,long" seconds — short detects
+    # fast, long stops one bad scrape from paging); the "warn" tier
+    # uses the slow windows at slo_slow_burn. Defaults scale the SRE
+    # workbook's 5m/1h page pair down to the store's 15-min raw
+    # retention.
+    slo_eval_interval_s: float = 10.0
+    slo_fast_burn: float = 14.4
+    slo_fast_windows_s: str = "60,300"
+    slo_slow_burn: float = 3.0
+    slo_slow_windows_s: str = "300,1800"
+    # Derived default objectives (per-deployment ingress latency +
+    # availability, collective straggler, HBM headroom) and their
+    # shared latency bound / target. False = only objectives user code
+    # registered via health.add_objective().
+    slo_default_objectives: bool = True
+    slo_latency_threshold_s: float = 1.0
+    slo_target: float = 0.99
+
+    # --- control-plane fault tolerance ---
+    # Directory for durable control tables (GCS-persistence analog,
+    # runtime/persistence.py). "" = in-memory only.
+    control_persist_dir: str = ""
+
+    extra: dict = field(default_factory=dict)
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
-        """Defaults <- RAY_TPU_* environment <- explicit overrides."""
-        kw = {f.name: _env(f.name, f.default, type(f.default))
-              for f in fields(cls)}
+        """Defaults <- RAY_TPU_* environment <- explicit overrides.
+        Explicit kwargs always beat the environment, even when their value
+        equals the class default."""
+        kw = {}
+        for f in fields(cls):
+            if f.name == "extra":
+                continue
+            kw[f.name] = _env(f.name, f.default, _FIELD_TYPES.get(f.name, str))
         kw.update(overrides)
         return cls(**kw)
+
+    def update(self, overrides: dict[str, Any] | None) -> "Config":
+        for k, v in (overrides or {}).items():
+            if hasattr(self, k):
+                setattr(self, k, v)
+            else:
+                self.extra[k] = v
+        return self
+
+
+# dataclasses.fields gives string annotations under future-annotations;
+# resolve each field's concrete type once so _env can coerce env overrides.
+_TYPES = {"str": str, "int": int, "float": float, "bool": bool,
+          "dict": dict, "list": list}
+_FIELD_TYPES = {
+    f.name: _TYPES.get(str(f.type).replace("builtins.", ""), str)
+    for f in fields(Config)
+}
 
 
 _global_config: Config | None = None

@@ -40,14 +40,18 @@ per block (``util/devmon.py``), the engine's deadline counter
 A request is traced when a ``tracing.TraceContext`` is bound where it is
 submitted.
 
-Not ported in this slice, and rejected with an error rather than
-ignored: tensor-parallel meshes (``mesh=``) and device-resident KV
-handles in a ``prefilled`` payload.
+A ``prefilled`` payload's k/v may be host arrays or device-resident
+``TensorRef`` handles (``PrefillEngine.prefill(device=True)``): a handle
+resolves onto the engine's device (the parked tensor itself in the same
+process, one fetch from another) and is freed once the cache holds its
+KV, or when its request fails. Not ported in this slice, and rejected with an error rather than
+ignored: tensor-parallel meshes (``mesh=``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import math
 import time
 import weakref
@@ -62,14 +66,16 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.llm import kvcache, model as lm, pd, spec as specdec
 from ray_tpu_torch.models.llama import Llama, LlamaConfig
+from ray_tpu_torch.runtime.device_store import TensorRef
 from ray_tpu_torch.serve.fault import DeadlineExceeded, fault_metrics
 from ray_tpu_torch.util import devmon, forensics, tracing
 
 
 class KVHandoffError(RuntimeError):
     """A prefilled request's shipped KV could not be taken (a handle
-    that is not a plain array). Fails only its own request, never the
-    shared scheduler loop."""
+    that no longer resolves, or an entry that is neither a host array
+    nor a handle). Fails only its own request, never the shared
+    scheduler loop."""
 
 
 def engine_metrics() -> dict:
@@ -690,37 +696,56 @@ class LLMEngine:
         chunk = self.buckets[-1]
         return (hit // chunk) * chunk
 
-    @staticmethod
-    def _take_handoff(x) -> np.ndarray:
-        """A shipped payload entry as a host array: numpy arrays pass
-        through; anything else, such as a device-resident handle, fails
-        its request with ``KVHandoffError``."""
+    def _take_handoff(self, x):
+        """A shipped payload entry: a host array passes through; a
+        ``TensorRef`` resolves onto the engine's device (reference: RDT
+        tensor_transport_manager.py:37 — the parked tensor itself in the
+        same process, one fetch across processes). Anything that cannot
+        be taken fails its own request with ``KVHandoffError``."""
         if isinstance(x, np.ndarray):
             return x
-        raise KVHandoffError(
-            f"prefilled KV handle of type {type(x).__name__} cannot be "
-            "taken: the port admits host arrays only (device-resident "
-            "handles are serving glue, ROADMAP Queue 1 item 8.5)")
+        if not isinstance(x, TensorRef):
+            raise KVHandoffError(
+                f"prefilled KV entry of type {type(x).__name__}: ship "
+                "host arrays or TensorRef handles")
+        try:
+            return x.resolve(self.device)
+        except Exception as e:
+            raise KVHandoffError(
+                f"prefilled KV handle unresolvable: {e}") from e
 
+    @contextlib.contextmanager
     def _take_prefilled(self, r: _Request):
-        """The request's shipped KV on the device in the cache dtype,
-        {"k", "v": (layers, ship, kvh, hd)}, and its logits on the host.
-        The KV arrives in its shipped dtype (the port's ``uint16`` bf16
-        bits, the JAX package's ml_dtypes bf16, or a float dtype) and is
-        widened or cast on the device. Counts the KV bytes as shipped;
-        drops the host payload."""
+        """Yields the request's shipped KV on the device in the cache
+        dtype, {"k", "v": (layers, ship, kvh, hd)}, and its logits on the
+        host. A host array arrives in its shipped dtype (the port's
+        ``uint16`` bf16 bits, the JAX package's ml_dtypes bf16, or a
+        float dtype) and is widened or cast on the device; a handle
+        arrives as the tensor it parks. Counts the KV bytes as shipped;
+        drops the payload. The handoff is single-use: on exit, after the
+        body's cache write has been waited for, or when taking or writing
+        fails, every KV handle of the payload is freed, so a failed
+        request leaves nothing parked."""
         p = r.prefilled
         r.prefilled = None
-        k, v, logits = (self._take_handoff(p[key])
-                        for key in ("k", "v", "logits"))
-        r.handoff_bytes = k.nbytes + v.nbytes
-        self._handoff_bytes += r.handoff_bytes
-        self._kvm["handoff_bytes"].inc(r.handoff_bytes)
-        tag = p.get("kv_dtype")
-        # kv_to_torch copies: the device copy never aliases the payload
-        kv = {key: pd.kv_to_torch(x, tag).to(self.device).to(self._cdt)
-              for key, x in (("k", k), ("v", v))}
-        return kv, np.asarray(logits, np.float32)
+        handles = [p[key] for key in ("k", "v")
+                   if isinstance(p[key], TensorRef)]
+        try:
+            k, v, logits = (self._take_handoff(p[key])
+                            for key in ("k", "v", "logits"))
+            r.handoff_bytes = int(k.nbytes + v.nbytes)
+            self._handoff_bytes += r.handoff_bytes
+            self._kvm["handoff_bytes"].inc(r.handoff_bytes)
+            tag = p.get("kv_dtype")
+            # kv_to_torch copies: the device copy never aliases the payload
+            kv = {key: (pd.kv_to_torch(x, tag) if isinstance(x, np.ndarray)
+                        else x).to(self.device).to(self._cdt)
+                  for key, x in (("k", k), ("v", v))}
+            yield kv, np.asarray(logits, np.float32)
+            self._sync()          # the cache holds the KV now
+        finally:
+            for h in handles:
+                h.free()
 
     def _sync(self) -> None:
         """Wait for the work this thread launched (a shipped payload's
@@ -779,13 +804,12 @@ class LLMEngine:
             self._grow_cache(need)
         t0 = time.monotonic()
         if r.prefilled is not None:
-            kv, logits_np = self._take_prefilled(r)
-            pad = pad_to - kv["k"].shape[1]
-            if pad > 0:
-                kv = {k: F.pad(x, (0, 0, 0, 0, 0, pad))
-                      for k, x in kv.items()}
-            lm.write_prefill_to_cache(self._cache, kv, slot, n)
-            self._sync()
+            with self._take_prefilled(r) as (kv, logits_np):
+                pad = pad_to - kv["k"].shape[1]
+                if pad > 0:
+                    kv = {k: F.pad(x, (0, 0, 0, 0, 0, pad))
+                          for k, x in kv.items()}
+                lm.write_prefill_to_cache(self._cache, kv, slot, n)
         else:
             if n <= self.buckets[-1]:
                 padded = self._to_dev(lm.pad_prompt(
@@ -825,13 +849,13 @@ class LLMEngine:
         self._tables[slot] = table
         t0 = time.monotonic()
         if r.prefilled is not None:
-            kv, logits_np = self._take_prefilled(r)
-            pad = self._acc_len() - kv["k"].shape[1]
-            acc = {k: F.pad(x, (0, 0, 0, 0, 0, pad)) for k, x in kv.items()}
-            targets = table.copy()
-            targets[:hit // B] = kvcache.TRASH
-            kvcache.scatter_table(self._pool, acc, targets)
-            self._sync()
+            with self._take_prefilled(r) as (kv, logits_np):
+                pad = self._acc_len() - kv["k"].shape[1]
+                acc = {k: F.pad(x, (0, 0, 0, 0, 0, pad))
+                       for k, x in kv.items()}
+                targets = table.copy()
+                targets[:hit // B] = kvcache.TRASH
+                kvcache.scatter_table(self._pool, acc, targets)
         else:
             if hit == 0 and n <= self.buckets[-1]:
                 b = self._bucket_for(n)

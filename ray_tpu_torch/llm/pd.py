@@ -20,6 +20,13 @@ the dtype the arrays hold, and ``kv_to_torch`` reads them back.
 The ``uint16`` format is the port's own: the port's engine admits it and
 the JAX package's payloads, but the JAX package's decode engine cannot
 read it (it would take the bits as integers).
+
+``prefill(..., device=True)`` keeps the KV on the engine's device
+instead and returns ``TensorRef`` handles (runtime/device_store.py): a
+decode engine in the same process admits the parked tensors with no
+host copy; one in another process pays one fetch (the store ships bf16
+as the same ``uint16`` bits) and frees the handles once its cache holds
+the KV.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.llm import model as lm
 from ray_tpu_torch.models.llama import Llama, LlamaConfig
+from ray_tpu_torch.runtime.device_store import put_device
 
 
 def kv_to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -120,14 +128,9 @@ class PrefillEngine:
         (layers, ship, kvh, hd) in the cache dtype (bf16 as ``uint16``
         bits), "kv_dtype": the cache dtype's name, "logits": numpy
         float32 (vocab,), "length": n}, ``ship`` the block multiple
-        covering the prompt. ``device=True`` (KV kept on the device as
-        runtime TensorRef handles) raises: that handoff is serving glue,
-        not yet ported."""
-        if device:
-            raise NotImplementedError(
-                "the device-resident KV handoff (TensorRef handles, "
-                "runtime/device_store.py) is serving glue, not yet ported: "
-                "ROADMAP Queue 1 item 8.5")
+        covering the prompt. ``device=True`` parks k/v in the cache
+        dtype on the engine's device and returns their ``TensorRef``
+        handles in place of the arrays (runtime/device_store.py)."""
         tokens = list(map(int, tokens))
         n = len(tokens)
         if n == 0:
@@ -151,8 +154,15 @@ class PrefillEngine:
             logits, kv = lm.chunked_prefill(self.params, tokens,
                                             self.buckets, acc, cfg)
             ship = self._ship_len(n, self.max_len)
-        out = {key: kv_to_numpy(kv[key][:, :ship].to(self.cache_dtype))
-               for key in ("k", "v")}
+        if device:
+            # contiguous: the handle pins the shipped blocks, not the
+            # whole bucket the forward computed
+            out = {key: put_device(
+                kv[key][:, :ship].to(self.cache_dtype).contiguous())
+                for key in ("k", "v")}
+        else:
+            out = {key: kv_to_numpy(kv[key][:, :ship].to(self.cache_dtype))
+                   for key in ("k", "v")}
         out.update(kv_dtype=str(self.cache_dtype).removeprefix("torch."),
                    logits=logits.float().cpu().numpy(), length=n)
         return out

@@ -29,8 +29,11 @@ event shapes:
   union of those windows over ``Config.devmon_duty_horizon_s``.
 
 ``RAY_TPU_DEVMON=0`` turns the whole plane off at process start (every
-record path no-ops), as in the reference. The periodic ``monitor_loop``
-waits for the port's worker runtime.
+record path no-ops), as in the reference. :func:`monitor_loop`, run by
+every runtime worker, snapshots HBM periodically once a task has
+initialised CUDA in the process. The module reads torch from
+``sys.modules`` and imports it only where it reads the card, so a
+worker that never touches torch never loads it.
 """
 
 from __future__ import annotations
@@ -39,12 +42,11 @@ import contextlib
 import logging
 import math
 import os
+import sys
 import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional
-
-import torch
 
 from ray_tpu_torch.util import events
 
@@ -194,6 +196,13 @@ def _note_compile(fn: str, now: float, m: dict) -> None:
 # --- HBM accounting ----------------------------------------------------
 
 
+def _cuda_initialised() -> bool:
+    """True once this process has initialised CUDA. A process that
+    never imported torch has not, and is not made to import it here."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.cuda.is_initialized()
+
+
 def _device_label(index: int) -> str:
     return f"cuda:{index}"
 
@@ -205,8 +214,9 @@ def hbm_snapshot(record: bool = True) -> List[dict]:
     what torch's allocator holds for tensors, ``peak`` its high
     watermark, ``limit`` the device's capacity. Empty when devmon is off
     or CUDA is not initialised in this process."""
-    if not _ENABLED or not torch.cuda.is_initialized():
+    if not _ENABLED or not _cuda_initialised():
         return []
+    import torch
     m = devmon_metrics()
     duty = duty_cycle()
     rows: List[dict] = []
@@ -238,9 +248,10 @@ def _default_device_label() -> str:
     (where the port's plain versions then ran the work)."""
     global _DEVICE_LABEL
     if _DEVICE_LABEL is None:
-        if not torch.cuda.is_initialized():
+        if not _cuda_initialised():
             return "cpu:0"
-        _DEVICE_LABEL = _device_label(torch.cuda.current_device())
+        _DEVICE_LABEL = _device_label(
+            sys.modules["torch"].cuda.current_device())
     return _DEVICE_LABEL
 
 
@@ -304,6 +315,34 @@ def duty_cycle(horizon_s: Optional[float] = None,
     if cur_hi is not None:
         busy += cur_hi - cur_lo
     return min(1.0, busy / horizon_s)
+
+
+# --- periodic monitor --------------------------------------------------
+
+
+async def monitor_loop(interval_s: Optional[float] = None) -> None:
+    """Per-process device monitor: snapshots HBM / duty every
+    ``Config.devmon_hbm_interval_s`` once CUDA is initialised in the
+    process (a worker is never made to import torch just to be
+    observable). Run as a background task next to util/metrics.push_loop
+    (runtime/worker.py). The reference's first step, installing the
+    jax compile listeners, has no counterpart: the port records its
+    nvcc builds where they happen (ops/_build.py)."""
+    import asyncio
+    if not _ENABLED:
+        return
+    if interval_s is None:
+        from ray_tpu_torch.config import get_config
+        interval_s = get_config().devmon_hbm_interval_s
+    interval_s = max(0.25, float(interval_s))
+    while True:
+        await asyncio.sleep(interval_s)
+        try:
+            hbm_snapshot()
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — observability never kills
+            pass           # the worker; next tick retries
 
 
 def _reset_for_tests() -> None:

@@ -5,15 +5,17 @@ metrics pipeline: python/ray/util/metrics.py for the user API,
 _private/metrics_agent.py for the scrape path): metrics live in a
 process-global registry, render to the Prometheus text format with
 OpenMetrics exemplar tails, and a head merges a worker's pushed samples
-through ``merge_remote`` (the push side comes with the port's worker
-runtime). Components can also register scrape-time collectors. The HTTP endpoint (``MetricsServer``) and its dashboard
-history are not copied: they sit on ``util/dashboard.py`` and
-``util/health.py``, which the port has not ported yet, so ``reset`` here
-clears the registry alone.
+through ``merge_remote``, fed by each worker's ``push_loop``.
+Components can also register scrape-time collectors. The HTTP endpoint
+(``MetricsServer``) and its dashboard history are not copied: they sit on
+``util/dashboard.py``, which the port has not ported yet (ROADMAP item
+17), so ``acquire_shared_server`` (``Config.metrics_port >= 0``) raises
+and ``reset`` clears the registry alone.
 """
 
 from __future__ import annotations
 
+import asyncio
 import re
 import threading
 import time
@@ -22,7 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 _LOCK = threading.Lock()
 _REGISTRY: Dict[str, "Metric"] = {}
 _COLLECTORS: List[Callable[[], str]] = []
-# Remote snapshots pushed by worker processes (a worker's push -> control
+# Remote snapshots pushed by worker processes (push_loop -> control
 # "report_metrics" -> merge_remote): source -> (received_at, text).
 _REMOTE: Dict[str, Tuple[float, str]] = {}
 _REMOTE_TTL_S = 60.0   # a dead worker's last snapshot ages out
@@ -272,7 +274,7 @@ def render_all() -> str:
 
 # --- head aggregation (push path) -------------------------------------
 # Worker processes have no scrape endpoint of their own; instead each
-# periodically pushes its registry (render_labeled: samples labelled
+# runs push_loop, periodically shipping its registry (samples labelled
 # with node/worker identity) to the control service, which stores the
 # text via merge_remote — the head /metrics endpoint then serves
 # cluster-wide series (the reference ships OpenCensus points from every
@@ -311,6 +313,36 @@ def merge_remote(source: str, text: str) -> None:
             del _REMOTE[s]
 
 
+async def push_once(call, source: str,
+                    labels: Optional[dict]) -> bool:
+    """Render-and-push one snapshot (the push_loop body, and the FINAL
+    flush a worker's graceful shutdown performs so a short-lived
+    worker's last counters aren't silently lost from head aggregation
+    — see runtime/worker.py shutdown_worker). Returns True when a
+    snapshot was actually sent."""
+    text = render_labeled(labels)
+    if not text:
+        return False
+    await call("report_metrics", source=source, text=text)
+    return True
+
+
+async def push_loop(call, source: str, labels: Optional[dict],
+                    interval_s: float = 5.0) -> None:
+    """Periodically push this process's metric samples to the head.
+    ``call`` is an async fn(method, **kw) that issues a control RPC
+    (workers pass a pool.call closure bound to the head address)."""
+    interval_s = max(0.25, float(interval_s))
+    while True:
+        await asyncio.sleep(interval_s)
+        try:
+            await push_once(call, source, labels)
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            pass  # head briefly unreachable: next tick retries
+
+
 def snapshot() -> Dict[str, float]:
     """Current scalar value per metric name (values summed over label
     sets) — the dashboard's history sampler reads this."""
@@ -343,3 +375,12 @@ def core_metric(kind: str, name: str, desc: str) -> Metric:
                "histogram": Histogram}[kind]
         m = cls(name, desc)
     return m
+
+
+async def acquire_shared_server(host: str, port: int) -> Tuple[str, int]:
+    """The reference's shared ``/metrics`` HTTP endpoint: not ported."""
+    raise NotImplementedError(
+        "the metrics HTTP endpoint (Config.metrics_port >= 0) sits on "
+        "util/dashboard.py, which the port has not copied yet (ROADMAP "
+        "item 17); leave metrics_port at -1")
+

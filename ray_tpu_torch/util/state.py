@@ -1,0 +1,73 @@
+"""State API: the task view of programmatic cluster introspection.
+
+Analog of the reference's state API (reference:
+python/ray/util/state/api.py list_tasks + ``ray summary tasks``): a thin
+typed view over the control service's timeline RPC, usable from any
+initialized driver/worker. The port's copy of ``ray_tpu/util/state.py``
+cut to the task rows, which read the runtime's always-on task events
+(``util/tracing.record_exec``); the node, actor, collective, pipeline,
+goodput, trace, device, health, job and placement-group views come with
+the CLI that renders them (ROADMAP Queue 1 item 17).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+
+def _call(method: str, **kw):
+    from ray_tpu_torch import api
+    ctx = api._require_init()
+    return api._run(ctx.pool.call(ctx.head_addr, method, **kw))
+
+
+def tasks_from_events(events, limit: int = 200,
+                      name_filter: Optional[str] = None) -> List[dict]:
+    """Timeline 'exec' spans -> task rows, newest first. The ONE place
+    the span-record shape is interpreted — the state API, the CLI
+    (`ray-tpu list tasks`), and the dashboard /tasks page all render
+    these rows."""
+    rows = []
+    for e in events:
+        if e.get("name") != "exec":
+            continue
+        if name_filter and name_filter not in str(e.get("target", "")):
+            continue
+        rows.append({
+            "name": e.get("target", "?"),
+            "kind": e.get("kind", "task"),
+            "task_id": e.get("task"),
+            "node_id": str(e.get("node", ""))[:16] or None,
+            "pid": e.get("pid"),
+            "start_time": e.get("ts"),
+            "duration_s": e.get("dur", 0.0),
+            "error": e.get("error"),
+            "batch": e.get("batch", 1),
+        })
+    rows.sort(key=lambda x: -(x["start_time"] or 0))
+    return rows[:limit]
+
+
+def list_tasks(limit: int = 200,
+               name_filter: Optional[str] = None) -> List[dict]:
+    """Recent task/actor-call executions, newest first, off the cluster
+    tracing archive (reference: `ray list tasks` over the GCS task
+    events, gcs/gcs_task_manager.h; util/state/api.py list_tasks)."""
+    r = _call("collect_timeline")
+    return tasks_from_events(r.get("events", []), limit, name_filter)
+
+
+def summarize_tasks() -> dict:
+    """name -> {count, total_s, mean_s, errors} (reference:
+    `ray summary tasks`)."""
+    agg: dict = {}
+    for t in list_tasks(limit=100000):
+        a = agg.setdefault(t["name"], {"count": 0, "total_s": 0.0,
+                                       "errors": 0})
+        a["count"] += 1
+        a["total_s"] += t["duration_s"] or 0.0
+        if t["error"]:
+            a["errors"] += 1
+    for a in agg.values():
+        a["mean_s"] = a["total_s"] / max(a["count"], 1)
+    return agg

@@ -1,19 +1,28 @@
-"""Request tracing: W3C-style trace context, request and batch spans, and
-the chrome trace view.
+"""Distributed task spans: submit edges + exec spans -> chrome trace.
 
 The port's copy of ``ray_tpu/util/tracing.py``, on the port's own
-``util/events.py`` and ``config.py``; the port's ``LLMEngine`` records
-the request layer's spans through it. The task half of the reference
-(``record_submit``/``record_exec`` and their ``RAY_TPU_TRACE_TASKS``/
-``RAY_TPU_TASK_EVENTS`` switches) comes with the port's worker runtime,
-its first caller; ``to_chrome`` already lays out its "submit"/"exec"
-events.
+``util/events.py`` and ``config.py``: the task spans of its runtime and
+the request spans of its ``LLMEngine`` record through it.
 
 The framework's analog of the reference's two tracing layers (reference:
 util/tracing/tracing_helper.py — OTel spans propagated caller->worker
 around submit/execute; core_worker/profile_event.h + task_event_buffer.h
 — per-task profile events batched to the GCS and surfaced as
 ray.timeline(), _private/state.py:1010).
+
+Design: every process records into its local ring buffer (util/events):
+  - the SUBMITTER records a "submit" edge {child, parent} where parent is
+    the task this process is currently executing (contextvar), giving the
+    caller->callee tree without widening any RPC payload;
+  - the EXECUTOR records an "exec" span {task, name, ts, dur}.
+``ray_tpu_torch.timeline(all_nodes=True)`` collects buffers cluster-wide
+(control -> agents -> workers) and ``chrome_path=`` writes a
+chrome://tracing / Perfetto-loadable JSON file.
+
+RAY_TPU_TRACE_TASKS=0 disables the submit->exec flow EDGES only; exec
+records double as always-on task events (`ray-tpu list tasks`) and need
+RAY_TPU_TASK_EVENTS=0 as well to stop entirely (recording costs
+~1us/event).
 
 REQUEST TRACING (third layer; reference: the OTel trace context
 util/tracing/tracing_helper.py propagates caller->worker): one W3C-style
@@ -45,6 +54,48 @@ from typing import List, Optional
 from ray_tpu_torch.util import events
 
 _OFF = ("0", "false", "off")
+_ENABLED = os.environ.get("RAY_TPU_TRACE_TASKS", "1").lower() not in _OFF
+# Task events (exec records: name/start/duration/error) are ALWAYS-ON
+# independently of the tracing flag (reference: GCS task events,
+# src/ray/gcs/gcs_task_manager.h, feed `ray list tasks` regardless of
+# OTel tracing) — `ray-tpu list tasks` must not come back empty just
+# because span tracing was off when the work ran. Disable explicitly
+# with RAY_TPU_TASK_EVENTS=0; recording costs ~1us/event.
+_EVENTS = os.environ.get("RAY_TPU_TASK_EVENTS", "1").lower() not in _OFF
+
+# hex id of the task/actor-call this process is currently executing
+current_span: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_current_span", default="")
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def record_submit(child_hex: str, kind: str, name: str) -> None:
+    """Called where a task/actor call is created (core.py submit paths)."""
+    if not _ENABLED:
+        return
+    events.record("trace", "submit", child=child_hex, kind=kind,
+                  target=name, parent=current_span.get())
+
+
+def record_exec(task_hex: str, kind: str, name: str,
+                t0: float, t1: float, *, error: bool = False,
+                batch: int = 1, trace: str = "") -> None:
+    """Called by the worker executor around user code. Doubles as the
+    always-on task-event record: recorded when EITHER flag is on — both
+    RAY_TPU_TRACE_TASKS=0 and RAY_TPU_TASK_EVENTS=0 are needed to stop
+    it (only the submit->exec flow EDGES are tracing-only). ``trace``
+    is the REQUEST trace id the submitter stamped into the task spec
+    (runtime/core.py) — nested tasks join their request's trace."""
+    if not (_ENABLED or _EVENTS):
+        return
+    events.record("trace", "exec", ph="X", task=task_hex, kind=kind,
+                  target=name, ts=t0, dur=t1 - t0, error=error,
+                  batch=batch, pid=os.getpid(),
+                  **({"trace": trace} if trace else {}))
+
 
 # --- request tracing (W3C-style trace context) -------------------------
 

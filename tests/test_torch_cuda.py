@@ -292,7 +292,9 @@ def test_paged_attention_verify_matches_k4_per_row(dev, dtype, wq):
 def _tiny_streams(model, device, mode, reqs):
     """Greedy streams of the tiny engine in one of the serving modes:
     speculative (periodic prompts draft), monolithic, or prefill/decode
-    handoff (PrefillEngine payloads admitted by a paged engine)."""
+    handoff (PrefillEngine payloads admitted by a paged engine: host
+    arrays, or with "pd_handle" TensorRef handles to the KV parked on
+    ``device``)."""
     from ray_tpu_torch.llm.engine import LLMEngine
     from ray_tpu_torch.llm.pd import PrefillEngine
     cfg = model.cfg
@@ -303,11 +305,12 @@ def _tiny_streams(model, device, mode, reqs):
     if mode == "monolithic":
         kw["kv_block_size"] = 0
     payloads = [None] * len(reqs)
-    if mode == "pd":
+    if mode in ("pd", "pd_handle"):
         pre = PrefillEngine(cfg, model, prefill_buckets=(16, 32),
                             max_len=128, cache_dtype="float32",
                             device=device)
-        payloads = [pre.prefill(p) for p, _ in reqs]
+        payloads = [pre.prefill(p, device=mode == "pd_handle")
+                    for p, _ in reqs]
 
     async def run():
         eng = LLMEngine(cfg, model, **kw)
@@ -320,7 +323,8 @@ def _tiny_streams(model, device, mode, reqs):
     return asyncio.run(run())
 
 
-@pytest.mark.parametrize("mode", ["spec", "monolithic", "pd"])
+@pytest.mark.parametrize("mode", ["spec", "monolithic", "pd",
+                                  "pd_handle"])
 def test_tiny_serving_modes_on_card_match_cpu(dev, mode):
     """Speculative decoding, the monolithic cache and the prefill/decode
     handoff on the card (K1, K4 where the mode runs it, the verify
@@ -805,3 +809,63 @@ def test_forced_rebuild_records_exactly_one_compile(dev, tmp_path,
     loader.load("paged_attention")
     loader.build(["paged_attention"])
     assert compiles() == before + 1
+
+
+def test_device_store_same_process_identity_on_card(dev):
+    """A handle to a CUDA tensor resolves to that very tensor (no host
+    copy); asking for the CPU gives a copy with the same values."""
+    from ray_tpu_torch.runtime.device_store import get_device, put_device
+    t = torch.randn((4, 33, 2, 16), device=dev).to(torch.bfloat16)
+    ref = put_device(t)
+    assert ref.dtype == "bfloat16" and ref.shape == tuple(t.shape)
+    assert get_device(ref) is t and get_device(ref, dev) is t
+    assert get_device(ref, None) is t
+    host = get_device(ref, "cpu")
+    assert host.device.type == "cpu"
+    assert torch.equal(host.view(torch.int16), t.cpu().view(torch.int16))
+    ref.free()
+    with pytest.raises(KeyError):
+        get_device(ref)
+
+
+def test_device_store_cross_process_bf16_fetch_on_card(dev):
+    """An actor parks bf16 and f32 CUDA tensors made from a seed; the
+    driver resolves the handles onto its card (device=None: the card)
+    through one fetch each, bit for bit, and frees them at the owner."""
+    import ray_tpu_torch
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        class Holder:
+            def park(self, seed):
+                import torch
+                from ray_tpu_torch.runtime.device_store import put_device
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                self.parked = [
+                    torch.randn((3, 70, 2, 128), generator=g,
+                                device="cuda").to(torch.bfloat16),
+                    torch.randn((5000,), generator=g, device="cuda")]
+                return [put_device(t) for t in self.parked]
+
+            def live(self):
+                from ray_tpu_torch.runtime.device_store import _store
+                return _store().live_count()
+
+        h = Holder.remote()
+        refs = ray_tpu_torch.get(h.park.remote(11), timeout=180)
+        g = torch.Generator(device=dev).manual_seed(11)
+        want = [torch.randn((3, 70, 2, 128), generator=g,
+                            device=dev).to(torch.bfloat16),
+                torch.randn((5000,), generator=g, device=dev)]
+        got = [r.resolve() for r in refs]
+        assert [t.device.type for t in got] == ["cuda", "cuda"]
+        assert got[0].dtype == torch.bfloat16
+        assert torch.equal(got[0].view(torch.int16),
+                           want[0].view(torch.int16))
+        assert torch.equal(got[1], want[1])
+        assert ray_tpu_torch.get(h.live.remote(), timeout=60) == 2
+        for r in refs:
+            r.free()
+        assert ray_tpu_torch.get(h.live.remote(), timeout=60) == 0
+    finally:
+        ray_tpu_torch.shutdown()

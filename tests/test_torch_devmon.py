@@ -141,6 +141,41 @@ def test_hbm_snapshot_is_empty_without_cuda(clean):
     assert tmetrics.render_all() == "\n"
 
 
+def test_monitor_loop_snapshots_each_tick(clean, monkeypatch):
+    """The worker's monitor: one HBM snapshot per interval (floored at
+    0.25 s), a failing snapshot does not stop it, and with devmon off it
+    returns at once; without CUDA each snapshot is empty."""
+    import asyncio
+    ticks, waits = [], []
+    real_sleep = asyncio.sleep
+
+    async def fast(s):
+        waits.append(s)
+        await real_sleep(0)
+
+    def snap():
+        ticks.append(tdevmon._cuda_initialised())
+        if len(ticks) == 1:
+            raise RuntimeError("a transient failure")
+        return []
+
+    monkeypatch.setattr(asyncio, "sleep", fast)
+    monkeypatch.setattr(tdevmon, "hbm_snapshot", snap)
+
+    async def run():
+        task = asyncio.ensure_future(tdevmon.monitor_loop(0.01))
+        while len(ticks) < 3:
+            await real_sleep(0)
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        monkeypatch.setattr(tdevmon, "_ENABLED", False)
+        await tdevmon.monitor_loop(0.01)
+
+    asyncio.run(run())
+    assert ticks[:3] == [False] * 3 and set(waits) == {0.25}
+
+
 def _fake_nvcc(tmp_path, fail=False):
     """A stand-in nvcc that writes its -o target (or fails)."""
     nvcc = tmp_path / "bin" / "nvcc"
@@ -177,13 +212,25 @@ def test_a_real_build_records_one_compile(clean, monkeypatch, tmp_path,
         tmetrics.render_all()
 
 
+def _env_sample(default):
+    """An environment string that parses as a field's type and differs
+    from its default."""
+    if isinstance(default, bool):
+        return "0" if default else "yes"
+    if isinstance(default, (int, float)):
+        return "7"
+    return "from-env"
+
+
 @pytest.mark.parametrize("name", [f.name for f in
-                                  dataclasses.fields(tconfig.Config)])
+                                  dataclasses.fields(tconfig.Config)
+                                  if f.name != "extra"])
 def test_config_knob_matches_jax(monkeypatch, name):
     """Each field of the port's Config: the JAX Config's default, and the
     same value from the same ``RAY_TPU_<NAME>`` override."""
-    assert getattr(tconfig.Config(), name) == getattr(jconfig.Config(), name)
-    monkeypatch.setenv(f"RAY_TPU_{name.upper()}", "7")
+    default = getattr(tconfig.Config(), name)
+    assert default == getattr(jconfig.Config(), name)
+    monkeypatch.setenv(f"RAY_TPU_{name.upper()}", _env_sample(default))
     got = getattr(tconfig.Config.from_env(), name)
-    assert got == getattr(jconfig.Config.from_env(), name) == 7
-    assert type(got) is type(getattr(tconfig.Config(), name))
+    assert got == getattr(jconfig.Config.from_env(), name) != default
+    assert type(got) is type(default)

@@ -35,7 +35,23 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.config",
                 "ray_tpu_torch.util.events", "ray_tpu_torch.util.metrics",
                 "ray_tpu_torch.util.tracing", "ray_tpu_torch.util.devmon",
-                "ray_tpu_torch.util.forensics", "ray_tpu_torch.serve.fault"]
+                "ray_tpu_torch.util.forensics", "ray_tpu_torch.serve.fault",
+                "ray_tpu_torch.api", "ray_tpu_torch.node",
+                "ray_tpu_torch.scripts", "ray_tpu_torch.cluster_utils",
+                "ray_tpu_torch.runtime", "ray_tpu_torch.runtime.agent",
+                "ray_tpu_torch.runtime.cgroup",
+                "ray_tpu_torch.runtime.control", "ray_tpu_torch.runtime.core",
+                "ray_tpu_torch.runtime.device_store",
+                "ray_tpu_torch.runtime.ids",
+                "ray_tpu_torch.runtime.object_store",
+                "ray_tpu_torch.runtime.persistence",
+                "ray_tpu_torch.runtime.rpc",
+                "ray_tpu_torch.runtime.runtime_env",
+                "ray_tpu_torch.runtime.serialization",
+                "ray_tpu_torch.runtime.worker",
+                "ray_tpu_torch.util.accelerators", "ray_tpu_torch.util.aio",
+                "ray_tpu_torch.util.health", "ray_tpu_torch.util.state",
+                "ray_tpu_torch.util.timeseries", "ray_tpu_torch.util.tpu"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -52,6 +68,49 @@ def test_import_leaves_jax_and_ray_tpu_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_port_modules_list_every_module():
+    """PORT_MODULES above names every module of the port."""
+    found = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+             .removesuffix(".__init__")
+             for p in (ROOT / "ray_tpu_torch").rglob("*.py")}
+    listed = set(PORT_MODULES) | {"ray_tpu_torch.llm",
+                                  "ray_tpu_torch.models",
+                                  "ray_tpu_torch.ops", "ray_tpu_torch.serve",
+                                  "ray_tpu_torch.util",
+                                  "ray_tpu_torch._device",
+                                  "ray_tpu_torch.ops._build"}
+    assert found <= listed, sorted(found - listed)
+
+
+def test_runtime_leaves_jax_and_ray_tpu_out():
+    """In a fresh process, ``ray_tpu_torch.init()``, a task and an actor
+    call load neither jax, ml_dtypes nor any ray_tpu module, in the
+    driver or in the workers; the runtime itself does not import torch
+    either, in the driver or in a worker whose task never asks for it."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch as rt\n"
+        "def bad():\n"
+        "    import sys\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                  ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu', 'torch'))\n"
+        "rt.init(num_cpus=2)\n"
+        "@rt.remote\n"
+        "def task():\n"
+        "    return bad()\n"
+        "@rt.remote\n"
+        "class A:\n"
+        "    def m(self):\n"
+        "        return bad()\n"
+        "out = rt.get([task.remote(), A.remote().m.remote()], timeout=120)\n"
+        "rt.shutdown()\n"
+        "print([bad()] + out)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[[], [], []]"
 
 
 def _imports(path: pathlib.Path):

@@ -137,3 +137,55 @@ def test_port_catalogs_pass_the_metric_lint(clean, catalog):
         return {k: (m.name, m.kind, m.tag_keys,
                     getattr(m, "boundaries", None)) for k, m in ms.items()}
     assert shape(got) == shape(want)
+
+
+def test_push_once_and_push_loop_match_jax(clean, monkeypatch):
+    """A worker's push: ``push_once`` sends this process's labelled
+    samples as the JAX package's does (nothing when the registry is
+    empty), and ``push_loop`` keeps pushing through a failed call."""
+    import asyncio
+    sent = {jmetrics: [], tmetrics: []}
+    labels = {"node": "n1", "worker": "w"}
+
+    async def drive(mod):
+        async def call(method, **kw):
+            sent[mod].append((method, kw))
+
+        assert await mod.push_once(call, "worker:w", labels) is False
+        _mixed(mod)
+        assert await mod.push_once(call, "worker:w", labels) is True
+
+    for mod in (jmetrics, tmetrics):
+        asyncio.run(drive(mod))
+    assert sent[tmetrics] == sent[jmetrics]
+    assert [m for m, _ in sent[tmetrics]] == ["report_metrics"]
+
+    calls = []
+    real_sleep = asyncio.sleep
+
+    async def no_wait(_s):
+        await real_sleep(0)
+
+    async def flaky(method, **kw):
+        calls.append(method)
+        if len(calls) == 1:
+            raise ConnectionError("head briefly unreachable")
+
+    async def loop():
+        task = asyncio.ensure_future(
+            tmetrics.push_loop(flaky, "worker:w", labels, interval_s=0.0))
+        while len(calls) < 3:
+            await real_sleep(0)
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+
+    monkeypatch.setattr(asyncio, "sleep", no_wait)
+    asyncio.run(loop())
+    assert calls[:3] == ["report_metrics"] * 3
+
+
+def test_metrics_endpoint_is_not_ported():
+    import asyncio
+    with pytest.raises(NotImplementedError, match="item 17"):
+        asyncio.run(tmetrics.acquire_shared_server("127.0.0.1", 0))

@@ -28,6 +28,7 @@ from ray_tpu_torch import bridge
 from ray_tpu_torch.llm import pd as tpd
 from ray_tpu_torch.llm.engine import KVHandoffError, LLMEngine
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.runtime.device_store import _store
 
 TOL = 1e-5
 KW = dict(prefill_buckets=(16, 32), max_len=128)
@@ -132,8 +133,11 @@ def test_block_size_follows_the_engine_gcd_and_zero_ships_buckets(models):
     whole = tpd.PrefillEngine(tcfg, model, block_size=0, device="cpu", **KW)
     assert whole.prefill(_prompt(3, 10))["k"].shape[1] == 16
     assert whole.prefill(_prompt(3, 20))["k"].shape[1] == 32
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        whole.prefill([1, 2], device=True)
+    # handles park the same bucket-granular span
+    handles = whole.prefill([1, 2], device=True)
+    assert handles["k"].shape[1] == handles["v"].shape[1] == 16
+    for key in ("k", "v"):
+        handles[key].free()
     with pytest.raises(ValueError, match="empty prompt"):
         whole.prefill([])
     with pytest.raises(ValueError, match="max_len"):
@@ -273,20 +277,19 @@ def test_bf16_payload_streams_equal_unified(models, kv_block_size):
                                       for p in payloads)
 
 
-class _Handle:
-    """A KV handle that is not a plain array (a device-resident
-    TensorRef has a shape, and no array behind it here)."""
-
-    def __init__(self, shape):
-        self.shape = shape
-
-
 @pytest.mark.parametrize("kv_block_size", [16, 0],
                          ids=["paged", "monolithic"])
 def test_handle_fails_only_its_own_request(models, kv_block_size):
+    """A device-resident handle freed before its admit (a dead handoff)
+    fails that request with KVHandoffError; the request beside it and
+    the next one are served, no block stays reserved, and the engine
+    freed the payload's live handle too: nothing stays parked."""
     _, _, tcfg, model = models
-    payload = _prefill(tpd, model, tcfg, "float32", device="cpu")[0]
-    bad = dict(payload, k=_Handle(payload["k"].shape))
+    pre = tpd.PrefillEngine(tcfg, model, cache_dtype="float32",
+                            device="cpu", **KW)
+    live0 = _store().live_count()
+    bad = pre.prefill(PROMPTS[0][0], device=True)
+    bad["k"].free()
     kw = dict(ENGINE_KW, kv_block_size=kv_block_size, device="cpu",
               cache_dtype="float32")
     want, _ = _drive(LLMEngine(tcfg, model, **kw), PROMPTS[1:2])
@@ -304,7 +307,40 @@ def test_handle_fails_only_its_own_request(models, kv_block_size):
         return results, after, st
 
     (err, ok), after, st = asyncio.run(go())
-    assert isinstance(err, KVHandoffError) and "item 8.5" in str(err)
+    assert isinstance(err, KVHandoffError) and "unresolvable" in str(err)
+    assert _store().live_count() == live0
     assert ok["tokens"] == after["tokens"] == want[0]
     if kv_block_size:
         assert st["blocks_used"] == 0
+
+
+@pytest.mark.parametrize("kv_block_size", [16, 0],
+                         ids=["paged", "monolithic"])
+def test_handles_freed_when_the_cache_write_fails(models, kv_block_size,
+                                                  monkeypatch):
+    """A cache write that raises after both handles resolved fails the
+    request, and the engine frees both handles all the same."""
+    _, _, tcfg, model = models
+    pre = tpd.PrefillEngine(tcfg, model, cache_dtype="float32",
+                            device="cpu", **KW)
+    live0 = _store().live_count()
+    payload = pre.prefill(PROMPTS[0][0], device=True)
+    assert _store().live_count() == live0 + 2
+
+    def boom(*a, **k):
+        raise RuntimeError("cache write failed")
+    from ray_tpu_torch.llm import engine as teng
+    monkeypatch.setattr(teng.kvcache, "scatter_table", boom)
+    monkeypatch.setattr(teng.lm, "write_prefill_to_cache", boom)
+    eng = LLMEngine(tcfg, model, **dict(ENGINE_KW, device="cpu",
+                                        kv_block_size=kv_block_size,
+                                        cache_dtype="float32"))
+
+    async def go():
+        with pytest.raises(RuntimeError, match="cache write failed"):
+            await eng.generate_prefilled(PROMPTS[0][0], payload,
+                                         max_new_tokens=4)
+        await eng.stop()
+
+    asyncio.run(go())
+    assert _store().live_count() == live0

@@ -179,3 +179,38 @@ def test_filter_trace_and_to_chrome_match_jax(tmp_path, trace_id, offsets):
         json.loads(paths[0].read_text())
     if trace_id is None:
         assert {r["ph"] for r in outs[1]} >= {"X", "I", "s", "f"}
+
+
+def _tasks(tr):
+    tok = tr.current_span.set("p" * 16)
+    try:
+        tr.record_submit("c" * 16, "task", "f")
+        tr.record_exec("c" * 16, "task", "f", 10.0, 10.5)
+        tr.record_exec("d" * 16, "actor", "A.m", 11.0, 11.25, error=True,
+                       batch=3, trace=T)
+    finally:
+        tr.current_span.reset(tok)
+    tr.record_submit("e" * 16, "actor", "A.m")
+
+
+@pytest.mark.parametrize("trace,events", [(True, True), (False, True),
+                                          (True, False), (False, False)],
+                         ids=["both", "events_only", "trace_only", "off"])
+def test_task_spans_match_jax(bufs, monkeypatch, trace, events):
+    """The runtime's task spans: ``record_submit`` edges (with the
+    submitting task as parent) and ``record_exec`` spans give the JAX
+    package's events under each setting of the RAY_TPU_TRACE_TASKS and
+    RAY_TPU_TASK_EVENTS switches (exec records stop only when both are
+    off), and lay out the same chrome trace."""
+    out = []
+    for tr, ev in PAIRS:
+        monkeypatch.setattr(tr, "_ENABLED", trace)
+        monkeypatch.setattr(tr, "_EVENTS", events)
+        assert tr.enabled() is trace
+        _tasks(tr)
+        evs = ev.dump()
+        out.append((_no_pid(evs), tr.to_chrome(evs)))
+    assert out[1] == out[0]
+    names = [e["name"] for e in out[1][0]]
+    assert names.count("submit") == (2 if trace else 0)
+    assert names.count("exec") == (2 if trace or events else 0)

@@ -1,5 +1,5 @@
-"""Drive ray_tpu_torch's serving path and training step on one CUDA
-card and check them.
+"""Drive ray_tpu_torch's serving path, training step and train library
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -55,11 +55,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   7. a 2-layer full-width model's loss and gradients through the kernels
      against the same through plain attention;
   8. make_train_step on Llama-3-8B at full width cut to 8 layers (bf16,
-     full remat, batch 2 x 4096): 2 warm-up and 5 timed steps with the
-     kernels' launch counts, step time, tok/s and MFU, then one step
-     traced for the device's busy share;
-  9. one JSON line with every kernel's numbers;
-  10. the last line, {"ok": true, "device": {...}}.
+     batch 2 x 4096) under each of the remat policies "full", "attn" and
+     "dots", from the same weights: 2 warm-up and 5 timed steps with the
+     kernels' launch counts (K1/K2/K3 per step 16/8/8 under "full",
+     8/8/8 under the others), step time, tok/s, MFU and peak memory, one
+     step traced for the device's busy share, and step 1's loss and grad
+     norm held equal across the policies;
+  9. the training path through the train library (``run_trainer``):
+     init(), a TorchTrainer whose one worker trains Llama-3-8B's widths
+     at 2 layers under "dots" for 6 steps on the card, saves through
+     AsyncCheckpointer after step 3, dies once after step 4 and resumes
+     from the checkpoint in a new worker; its losses held to the same
+     steps in this process, its launches, checkpoint bytes, save and
+     restore seconds and goodput anatomy printed, and no jax or ray_tpu
+     in the worker;
+  10. one JSON line with every kernel's numbers;
+  11. the last line, {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -1652,14 +1663,26 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def run_train(fa, card: str) -> dict:
+TRAIN_POLICIES = ("full", "attn", "dots")
+# Step 1 of the 8-layer train step under each remat policy, from the same
+# weights and batch: the forward is the same ops on the same values, and
+# a recompute (or a saved output) gives the backward the same values, so
+# the loss and grad norm are expected bit for bit equal (printed). A
+# policy that dropped or doubled a layer's gradient moves the grad norm
+# by percents; the bounds allow only the f32 reordering of a sum.
+POLICY_LOSS_REL_TOL = 1e-6
+POLICY_GNORM_REL_TOL = 1e-5
+
+
+def train_policy(fa, card: str, policy: str) -> dict:
     """make_train_step on Llama-3-8B at its published widths (dim 4096,
     32/8 heads, ffn 14336, vocab 128256, rope 5e5) cut to 8 layers, bf16,
-    full remat, f32 logits, no CE chunking; random weights from seed 0;
-    one batch of 2 x 4096 random tokens (targets shifted by one);
+    remat ``policy``, f32 logits, no CE chunking; random weights from
+    seed 0; one batch of 2 x 4096 random tokens (targets shifted by one);
     default_optimizer(3e-4, warmup 2, total 100). 2 warm-up steps, then 5
-    timed steps whose launch counts must be K1 = 2 * 8 * 5 (all with
-    lse), K2 = K3 = 8 * 5; then one step traced."""
+    timed steps whose launch counts must be K1 (all with lse) = 2 * 8 * 5
+    under "full" and 8 * 5 under "attn" and "dots", K2 = K3 = 8 * 5; the
+    peak memory of the timed steps; then one step traced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1667,7 +1690,7 @@ def run_train(fa, card: str) -> dict:
     from ray_tpu_torch.parallel import default_optimizer, make_train_step
     from ray_tpu_torch.parallel.mesh import global_norm
 
-    cfg = llama.llama3_8b(n_layers=8, dtype="bfloat16", remat_policy="full",
+    cfg = llama.llama3_8b(n_layers=8, dtype="bfloat16", remat_policy=policy,
                           logits_dtype="float32", ce_chunk=0)
     b, s, steps = 2, 4096, 5
     opt = default_optimizer(learning_rate=3e-4, warmup_steps=2,
@@ -1676,7 +1699,7 @@ def run_train(fa, card: str) -> dict:
     t0 = time.monotonic()
     state = init_fn(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    print(f"train: llama3_8b widths, {cfg.n_layers} layers, "
+    print(f"train [{policy}] [{card}]: llama3_8b widths, {cfg.n_layers} layers, "
           f"{cfg.num_params() / 1e9:.3f}B params, bf16, random weights "
           f"(seed 0) and AdamW state in {time.monotonic() - t0:.1f} s")
     toks = torch.tensor(np.random.default_rng(0).integers(
@@ -1710,11 +1733,15 @@ def run_train(fa, card: str) -> dict:
                 "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = cfg.n_layers * steps
-    want = {"flash_attention_fwd": 2 * n, "flash_attention_fwd_lse": 2 * n,
+    k1 = (2 if policy == "full" else 1) * n
+    want = {"flash_attention_fwd": k1, "flash_attention_fwd_lse": k1,
             "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
-    print(f"train losses {['%.5f' % x for x in losses]}, grad norms "
-          f"{['%.4f' % x for x in norms]}; launches over the {steps} timed "
-          f"steps {launches}")
+    per_step = "/".join(str(launches[k] // steps) for k in (
+        "flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq"))
+    print(f"train [{policy}] [{card}] losses {['%.5f' % x for x in losses]}, grad "
+          f"norms {['%.4f' % x for x in norms]}; launches over the {steps} "
+          f"timed steps {launches}, K1 (with lse)/K2/K3 per step {per_step}")
     if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
         raise SystemExit("a training loss or grad norm is not finite")
     if not losses[-1] < losses[1]:
@@ -1724,11 +1751,12 @@ def run_train(fa, card: str) -> dict:
     step_s = float(np.median(walls[2:]))
     tok_s = b * s / step_s
     mfu = tok_s * cfg.flops_per_token(s) / PEAK_BF16_FLOPS
-    print(f"train step [{card}]: host wall median {step_s * 1e3:.1f} ms "
-          f"(steps {', '.join('%.1f' % (w * 1e3) for w in walls[2:])} ms), "
+    print(f"train step [{policy}] [{card}]: host wall median "
+          f"{step_s * 1e3:.1f} ms (steps "
+          f"{', '.join('%.1f' % (w * 1e3) for w in walls[2:])} ms), "
           f"{tok_s:.1f} tok/s, MFU {mfu:.4f} (flops_per_token(4096) "
           f"{cfg.flops_per_token(s):.4e} / 989 TF/s), peak memory "
-          f"{peak_gb:.1f} GB")
+          f"{peak_gb:.2f} GB (max_memory_allocated over the timed steps)")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1747,8 +1775,9 @@ def run_train(fa, card: str) -> dict:
     per_launch = {k: names[n][0] / names[n][1] for n in names
                   for k in ("K1", "K2", "K3") if _kernel_kind(n) == k}
     top = sorted(names.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"train step traced [{card}]: host wall {wall_ms:.1f} ms, device "
-          f"busy {busy:.1f} ms, device idle share {idle}; by kind (ms): "
+    print(f"train step traced [{policy}] [{card}]: host wall {wall_ms:.1f} "
+          f"ms, device busy {busy:.1f} ms, device idle share {idle}; by "
+          f"kind (ms): "
           + "; ".join(f"{k} {v:.1f}" for k, v in
                       sorted(kinds.items(), key=lambda kv: -kv[1]))
           + "; per launch at b=2 s=4096 (ms): "
@@ -1756,15 +1785,273 @@ def run_train(fa, card: str) -> dict:
           + "; top kernels (ms, count): "
           + "; ".join(f"{k[:50]} {v[0]:.1f} x{v[1]}" for k, v in top))
 
-    params = list(state.params.parameters())
-    grads = [p.grad for p in params]
+    if policy == "full":
+        params = list(state.params.parameters())
+        grads = [p.grad for p in params]
 
-    def update():
-        opt.update(state.opt_state, params, grads, global_norm(grads))
+        def update():
+            opt.update(state.opt_state, params, grads, global_norm(grads))
 
-    print(f"optimizer update alone (global norm, clip, AdamW over "
-          f"{len(params)} tensors): {time_ms(update, iters=3):.1f} ms")
-    return {"launches": launches, "per_launch_ms": per_launch}
+        print(f"optimizer update alone [{card}] (global norm, clip, AdamW over "
+              f"{len(params)} tensors): {time_ms(update, iters=3):.1f} ms")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_launch_ms": per_launch,
+            "step1": (losses[0], norms[0]), "step_ms": step_s * 1e3,
+            "tok_s": tok_s, "mfu": mfu, "peak_gb": peak_gb,
+            "kinds_ms": kinds}
+
+
+def run_train(fa, card: str) -> dict:
+    """train_policy under "full", "attn" and "dots" from the same weights
+    and batch, and step 1's loss and grad norm held equal across them
+    (POLICY_*_REL_TOL; whether bitwise is printed)."""
+    runs = {p: train_policy(fa, card, p) for p in TRAIN_POLICIES}
+    loss0, norm0 = runs["full"]["step1"]
+    for policy in TRAIN_POLICIES[1:]:
+        loss, norm = runs[policy]["step1"]
+        dl, dn = abs(loss - loss0) / abs(loss0), abs(norm - norm0) / norm0
+        ok = dl <= POLICY_LOSS_REL_TOL and dn <= POLICY_GNORM_REL_TOL
+        print(f"train step 1 [{policy}] vs [full] [{card}]: loss {loss!r} vs "
+              f"{loss0!r} (rel {dl:.2e}, tol {POLICY_LOSS_REL_TOL}), grad "
+              f"norm {norm!r} vs {norm0!r} (rel {dn:.2e}, tol "
+              f"{POLICY_GNORM_REL_TOL}); bitwise "
+              f"{loss == loss0 and norm == norm0} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"remat policy {policy!r} changed step 1")
+    print(f"train policies [{card}] (policy: step ms, tok/s, MFU, peak GB, "
+          f"K1/K2/K3 per step): " + "; ".join(
+              f"{p}: {r['step_ms']:.1f}, {r['tok_s']:.1f}, {r['mfu']:.4f}, "
+              f"{r['peak_gb']:.2f}, "
+              + "/".join(str(r["launches"][k] // 5) for k in (
+                  "flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"))
+              for p, r in runs.items()))
+    return runs
+
+
+# The trainer phase: Llama-3-8B's widths at 2 layers under "dots" through
+# TorchTrainer, 6 steps of 2 x 4096 tokens, a checkpoint after step 3, the
+# worker killed once before step 4 and the group restored from it. Its
+# losses and grad norms against the same 6 steps of make_train_step in this
+# process: the same kernels and cuBLAS calls on the same card and values,
+# so they are expected bit for bit equal (printed); the bound allows only
+# a reordered f32 sum, far below what one step's update moves (~1e-3). The
+# grad norm of steps 4-6 is the tighter witness of a wrong restore of the
+# AdamW moments.
+TRAINER_STEPS, TRAINER_SAVE_AT, TRAINER_FAIL_AT = 6, 3, 4
+TRAINER_REL_TOL = 1e-5
+
+
+def trainer_run():
+    """(cfg, state, step_fn, batch(step)) of the trainer phase, as the
+    worker and the driver both build it."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import default_optimizer, make_train_step
+    cfg = llama.llama3_8b(n_layers=2, dtype="bfloat16", remat_policy="dots",
+                          logits_dtype="float32", ce_chunk=0)
+    init_fn, step_fn = make_train_step(cfg, optimizer=default_optimizer(
+        learning_rate=3e-4, warmup_steps=2, total_steps=100))
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+
+    def batch(step: int) -> dict:
+        toks = np.random.default_rng(100 + step).integers(
+            0, cfg.vocab_size, (2, 4097))
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    return cfg, state, step_fn, batch
+
+
+def trainer_fn(config):
+    """The trainer phase's train_fn, in the train worker: restores from
+    the run's checkpoint when there is one, then takes the remaining
+    steps, each inside a goodput step window (compute stamped around the
+    synced step); saves through AsyncCheckpointer after step 3 (the host
+    copy and the snapshot are the step path's ckpt_stall); after step 4,
+    the first time, waits for the save to commit, writes its save numbers
+    beside the checkpoint, waits until the controller holds steps 1-3's
+    reports, and dies before reporting the step. Each step
+    reports its loss, grad norm, K1/K2/K3 launches, goodput row and the
+    train_mfu gauge."""
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import mesh
+    from ray_tpu_torch.train import ckptio
+    from ray_tpu_torch.util import goodput, storage
+    for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+              fa.flash_attention_bwd_dq):
+        f.launches = 0
+    fa.flash_attention_fwd.lse_launches = 0
+    cfg, state, step_fn, batch = trainer_run()
+    goodput.set_model_flops(cfg.flops_per_token(4096) * 2 * 4096)
+    ctx = train.get_context()
+    start, restore_s = 0, None
+    if ctx.get_checkpoint() is not None:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, start = ckptio.restore(*mesh.numpy_template(state),
+                                            checkpoint=ctx.get_checkpoint())
+        mesh.state_from_numpy(state, params, opt)
+        del params, opt
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+    ck = ckptio.AsyncCheckpointer()
+    save = {}
+    for step in range(start + 1, TRAINER_STEPS + 1):
+        counts = (fa.flash_attention_fwd.lse_launches,
+                  fa.flash_attention_bwd_dkv.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        t_step = time.monotonic()
+        with ctx.trace_step():
+            with goodput.interval("compute"):
+                state, m = step_fn(state, batch(step))
+                torch.cuda.synchronize()
+            if step == TRAINER_SAVE_AT:
+                t0 = time.monotonic()
+                with goodput.interval("ckpt_stall"):
+                    ck.save(step, *mesh.state_to_numpy(state))
+                save["step_path_s"] = time.monotonic() - t0
+        wall = time.monotonic() - t_step
+        if step == TRAINER_FAIL_AT and not os.path.exists(config["marker"]):
+            # the save's write overlapped this step; what is left of it
+            # is the flush wait
+            t0 = time.monotonic()
+            ck.flush()
+            save.update(flush_wait_s=time.monotonic() - t0,
+                        write_s=hist("ckpt_save_s")[1],
+                        commit_s=hist("ckpt_commit_s")[1],
+                        ckptio_snapshot_s=hist("ckpt_snapshot_s")[1])
+            storage.atomic_write_json(config["save_stats"], save)
+            # the controller must hold steps 1-3's reports before the
+            # worker dies (they leave the worker with the next poll)
+            ctrl = train.get_controller(config["run"])
+            while ray_tpu_torch.get(ctrl.status.remote(),
+                                    timeout=60)["reports"] < step - 1:
+                time.sleep(0.05)
+            open(config["marker"], "w").close()
+            os._exit(1)
+        train.report({
+            "step": step, "loss": m["loss"].item(),
+            "grad_norm": m["grad_norm"].item(), "wall_s": wall,
+            "resumed_from": start, "restore_s": restore_s,
+            "launches": [fa.flash_attention_fwd.lse_launches - counts[0],
+                         fa.flash_attention_bwd_dkv.launches - counts[1],
+                         fa.flash_attention_bwd_dq.launches - counts[2]],
+            "goodput": goodput.recent_rows()[-1],
+            "mfu": metric("train_mfu", rank=str(ctx.get_world_rank())),
+            "foreign": foreign_modules(),
+            "cards": os.environ.get("CUDA_VISIBLE_DEVICES")})
+    ck.close()
+
+
+def run_trainer(card: str) -> dict:
+    """The training path through the train library: the same 6 steps by
+    make_train_step in this process first (then freed), then init(), one
+    TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True)) whose worker
+    runs trainer_fn on the card with FailureConfig(max_failures=1) and a
+    storage path in a temporary directory (removed after). Checks the
+    resumed losses and grad norms against this process's, each step's
+    K1/K2/K3 launches (2/2/2 under "dots" at 2 layers), the restart,
+    that the worker saw one card and loaded no jax or ray_tpu; prints the checkpoint's bytes, the save and
+    restore seconds and the goodput anatomy."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.train import (FailureConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer, ckptio)
+    cfg, state, step_fn, batch = trainer_run()
+    want = []
+    for step in range(1, TRAINER_STEPS + 1):
+        state, m = step_fn(state, batch(step))
+        want.append((m["loss"].item(), m["grad_norm"].item()))
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    ray_tpu_torch.init(num_cpus=4, resources={
+        "GPU": float(torch.cuda.device_count())})
+    try:
+        t0 = time.monotonic()
+        res = TorchTrainer(
+            trainer_fn,
+            train_loop_config={"marker": os.path.join(root, "died_once"),
+                               "save_stats": os.path.join(root, "save.json"),
+                               "run": "chip-smoke-trainer"},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(
+                name="chip-smoke-trainer",
+                storage_path=os.path.join(root, "ckpt"),
+                failure_config=FailureConfig(max_failures=1))).fit()
+        fit_s = time.monotonic() - t0
+        if res.error is not None:
+            raise SystemExit(f"the trainer failed: {res.error}")
+        ckpt = os.path.join(root, "ckpt", ckptio.ckpt_dirname(
+            TRAINER_SAVE_AT))
+        man = ckptio.manifest_of(ckpt)
+        with open(os.path.join(root, "save.json")) as f:
+            save = json.load(f)
+        died = os.path.exists(os.path.join(root, "died_once"))
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    hist_ = res.metrics_history
+    got = [(r["loss"], r["grad_norm"]) for r in hist_]
+    rel = max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want))
+    rel_norm = max(abs(g[1] - w[1]) / abs(w[1]) for g, w in zip(got, want))
+    launches = [sum(r["launches"][i] for r in hist_) for i in range(3)]
+    rows = [r["goodput"] for r in hist_]
+    anatomy = {c: sum(r[c] for r in rows) for c in (
+        "wall_s", "compute", "ckpt_stall", "compile", "idle")}
+    nbytes = sum(sh["bytes"] for sp in man["spaces"].values()
+                 for sh in sp["shards"])
+    print(f"trainer [{card}]: TorchTrainer, 1 worker on the card, "
+          f"llama3_8b widths at {cfg.n_layers} layers ('dots'), fit "
+          f"{fit_s:.1f} s; steps {[r['step'] for r in hist_]} resumed from "
+          f"{[r['resumed_from'] for r in hist_]}, worker killed once "
+          f"{died}; losses {[r[0] for r in got]} vs the driver's "
+          f"{[w[0] for w in want]} (max rel {rel:.2e}), grad norms "
+          f"{[r[1] for r in got]} vs {[w[1] for w in want]} (max rel "
+          f"{rel_norm:.2e}; tol {TRAINER_REL_TOL} on each; bitwise "
+          f"{got == want}); step walls "
+          f"{['%.3f' % r['wall_s'] for r in hist_]} s")
+    print(f"trainer checkpoint [{card}]: step {man['step']}, "
+          f"{nbytes} bytes (parameters as f32, moments as bf16 bits); "
+          f"step path {save['step_path_s']:.2f} s (the copy off the card, "
+          f"then ckptio's snapshot {save['ckptio_snapshot_s']:.2f} s), "
+          f"background shard "
+          f"write {save['write_s']:.2f} s, manifest commit "
+          f"{save['commit_s']:.2f} s, flush wait after step 4 "
+          f"{save['flush_wait_s']:.2f} s; restore "
+          f"{hist_[-1]['restore_s']:.2f} s (read, hash, re-slice, onto "
+          f"the card)")
+    print(f"trainer goodput [{card}] over the 6 reported steps (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in anatomy.items())
+          + f"; train_mfu gauge (last step) {hist_[-1]['mfu']:.4f}; worker "
+          f"launches K1/K2/K3 {launches}; worker's jax/ray_tpu modules "
+          f"{sorted({m for r in hist_ for m in r['foreign']})}; worker's "
+          f"CUDA_VISIBLE_DEVICES {sorted({r['cards'] for r in hist_})}")
+    if [r["step"] for r in hist_] != list(range(1, TRAINER_STEPS + 1)) \
+            or [r["resumed_from"] for r in hist_] != [0] * 3 + [3] * 3 \
+            or not died:
+        raise SystemExit("the trainer did not resume steps 4-6 from the "
+                         "step-3 checkpoint after one failure")
+    if max(rel, rel_norm) > TRAINER_REL_TOL \
+            or not all(np.isfinite(got).ravel()):
+        raise SystemExit("the trainer's losses or grad norms differ from "
+                         "the driver's")
+    if any(r["launches"] != [cfg.n_layers] * 3 for r in hist_):
+        raise SystemExit(f"trainer launches per step "
+                         f"{[r['launches'] for r in hist_]}")
+    if any(r["foreign"] for r in hist_):
+        raise SystemExit("the train worker loaded jax or ray_tpu")
+    if any(r["cards"] is None or "," in r["cards"] for r in hist_):
+        raise SystemExit("the use_gpu worker was not pinned to one card")
+    if anatomy["ckpt_stall"] <= 0 or not 0 < hist_[-1]["mfu"] < 1:
+        raise SystemExit("the goodput ledger missed the save or the MFU")
+    return {"launches": launches, "checkpoint_bytes": nbytes, **save,
+            "restore_s": hist_[-1]["restore_s"], "goodput": anatomy}
 
 
 def main() -> int:
@@ -1828,7 +2115,17 @@ def main() -> int:
     tk = check_train_kernels(fa, gen)
     check_train_parity(fa, card)
     train = run_train(fa, card)
-    tl = train["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = run_trainer(card)
+    train_k = {name: {f"train_{p}": train[p]["launches"][key]
+                      for p in TRAIN_POLICIES}
+               for name, key in (("K1", "flash_attention_fwd_lse"),
+                                 ("K2", "flash_attention_bwd_dkv"),
+                                 ("K3", "flash_attention_bwd_dq"))}
+    for i, name in enumerate(("K1", "K2", "K3")):
+        train_k[name]["train_trainer"] = trainer["launches"][i]
+    full_ms = train["full"]["per_launch_ms"]
 
     bwd_tol = {"row_rel_l2": BWD_ROW_REL_TOL}
     sdpa_note = ("SDPA's backward computes dQ, dK and dV in one call: "
@@ -1838,32 +2135,32 @@ def main() -> int:
              tensor_cores=sass["flash_attention_fwd"],
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:79",
-             launches=sum(serve_k1.values()) + tl["flash_attention_fwd"],
-             launches_by_path=dict(
-                 serve_k1, train=tl["flash_attention_fwd"],
-                 train_with_lse=tl["flash_attention_fwd_lse"]),
+             launches=sum(serve_k1.values()) + sum(train_k["K1"].values()),
+             launches_by_path=dict(serve_k1, **train_k["K1"]),
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal, with lse",
              tolerance={"row_rel_l2": K1_ROW_REL_TOL,
                         "lse_abs": LSE_ABS_TOL},
-             card=card, train_per_launch_ms=train["per_launch_ms"].get("K1"),
+             card=card, train_per_launch_ms=full_ms.get("K1"),
              serving=dict(at="s=512 causal, no lse", **k1), **tk["fwd"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              tensor_cores=sass["flash_attention_bwd_dkv"],
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:212",
-             launches=tl["flash_attention_bwd_dkv"],
+             launches=sum(train_k["K2"].values()),
+             launches_by_path=train_k["K2"],
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
              tolerance=bwd_tol, card=card, library_note=sdpa_note,
-             train_per_launch_ms=train["per_launch_ms"].get("K2"),
+             train_per_launch_ms=full_ms.get("K2"),
              bitwise_twice=True, **tk["dkv"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              tensor_cores=sass["flash_attention_bwd_dq"],
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/pallas/flash_attention.py:263",
-             launches=tl["flash_attention_bwd_dq"],
+             launches=sum(train_k["K3"].values()),
+             launches_by_path=train_k["K3"],
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
              tolerance=bwd_tol, card=card, library_note=sdpa_note,
-             train_per_launch_ms=train["per_launch_ms"].get("K3"),
+             train_per_launch_ms=full_ms.get("K3"),
              bitwise_twice=True, **tk["dq"]),
         dict(name="paged_attention", route="cuda",
              tensor_cores=sass["paged_attention"],

@@ -3,7 +3,8 @@
 The counterpart of ``ray_tpu``'s runtime (``init``/``remote``/``get``,
 actors, the shared-memory object plane, placement groups), its Llama
 decoder, paged KV pool, ``LLMEngine`` with the prefill->decode handoff,
-and ``make_train_step``, with hand-written Hopper kernels in place of the
+``make_train_step`` and the train library that drives it
+(``TorchTrainer``, async checkpoints, the goodput ledger), with hand-written Hopper kernels in place of the
 Pallas TPU kernels on those paths. It imports torch and numpy, never jax
 and never ``ray_tpu``. Submodules load lazily; the runtime's processes
 import torch only when a task does.
@@ -21,8 +22,8 @@ _API = (
     "WorkerCrashedError", "ObjectLostError", "GetTimeoutError",
 )
 
-_SUBMODULES = ("api", "bridge", "config", "llm", "models", "ops",
-               "parallel", "runtime", "serve", "util")
+_SUBMODULES = ("api", "bridge", "config", "dag", "llm", "models", "ops",
+               "parallel", "runtime", "serve", "train", "util")
 
 
 def __getattr__(name):

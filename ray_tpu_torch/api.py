@@ -616,7 +616,12 @@ class ActorClass:
             resources["CPU"] = float(opts["num_cpus"])
         if opts.get("num_tpus") is not None:
             resources["TPU"] = float(opts["num_tpus"])
-        if "CPU" not in resources and "TPU" not in resources:
+        if opts.get("num_gpus") is not None:
+            resources["GPU"] = float(opts["num_gpus"])
+        # an actor that holds an accelerator (a TPU host, or a card: a
+        # TorchTrainer worker with use_gpu) takes no default CPU, so it
+        # fits a placement bundle of just that accelerator
+        if not {"CPU", "TPU", "GPU"} & set(resources):
             resources["CPU"] = 1.0
         scheduling = {}
         if opts.get("labels"):

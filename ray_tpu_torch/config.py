@@ -7,9 +7,9 @@ src/ray/common/ray_config_def.h) — every tunable has a typed default and
 is overridable from the environment as ``RAY_TPU_<NAME>`` or from the
 ``system_config`` dict handed to :func:`ray_tpu_torch.init`. A field of
 the reference comes here with the port's code that reads it (the
-collective, pipeline, checkpoint, goodput, forensics, serve, KV-cache
-and speculative-decoding knobs have none yet), so no knob is accepted
-and then ignored; a ``system_config`` key that names no field lands in
+collective, pipeline, forensics, serve, KV-cache and
+speculative-decoding knobs have none yet), so no knob is accepted and
+then ignored; a ``system_config`` key that names no field lands in
 ``extra``.
 """
 
@@ -120,6 +120,50 @@ class Config:
     # device-compute windows over.
     devmon_hbm_interval_s: float = 5.0
     devmon_duty_horizon_s: float = 30.0
+    # Goodput ledger (util/goodput.py): per-rank, per-step wall-time
+    # anatomy (compute / comm_exposed / bubble / ckpt_stall / compile
+    # / idle, summing exactly to step wall). "off" = every clock read
+    # removed (same discipline as collective_trace_level); "step" =
+    # one row per training step (default — a handful of perf_counter
+    # reads per step is noise against a step that moves MBs).
+    goodput_level: str = "step"
+    # Online straggler detection (train controller): robust z-score a
+    # rank's p50 (compute - comm_exposed) must clear against the
+    # ring's median/MAD before it is named in a "goodput"/"straggler"
+    # event + the goodput_straggler_rank gauge, and the rolling
+    # per-rank step window the p50s are taken over.
+    goodput_straggler_z: float = 6.0
+    goodput_straggler_window_steps: int = 32
+
+    # --- durable checkpoint plane (train/ckptio.py) ---
+    # How long the rank-0 commit coordinator waits for every rank's
+    # shard (payload + per-shard meta) of one step to become visible
+    # in storage before abandoning the commit. An abandoned save is
+    # INVISIBLE to restore by construction (no manifest = no
+    # checkpoint) — the previous committed step keeps resolving.
+    ckpt_commit_timeout_s: float = 60.0
+    # Verify each shard's recorded content hash at restore. A corrupt
+    # shard then fails loudly (and the controller's auto-resume falls
+    # back to the previous complete checkpoint) instead of loading
+    # silently-wrong optimizer state. Off trades the sha256 pass for
+    # restore speed on storage you trust end-to-end.
+    ckpt_verify_hash: bool = True
+    # Host staging slots for the async writer's double buffering: the
+    # step path only pays the snapshot copy while a free slot exists;
+    # when the background writer falls this many saves behind, save()
+    # blocks until a slot frees (backpressure, never silent drops).
+    ckpt_stage_buffers: int = 2
+    # Deterministic fault injection for the CHECKPOINT plane, sibling
+    # of testing_channel_failure / testing_serve_failure. Rules
+    # "<site>:<action>:<nth>[:<param>]" (comma-separated): site in
+    # {shard (the per-rank payload write), commit (the manifest
+    # marker write)}; action in {kill (SIGKILL this process — a
+    # deterministic crash mid-save / mid-commit), error, delay
+    # (sleep <param> s), torn (corrupt the write: truncated payload /
+    # truncated manifest reaches the FINAL name, exercising hash and
+    # parse validation)}; nth = 1-based per-site op index counted
+    # process-wide. See train/ckptio.py.
+    testing_ckpt_failure: str = ""
 
     # --- preemption-aware shutdown (runtime/worker.py + ckptio) ---
     # Grace window a worker gets on SIGTERM before the exit backstop

@@ -10,22 +10,26 @@ JAX package's ``x @ W`` layout.
 
 Training: ``forward_hidden``/``forward``/``loss_fn`` are differentiable
 (inference callers hold their own ``no_grad``); per-layer remat is
-``torch.utils.checkpoint`` for ``remat_policy="full"`` (the JAX default)
-and none for ``remat=False``/``"none"``; the masked ``cross_entropy``
-and the chunked, per-chunk-checkpointed ``fused_cross_entropy``
-(``ce_chunk > 0``) are the JAX package's. Meshes and the ``"dots"`` /
-``"attn"`` remat policies are not ported yet (ROADMAP.md, Queue 1).
+``torch.utils.checkpoint`` under the JAX package's four policies
+(``_remat``): ``"full"`` (the default) recomputes the whole layer,
+``"attn"`` and ``"dots"`` save some outputs by selective checkpointing,
+``remat=False``/``"none"`` saves everything; the masked
+``cross_entropy`` and the chunked, per-chunk-checkpointed
+``fused_cross_entropy`` (``ce_chunk > 0``) are the JAX package's. Meshes
+are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
 
@@ -239,19 +243,36 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def _remat(cfg: LlamaConfig) -> bool:
-    """Whether each layer is rematerialised on backward (``_remat`` of
-    the JAX package): ``"full"`` recomputes the whole layer, ``"none"``
-    or ``remat=False`` saves its activations."""
+def _remat(cfg: LlamaConfig) -> Optional[dict]:
+    """The ``checkpoint`` keywords of each layer's remat under the JAX
+    package's policies (``ray_tpu/models/llama.py:262-280``), or None
+    for no remat (``"none"`` or ``remat=False``):
+
+    - ``"full"`` recomputes the whole layer on backward, K1 included;
+    - ``"attn"`` saves attention's output and lse (the op
+      ``ray_tpu_torch::flash_fwd_lse``: ``attn_out``/``attn_lse`` in
+      the JAX package), so the backward never runs K1 again;
+    - ``"dots"`` also saves every matmul without batch dims (JAX's
+      ``checkpoint_dots_with_no_batch_dims``): the seven projections,
+      which reach the dispatcher as ``aten.mm`` (``aten.addmm`` with a
+      bias).
+
+    The JAX package's ``attn_res`` name (the plain attention's output)
+    has no counterpart: torch's recompute runs a layer's ops in order,
+    so a saved plain-attention output would spare none of the plain
+    attention's ops, whose outputs its backward needs anyway."""
     if not cfg.remat or cfg.remat_policy == "none":
-        return False
+        return None
     if cfg.remat_policy == "full":
-        return True
-    if cfg.remat_policy in ("dots", "attn"):
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet "
-            "(ROADMAP.md, Queue 1); use 'full' or 'none'")
-    raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r}")
+        return {}
+    import ray_tpu_torch.ops.attention  # noqa: F401  (registers the op)
+    saved = [torch.ops.ray_tpu_torch.flash_fwd_lse.default]
+    if cfg.remat_policy == "dots":
+        saved += [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+    elif cfg.remat_policy != "attn":
+        raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r}")
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, saved)}
 
 
 def _layer(lyr: LlamaLayer, x: torch.Tensor, rc: torch.Tensor,
@@ -278,15 +299,15 @@ def forward_hidden(model: Llama, tokens: torch.Tensor,
     cfg = model.cfg if cfg is None else cfg
     b, s = tokens.shape
     impl = "auto" if cfg.attn_impl == "ring" else cfg.attn_impl
-    remat = torch.is_grad_enabled() and _remat(cfg)
+    remat = _remat(cfg) if torch.is_grad_enabled() else None
     x = model.embed(tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     rc, rs = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for lyr in model.layers:
-        if remat:
+        if remat is not None:
             x = checkpoint(_layer, lyr, x, rc, rs, cfg, impl,
-                           use_reentrant=False)
+                           use_reentrant=False, **remat)
         else:
             x = _layer(lyr, x, rc, rs, cfg, impl)
     return _rmsnorm(x, model.final_norm, cfg.norm_eps)

@@ -73,21 +73,26 @@ def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def mha_reference(q, k, v, *, causal: bool = True,
                   sm_scale: Optional[float] = None,
+                  segment_ids: Optional[torch.Tensor] = None,
                   q_offset: Optional[int] = None) -> torch.Tensor:
     """Plain attention, (b, s, h, d) layout, O(S^2) memory. ``q_offset``
     places the causal diagonal (query i attends keys <= i + q_offset;
-    default sk - sq: queries are the last rows). Rows that keep no key
-    give 0."""
+    default sk - sq: queries are the last rows). ``segment_ids`` (b, s)
+    keeps only pairs within one segment (packed sequences; queries and
+    keys share the ids, so sq == sk). Rows that keep no key give 0."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     k = _repeat_kv(k, h)
     v = _repeat_kv(v, h)
     scale = sm_scale if sm_scale is not None else d ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    keep = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         diag = (sk - sq) if q_offset is None else int(q_offset)
         keep = torch.tril(keep, diagonal=diag)
+    if segment_ids is not None:
+        seg = segment_ids.to(q.device)
+        keep = keep & (seg[:, :, None] == seg[:, None, :])[:, None]
     logits = torch.where(keep, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(keep.any(dim=-1, keepdim=True), probs,

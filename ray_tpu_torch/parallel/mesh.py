@@ -1,5 +1,7 @@
 """The single-device train step: ``TrainState``, ``default_optimizer``,
-``make_train_step`` and ``make_eval_step``.
+``make_train_step`` and ``make_eval_step``; ``state_to_numpy``,
+``numpy_template`` and ``state_from_numpy`` carry a train state to and
+from the numpy pytrees the checkpoint plane (``train/ckptio.py``) saves.
 
 Counterpart of ``ray_tpu/parallel/mesh.py`` on one device: loss, its
 gradients by autograd (attention's through the hand-written K1/K2/K3
@@ -15,8 +17,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -200,3 +203,83 @@ def make_eval_step(cfg, mesh=None, *, model=llama):
         return model.loss_fn(params, _to_device(batch, dev), cfg)
 
     return eval_fn
+
+
+# --- to and from numpy, for train/ckptio ---------------------------------
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A moment on the host in its own dtype: bf16 as its raw bits in
+    ``uint16`` (numpy has no bf16), the format of ``llm/pd.py`` and
+    ``runtime/device_store.py``."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _numpy_tree(state: TrainState, param, moment) -> Tuple[dict, dict]:
+    names = [n for n, _ in state.params.named_parameters()]
+    opt = state.opt_state
+    return ({n: param(p) for n, p in state.params.named_parameters()},
+            {"mu": {n: moment(t) for n, t in zip(names, opt.mu)},
+             "nu": {n: moment(t) for n, t in zip(names, opt.nu)},
+             "count": np.asarray(opt.count, np.int64),
+             "step": np.asarray(state.step, np.int64)})
+
+
+@torch.no_grad()
+def state_to_numpy(state: TrainState) -> Tuple[dict, dict]:
+    """``(params, opt)``: a train state as the numpy pytrees that
+    ``ckptio.AsyncCheckpointer.save`` takes. ``params`` maps each
+    parameter's name to its value widened to float32, exactly (the JAX
+    package's checkpoint widens bf16 parameters into its float32 flat
+    space too: ``ckptio._wire_of``); ``opt`` holds AdamW's moments in
+    their own dtype (bf16 as ``uint16`` bits), the update count and
+    ``state.step``. Each array is a host copy."""
+    return _numpy_tree(state, lambda p: p.detach().float().cpu().numpy(),
+                       _host)
+
+
+def numpy_template(state: TrainState) -> Tuple[dict, dict]:
+    """The layout ``state_to_numpy`` gives, as uninitialised arrays: the
+    ``params_template``/``state_template`` of ``ckptio.restore``,
+    without copying the state off the card."""
+    def moment(t: torch.Tensor) -> np.ndarray:
+        dtype = (np.uint16 if t.dtype == torch.bfloat16
+                 else torch.empty(0, dtype=t.dtype).numpy().dtype)
+        return np.empty(tuple(t.shape), dtype)
+    return _numpy_tree(
+        state, lambda p: np.empty(tuple(p.shape), np.float32), moment)
+
+
+@torch.no_grad()
+def state_from_numpy(state: TrainState, params: dict,
+                     opt: dict) -> TrainState:
+    """Load ``(params, opt)`` (as ``state_to_numpy`` or
+    ``ckptio.restore`` give them) into ``state`` in place: each
+    parameter rounded back to its dtype (exact for a bf16 value widened
+    to float32), each moment from its bits, the count and the step.
+    Returns ``state``."""
+    def put(t: torch.Tensor, a: np.ndarray) -> None:
+        a = np.ascontiguousarray(a)
+        if t.dtype == torch.bfloat16 and a.dtype == np.uint16:
+            src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            src = torch.from_numpy(a)
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint array {tuple(src.shape)} does "
+                             f"not fit {tuple(t.shape)}")
+        t.copy_(src)
+
+    named = dict(state.params.named_parameters())
+    if set(named) != set(params):
+        raise ValueError(f"checkpoint parameters {sorted(params)} are "
+                         f"not the model's {sorted(named)}")
+    for n, p in named.items():
+        put(p, params[n])
+    for n, mu, nu in zip(named, state.opt_state.mu, state.opt_state.nu):
+        put(mu, opt["mu"][n])
+        put(nu, opt["nu"][n])
+    state.opt_state.count = int(opt["count"])
+    state.step = int(opt["step"])
+    return state

@@ -1,0 +1,496 @@
+"""Train user-facing API: configs, per-worker context, report().
+
+The port's copy of ``ray_tpu/train/api.py``: ``ScalingConfig`` gains
+``use_gpu`` and bootstraps ``torch.distributed`` (``torch_distributed``,
+``ensure_torch_distributed``) where the JAX package bootstraps
+jax.distributed; the gradient ring, peer mirrors and in-place reshape
+wait for ROADMAP.md's Queue 1 item 13, and their entry points say so.
+
+Reference surface: ScalingConfig (train/v2/api/config.py:31), RunConfig/
+FailureConfig/CheckpointConfig (v2/api/config.py), ray.train.report
+(v2/api/train_fn_utils.py:23), Checkpoint (train/_checkpoint.py).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, ClassVar, Dict, List, Optional, Tuple, Union
+
+
+@dataclass
+class ScalingConfig:
+    """num_workers may be an int or (min, max) for elastic scaling
+    (reference: v2/api/config.py:78)."""
+    num_workers: Union[int, Tuple[int, int]] = 1
+    use_tpu: bool = False
+    use_gpu: bool = False                   # one CUDA card per worker
+    topology: Optional[str] = None          # e.g. "v5e-32" (pod type)
+    resources_per_worker: Optional[Dict[str, float]] = None
+    placement_strategy: str = "PACK"
+    # Elastic GROW: how often the running group checks whether new
+    # capacity allows more workers, and how long the capacity must be
+    # sustained before paying a restart-from-checkpoint (reference:
+    # v2/_internal/execution/scaling_policy/elastic.py:29 resize
+    # decisions in both directions). 0 disables grow checks.
+    elastic_grow_interval_s: float = 5.0
+    # Whether the controller runs torch.distributed's
+    # init_process_group on every worker before train_fn starts (the
+    # counterpart of the JAX package's jax_distributed, reference:
+    # _JaxBackend.on_start at v2/jax/config.py:96-124). "auto" = only
+    # for multi-worker GPU groups; True forces it (e.g. multi-process
+    # gloo groups on the CPU); False leaves bootstrap to the env route
+    # (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE) / train_fn.
+    torch_distributed: Union[bool, str] = "auto"
+
+    def __post_init__(self):
+        if isinstance(self.torch_distributed, str) and \
+                self.torch_distributed != "auto":
+            raise ValueError(
+                f"torch_distributed must be True, False or 'auto', got "
+                f"{self.torch_distributed!r}")
+
+    def wants_torch_distributed(self) -> bool:
+        if self.torch_distributed == "auto":
+            return self.use_gpu and self.max_workers > 1
+        return bool(self.torch_distributed)
+
+    def worker_resources(self) -> Dict[str, float]:
+        if self.resources_per_worker:
+            return dict(self.resources_per_worker)
+        if self.use_tpu:
+            from ray_tpu_torch.util import tpu as tpu_util
+            cph = (tpu_util.chips_per_host(self.topology)
+                   if self.topology else
+                   max(1, tpu_util.num_tpu_chips_on_host()))
+            return {"TPU": float(cph)}
+        if self.use_gpu:
+            return {"GPU": 1.0}
+        return {"CPU": 1.0}
+
+    @property
+    def min_workers(self) -> int:
+        if isinstance(self.num_workers, tuple):
+            return self.num_workers[0]
+        return self.num_workers
+
+    @property
+    def max_workers(self) -> int:
+        if isinstance(self.num_workers, tuple):
+            return self.num_workers[1]
+        return self.num_workers
+
+    @property
+    def elastic(self) -> bool:
+        return isinstance(self.num_workers, tuple)
+
+
+@dataclass
+class FailureConfig:
+    """Retry budget for worker-group failures (reference:
+    v2/_internal/execution/failure_handling/default.py:24).
+
+    ``reset_after_clean_reports``: after this many consecutive clean
+    reports (no failure in between), the consumed failure count resets
+    to zero — a week-long job with rare preemptions spends its budget
+    per incident burst, not cumulatively over its whole life. 0 keeps
+    the budget strictly cumulative."""
+    max_failures: int = 0
+    reset_after_clean_reports: int = 0
+
+
+@dataclass
+class CheckpointConfig:
+    num_to_keep: Optional[int] = None
+    checkpoint_score_attribute: Optional[str] = None
+    checkpoint_score_order: str = "max"
+
+
+@dataclass
+class RunConfig:
+    name: Optional[str] = None
+    storage_path: Optional[str] = None
+    failure_config: FailureConfig = field(default_factory=FailureConfig)
+    checkpoint_config: CheckpointConfig = field(
+        default_factory=CheckpointConfig)
+
+
+@dataclass
+class Checkpoint:
+    """A directory handle on shared OR remote storage (reference:
+    train/_checkpoint.py; storage at train/_internal/storage.py — the
+    reference accepts any pyarrow-filesystem URI the same way).
+
+    ``path`` is either a local directory or a storage URI
+    (memory://..., gs://... — util/storage.py). ``as_directory()``
+    always returns a local directory, downloading once per process for
+    remote checkpoints.
+
+    ``managed`` marks a checkpoint the durable checkpoint plane
+    (train/ckptio.py) already persisted and pointer-committed:
+    ``report()`` must register it with the controller WITHOUT
+    re-uploading or re-writing the resume pointer — the plane's
+    two-phase commit already made it durable, and a second pointer
+    write could move the pointer BACKWARD past a newer commit."""
+    path: str
+    metrics: Dict[str, Any] = field(default_factory=dict)
+    managed: bool = False
+
+    # per-PROCESS download memo: a machine-global cache would serve
+    # stale content when a reused URI's data changes across runs
+    _downloads: ClassVar[Dict[str, str]] = {}
+
+    def as_directory(self) -> str:
+        """Local directory with the checkpoint contents. Remote URIs
+        download once per process (URIs are assumed write-once — reuse
+        a name with different bytes and the first download wins)."""
+        from ray_tpu_torch.util import storage as _st
+        if not _st.is_remote(self.path):
+            return self.path
+        cached = Checkpoint._downloads.get(self.path)
+        if cached is not None and os.path.isdir(cached):
+            return cached
+        import atexit
+        import shutil
+        import tempfile
+        import time as _time
+        st, root = _st.get_storage(self.path)
+        # brief grace for an in-flight rank-0 upload (the .complete
+        # marker is written last); proceed after it for compatibility
+        # with checkpoints persisted before markers existed
+        for _ in range(20):
+            if st.exists(f"{root}/.complete"):
+                break
+            _time.sleep(0.1)
+        tmp = tempfile.mkdtemp(prefix="rt_ckpt_")
+        atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+        n = st.download_dir(root, tmp)
+        if n == 0:
+            raise FileNotFoundError(
+                f"checkpoint {self.path} is empty or missing in storage")
+        Checkpoint._downloads[self.path] = tmp
+        return tmp
+
+    @classmethod
+    def from_directory(cls, path: str) -> "Checkpoint":
+        return cls(path=os.path.abspath(path))
+
+
+@dataclass
+class Result:
+    metrics: Dict[str, Any]
+    checkpoint: Optional[Checkpoint]
+    metrics_history: List[Dict[str, Any]]
+    error: Optional[BaseException] = None
+
+
+class TrainContext:
+    """Per-worker context, created by the worker actor before train_fn runs
+    (reference: v2 TrainContext / train.get_context)."""
+
+    def __init__(self, rank: int, world_size: int, local_rank: int,
+                 node_rank: int, resume_checkpoint: Optional[Checkpoint],
+                 dataset_shards: Optional[Dict[str, Any]] = None,
+                 storage_path: Optional[str] = None,
+                 group_id: str = ""):
+        self.rank = rank
+        self.world_size = world_size
+        self.local_rank = local_rank
+        self.node_rank = node_rank
+        # Controller-assigned generation id, unique per worker-group
+        # incarnation: namespaces rendezvous keys so a restarted group never
+        # observes barrier arrivals / broadcast values from the previous
+        # incarnation via the long-lived __train_rendezvous actor.
+        self.group_id = group_id
+        self._resume = resume_checkpoint
+        self._reports: "queue.Queue" = queue.Queue()
+        self._seq = 0
+        self._dataset_shards = dataset_shards or {}
+        self._storage_path = storage_path
+        # Train-step tag for collective tracing and the goodput
+        # ledger's step rows. The reference bumps it once per completed
+        # gradient sync; the port has no ring yet (ROADMAP.md, Queue 1
+        # item 13), so every step is tagged 0.
+        self.collective_step = 0
+
+    def mirror_shard(self, blob: dict) -> bool:
+        """Peer mirrors of ZeRO shards come with the sharded optimizer
+        (ROADMAP.md, Queue 1 item 13)."""
+        raise NotImplementedError(_UNPORTED_RING)
+
+    # -- user API --
+    def get_world_size(self) -> int:
+        return self.world_size
+
+    def get_world_rank(self) -> int:
+        return self.rank
+
+    def get_local_rank(self) -> int:
+        return self.local_rank
+
+    def get_node_rank(self) -> int:
+        return self.node_rank
+
+    def get_checkpoint(self) -> Optional[Checkpoint]:
+        return self._resume
+
+    def gradient_sync_ring(self):
+        """The chunked ring for host-plane gradient allreduce
+        (``ray_tpu/dag/ring.py`` RingReducer) is not ported yet: the
+        controller wires none (ROADMAP.md, Queue 1 item 13)."""
+        raise NotImplementedError(_UNPORTED_RING)
+
+    def shard_bounds(self, total: int,
+                     rank: Optional[int] = None) -> Tuple[int, int]:
+        """The (lo, hi) slice of a flat length-``total`` parameter
+        space owned by ``rank`` (default: this worker) under the
+        contiguous N-way split that ``train/reshard.py`` plans and a
+        sharded checkpoint saves. The reference follows the ring
+        spec's ownership rotation; with no ring wired (ROADMAP.md,
+        Queue 1 item 13) ownership is the identity, and world_size ==
+        1 owns everything."""
+        n = self.world_size
+        r = self.rank if rank is None else int(rank)
+        if not 0 <= r < n:
+            raise ValueError(f"rank {r} out of range for {n} workers")
+        from ray_tpu_torch.train.reshard import shard_bounds
+        return shard_bounds(total, n, r)
+
+    def get_dataset_shard(self, name: str = "train"):
+        shard = self._dataset_shards.get(name)
+        if shard is None:
+            raise KeyError(f"no dataset shard named {name!r}")
+        return shard
+
+    def trace_step(self, name: str = "train_step"):
+        """Context manager tracing ONE training step as a request-plane
+        trace: mints a root trace context (or joins the ambient one),
+        binds it so nested task submissions join, and records a root
+        span tagged with the CURRENT ``collective_step`` — the same tag
+        the ring tracer stamps on this step's collective rounds, so
+        ``ray-tpu trace <id>`` pulls the step's ring lanes into the
+        waterfall next to the step span. Usage::
+
+            with ctx.trace_step() as trace_id:
+                grads = compute(...)
+                params, state = opt.update(grads, state, params)
+        """
+        import contextlib
+
+        from ray_tpu_torch.util import devmon, goodput, tracing
+
+        @contextlib.contextmanager
+        def _span():
+            # the step span doubles as the goodput ledger's step
+            # window: subsystems (ring wait, ckpt stall, compile,
+            # stamped compute) attribute into it, step_end pins the
+            # sum-to-wall identity. Re-entrant, so a nested
+            # trace_step depth-counts instead of opening a new row.
+            goodput.step_begin(self.collective_step, rank=self.rank)
+            # join the ambient trace as a CHILD span (nested
+            # trace_step, or a step opened inside a traced request);
+            # only the outermost mint is the trace's root
+            ambient = tracing.current_context()
+            if ambient is not None:
+                tctx = tracing.TraceContext(ambient.trace_id,
+                                            tracing.new_span_id())
+                parent, root = ambient.span_id, False
+            else:
+                tctx = tracing.mint_context()
+                parent, root = "", True
+            if tctx is None:            # request tracing disabled —
+                # the duty-cycle window still records (devmon has its
+                # own RAY_TPU_DEVMON switch; tracing off must not
+                # silently zero the train plane's duty signal)
+                t0 = time.time()
+                try:
+                    yield None
+                finally:
+                    devmon.record_device_window(name, t0, time.time())
+                    goodput.step_end()
+                return
+            tok = tracing.set_request_context(tctx)
+            step = self.collective_step
+            t0, ok = time.time(), False
+            try:
+                yield tctx.trace_id
+                ok = True
+            finally:
+                tracing.reset_request_context(tok)
+                # the step interval doubles as a duty window for
+                # util/devmon.py. NOTE: unlike engine prefill/decode
+                # windows (block_until_ready-bounded), a step window
+                # includes the step's HOST work — it is an UPPER bound
+                # on device time; a duty of ~1.0 here means "steps
+                # back-to-back", not necessarily "MXU busy".
+                devmon.record_device_window(name, t0, time.time(),
+                                            trace=tctx.trace_id)
+                extra = {}
+                if root:
+                    # the outermost step span IS the trace's root —
+                    # train-step traces are few and hand-opened, so
+                    # they always surface (unlike serve QPS, which
+                    # the proxy tail-samples)
+                    extra.update(root=True, keep="train",
+                                 status="ok" if ok else "error")
+                tracing.record_request_span(
+                    "train", name, tctx, parent, t0, time.time(),
+                    span_id=tctx.span_id, error=not ok,
+                    step=step, rank=self.rank, **extra)
+                goodput.step_end()
+        return _span()
+
+    def report(self, metrics: Dict[str, Any],
+               checkpoint: Optional[Checkpoint] = None) -> None:
+        self._seq += 1
+        if checkpoint is not None and getattr(checkpoint, "managed",
+                                              False):
+            # ckptio-managed checkpoints are ALREADY durable (shards +
+            # manifest + pointer, committed by the plane's two-phase
+            # protocol) — re-persisting here would be wasted bytes at
+            # best and a pointer regression at worst
+            pass
+        elif checkpoint is not None and self._storage_path:
+            # Durable BEFORE report() returns: a crash right after report
+            # must not lose the checkpoint (reference: report() persists to
+            # storage synchronously — train/_internal/storage.py).
+            import json
+            from ray_tpu_torch.util import storage as _st
+            if _st.is_remote(self._storage_path):
+                # Remote storage (memory:// kv:// gs://): upload the
+                # checkpoint dir, then report the remote URI — the
+                # local dir on this (ephemeral) machine is not the
+                # durable copy (reference: storage.py persist_...).
+                # Rank 0 uploads; other ranks report the same URI
+                # without re-shipping identical bytes (N uploads of one
+                # checkpoint, racing per-file, would both waste the
+                # head's bandwidth and risk torn mixes).
+                # NOTE: multi-HOST sharded checkpoints should report
+                # per-rank distinct names (or checkpoint via a library
+                # like orbax that writes shared storage directly) —
+                # rank 0's directory is what becomes durable here.
+                name = os.path.basename(checkpoint.path.rstrip("/"))
+                uri = f"{self._storage_path.rstrip('/')}/{name}"
+                if self.rank == 0:
+                    st, root = _st.get_storage(self._storage_path)
+                    st.upload_dir(checkpoint.path, f"{root}/{name}")
+                    # marker LAST: readers treat its absence as
+                    # "upload in flight", not a torn checkpoint
+                    st.put_bytes(f"{root}/{name}/.complete", b"1")
+                    st.put_bytes(
+                        f"{root}/_latest_checkpoint.json",
+                        json.dumps({"path": uri,
+                                    "metrics": dict(metrics)}).encode())
+                checkpoint = Checkpoint(path=uri,
+                                        metrics=dict(checkpoint.metrics))
+            else:
+                # Atomic AND durable (tmp + fsync + rename + dir
+                # fsync, util/storage.py): a crash mid-write must
+                # leave the previous pointer intact, and a crash
+                # right after the rename must not evaporate the new
+                # one — the resume pointer is the restart path's
+                # single source of truth.
+                _st.atomic_write_json(
+                    os.path.join(self._storage_path,
+                                 "_latest_checkpoint.json"),
+                    {"path": checkpoint.path,
+                     "metrics": dict(metrics)})
+        self._reports.put({"seq": self._seq, "metrics": dict(metrics),
+                           "checkpoint": checkpoint})
+
+    # -- controller side --
+    def drain_reports(self) -> List[dict]:
+        out = []
+        while True:
+            try:
+                out.append(self._reports.get_nowait())
+            except queue.Empty:
+                return out
+
+
+_context = threading.local()
+
+
+def set_context(ctx: Optional[TrainContext]) -> None:
+    _context.value = ctx
+
+
+def get_context() -> TrainContext:
+    ctx = getattr(_context, "value", None)
+    if ctx is None:
+        raise RuntimeError("ray_tpu_torch.train.get_context() outside a train_fn")
+    return ctx
+
+
+def report(metrics: Dict[str, Any],
+           checkpoint: Optional[Checkpoint] = None) -> None:
+    """Report metrics (+ optional checkpoint) from inside train_fn
+    (reference: v2/api/train_fn_utils.py:23)."""
+    get_context().report(metrics, checkpoint)
+
+
+def get_dataset_shard(name: str = "train"):
+    return get_context().get_dataset_shard(name)
+
+
+def await_regroup(timeout_s: Optional[float] = None) -> dict:
+    """The elastic recovery entry point (block until the controller
+    re-forms the group around a lost peer) needs the in-place reshape,
+    which comes with the gradient ring (ROADMAP.md, Queue 1 item 13):
+    until then every worker loss restarts the group from its latest
+    checkpoint."""
+    raise NotImplementedError(_UNPORTED_RING)
+
+
+def allreduce_gradients(grads, op: str = "mean", **kw):
+    """Host-plane gradient allreduce over the controller-wired ring
+    (``ray_tpu/train/collective.py``): not ported yet (ROADMAP.md,
+    Queue 1 item 13)."""
+    raise NotImplementedError(_UNPORTED_RING)
+
+
+def torch_distributed_initialized() -> bool:
+    """True once this process has joined a torch.distributed world."""
+    import sys
+    dist = sys.modules.get("torch.distributed")
+    return dist is not None and dist.is_available() \
+        and dist.is_initialized()
+
+
+def ensure_torch_distributed() -> bool:
+    """Join the torch.distributed world from the controller-provided env
+    (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, torchrun's names) if
+    this process hasn't already: NCCL when the process sees a CUDA
+    card, gloo otherwise. The controller runs it itself for multi-worker
+    GPU groups (see ScalingConfig.torch_distributed), so a train_fn
+    calling this is a no-op there; on torch_distributed=False groups it
+    is the opt-in bootstrap. Returns True if distributed is active."""
+    if torch_distributed_initialized():
+        return True
+    if not os.environ.get("MASTER_ADDR"):
+        return False
+    missing = [k for k in ("MASTER_PORT", "RANK", "WORLD_SIZE")
+               if k not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"MASTER_ADDR is set but {missing} are not — the "
+            f"torch.distributed env route needs all four")
+    import torch
+    import torch.distributed as dist
+    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(
+        backend,
+        init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+                    f"{os.environ['MASTER_PORT']}",
+        rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]))
+    return True
+
+
+_UNPORTED_RING = (
+    "the host-plane gradient ring (allreduce_gradients, ZeRO peer "
+    "mirrors, the in-place elastic reshape) is not ported yet "
+    "(ROADMAP.md, Queue 1 item 13)")

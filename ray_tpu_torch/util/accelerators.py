@@ -131,12 +131,14 @@ def detect_resources() -> Dict[str, float]:
     return out
 
 
-# Dense peak TFLOPs per TPU generation (bf16 matmul) — the single
-# source of truth shared by the goodput ledger's train_mfu gauge
-# (util/goodput.py) and scripts/mfu_sweep.py. Keys are substrings
-# matched case-insensitively against jax's device_kind (e.g.
-# "TPU v5 lite" -> v5, handled by the explicit v5e/v5p entries first).
-PEAK_TFLOPS = {"v5e": 197.0, "v5p": 459.0, "v6": 918.0, "v4": 275.0}
+# Dense peak TFLOPs per device (bf16 matmul) — the single source of
+# truth for the goodput ledger's train_mfu gauge (util/goodput.py). Keys are substrings
+# matched case-insensitively against the device's name: jax's
+# device_kind on a TPU (e.g. "TPU v5 lite" -> v5, handled by the
+# explicit v5e/v5p entries first), torch.cuda.get_device_name on a card
+# ("NVIDIA H100 80GB HBM3": the H100 SXM's dense bf16 rate).
+PEAK_TFLOPS = {"v5e": 197.0, "v5p": 459.0, "v6": 918.0, "v4": 275.0,
+               "h100": 989.0}
 
 _WARNED_KINDS: set = set()
 
@@ -154,8 +156,9 @@ def peak_tflops(kind: str) -> float:
     if low not in _WARNED_KINDS:
         _WARNED_KINDS.add(low)
         print(f"[ray_tpu_torch] unknown device kind {kind!r} for peak "
-              f"TFLOPs — assuming v5e's 197.0; MFU numbers derived "
-              f"from it are suspect (add the generation to "
+              f"TFLOPs — assuming a TPU v5e's 197.0; MFU numbers "
+              f"derived from it are suspect (add the device, a TPU "
+              f"generation or a card, to "
               f"util/accelerators.PEAK_TFLOPS)", file=sys.stderr)
     return 197.0
 

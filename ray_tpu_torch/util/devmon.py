@@ -13,8 +13,9 @@ event shapes:
   per shape, so the reference's ``jax.monitoring`` listener and its log
   correlator have no counterpart here: the port's one compile is the
   ``nvcc`` build of a kernel source at first use, which ``ops/_build.py``
-  reports through :func:`record_compile`. The reference's call into the
-  goodput ledger waits for the port's ``util/goodput.py``.
+  reports through :func:`record_compile`; each real build is also the
+  goodput ledger's ``compile`` category (``util/goodput.py``), as in
+  the reference.
 - **HBM accounting**: :func:`hbm_snapshot` reads every visible CUDA
   device's allocator (``torch.cuda.memory_allocated``,
   ``max_memory_allocated``) and its capacity (``torch.cuda.mem_get_info``)
@@ -158,6 +159,13 @@ def record_compile(fn: str, dur_s: float, *,
         return
     m["compiles"].inc(tags={"fn": fn})
     m["compile_s"].observe(dur_s, exemplar=trace or None)
+    try:
+        # a real build (not a library found on disk) stalls the step
+        # that triggered it — the goodput ledger's compile category
+        from ray_tpu_torch.util import goodput
+        goodput.add("compile", dur_s)
+    except Exception:   # noqa: BLE001
+        pass
     _note_compile(fn, now, m)
 
 

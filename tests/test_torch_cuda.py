@@ -869,3 +869,98 @@ def test_device_store_cross_process_bf16_fetch_on_card(dev):
         assert ray_tpu_torch.get(h.live.remote(), timeout=60) == 0
     finally:
         ray_tpu_torch.shutdown()
+
+
+def _card_train(dev, policy, seed=0):
+    """A 2-layer bf16 Llama (head_dim 128, the wgmma kernels) under
+    ``policy`` on the card, and one batch of 2 x 128 tokens."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import default_optimizer, make_train_step
+    cfg = llama.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=2,
+                     n_kv_heads=1, ffn_dim=512, dtype="bfloat16",
+                     remat_policy=policy)
+    init_fn, step_fn = make_train_step(cfg, device=dev,
+                                       optimizer=default_optimizer(
+                                           1e-2, warmup_steps=1,
+                                           total_steps=10))
+    state = init_fn(torch.Generator(device=dev).manual_seed(seed))
+    toks = np.random.default_rng(seed).integers(0, 256, (2, 129))
+    return state, step_fn, {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+@pytest.mark.parametrize("policy,k1", [("full", 4), ("attn", 2),
+                                       ("dots", 2), ("none", 2)])
+def test_remat_policy_launches_on_card(dev, policy, k1):
+    """One train step: K1 (all with lse) runs 2L times under "full" and L
+    under the others (the saved (o, lse) spares the recompute's K1); K2
+    and K3 L times each."""
+    state, step_fn, batch = _card_train(dev, policy)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.lse_launches,
+              fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
+    state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention_fwd.launches,
+             fa.flash_attention_fwd.lse_launches,
+             fa.flash_attention_bwd_dkv.launches,
+             fa.flash_attention_bwd_dq.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (k1, k1, 2, 2)
+    assert torch.isfinite(m["loss"])
+
+
+def test_remat_policies_agree_on_card(dev):
+    """The same weights and batch under "full", "attn" and "dots": equal
+    losses and gradients, bit for bit (the recompute runs the same
+    kernels on the same values; a saved output is what it would give)."""
+    from ray_tpu_torch.models import llama
+    runs = {}
+    for policy in ("full", "attn", "dots"):
+        state, _, batch = _card_train(dev, policy)
+        model = state.params
+        loss = llama.loss_fn(model, {k: torch.as_tensor(v, device=dev)
+                                     for k, v in batch.items()})
+        loss.backward()
+        runs[policy] = (loss.item(),
+                        [p.grad.clone() for p in model.parameters()])
+    for policy in ("attn", "dots"):
+        assert runs[policy][0] == runs["full"][0]
+        for a, b in zip(runs[policy][1], runs["full"][1]):
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_train_state_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A bf16 TrainState on the card through state_to_numpy, an async
+    ckptio save, restore into a differently seeded state and
+    state_from_numpy: parameters, moments, count and step bit for bit,
+    and the next steps equal."""
+    import os
+
+    from ray_tpu_torch.parallel import mesh
+    from ray_tpu_torch.train import ckptio
+    state, step_fn, batch = _card_train(dev, "dots")
+    for _ in range(2):
+        state, _ = step_fn(state, batch)
+    ck = ckptio.AsyncCheckpointer(str(tmp_path), rank=0, world=1)
+    try:
+        assert ck.save(state.step, *mesh.state_to_numpy(state))
+        assert ck.flush(timeout_s=60)
+    finally:
+        ck.close()
+    other, _, _ = _card_train(dev, "dots", seed=1)
+    params, opt, step = ckptio.restore(
+        *mesh.numpy_template(other), rank=0, world=1,
+        checkpoint=os.path.join(str(tmp_path), ckptio.ckpt_dirname(2)))
+    mesh.state_from_numpy(other, params, opt)
+    assert (step, other.step, other.opt_state.count) == (2, 2, 2)
+    mine = list(state.params.parameters()) + state.opt_state.mu + \
+        state.opt_state.nu
+    theirs = list(other.params.parameters()) + other.opt_state.mu + \
+        other.opt_state.nu
+    for a, b in zip(mine, theirs):
+        assert b.device.type == "cuda" and b.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    _, m1 = step_fn(state, batch)
+    _, m2 = step_fn(other, batch)
+    assert (m1["loss"].item(), m1["grad_norm"].item()) == \
+        (m2["loss"].item(), m2["grad_norm"].item())

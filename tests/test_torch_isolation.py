@@ -51,7 +51,15 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.runtime.worker",
                 "ray_tpu_torch.util.accelerators", "ray_tpu_torch.util.aio",
                 "ray_tpu_torch.util.health", "ray_tpu_torch.util.state",
-                "ray_tpu_torch.util.timeseries", "ray_tpu_torch.util.tpu"]
+                "ray_tpu_torch.util.timeseries", "ray_tpu_torch.util.tpu",
+                "ray_tpu_torch.dag", "ray_tpu_torch.dag.ring",
+                "ray_tpu_torch.train", "ray_tpu_torch.train.api",
+                "ray_tpu_torch.train.checkpoint",
+                "ray_tpu_torch.train.ckptio",
+                "ray_tpu_torch.train.controller",
+                "ray_tpu_torch.train.reshard",
+                "ray_tpu_torch.train.trainer", "ray_tpu_torch.train.worker",
+                "ray_tpu_torch.util.goodput", "ray_tpu_torch.util.storage"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -111,6 +119,46 @@ def test_runtime_leaves_jax_and_ray_tpu_out():
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[[], [], []]"
+
+
+def test_train_worker_leaves_jax_and_ray_tpu_out():
+    """In a fresh process, a TorchTrainer whose train_fn takes a step of
+    the port's make_train_step and saves a checkpoint: neither the
+    driver nor the train worker loads jax, ml_dtypes or any ray_tpu
+    module."""
+    code = (
+        "import sys, tempfile\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import train\n"
+        "def bad():\n"
+        "    import sys\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                  ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu'))\n"
+        "def train_fn():\n"
+        "    import torch\n"
+        "    from ray_tpu_torch.models import llama\n"
+        "    from ray_tpu_torch.parallel import mesh\n"
+        "    from ray_tpu_torch.train import ckptio\n"
+        "    cfg = llama.tiny(dtype='float32', n_layers=1)\n"
+        "    init_fn, step_fn = mesh.make_train_step(cfg, device='cpu')\n"
+        "    state = init_fn(torch.Generator().manual_seed(0))\n"
+        "    toks = torch.randint(0, cfg.vocab_size, (1, 9))\n"
+        "    state, m = step_fn(state, {'tokens': toks[:, :-1],\n"
+        "                               'targets': toks[:, 1:]})\n"
+        "    ck = ckptio.AsyncCheckpointer()\n"
+        "    ck.save(1, *mesh.state_to_numpy(state), block=True)\n"
+        "    ck.close()\n"
+        "    train.report({'bad': bad()})\n"
+        "rt.init(num_cpus=2)\n"
+        "res = train.TorchTrainer(train_fn, run_config=train.RunConfig(\n"
+        "    storage_path=tempfile.mkdtemp())).fit()\n"
+        "rt.shutdown()\n"
+        "assert res.error is None, res.error\n"
+        "print([bad(), res.metrics['bad']])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[[], []]"
 
 
 def _imports(path: pathlib.Path):
@@ -204,10 +252,15 @@ def test_wrappers_never_fall_back_off_cpu(monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError):
         paged_attention(qd, pool, pool, tables, lengths)
     assert paged_attention.launches == before
-    # the training path: K1 with lse under autograd, K2 and K3
-    qg = torch.empty((1, 8, 2, 64), device="meta", requires_grad=True)
+    # the training path: K1 with lse (the op's body; under autograd a
+    # meta tensor gets the op's fake, shapes only, and no launch), K2, K3
+    import ray_tpu_torch.ops.attention as TA
     with pytest.raises(_build.KernelBuildError):
-        flash_attention(qg, q, q)
+        TA._flash_fwd_lse(q, q, q, True, None)
+    qg = torch.empty((1, 8, 2, 64), device="meta", requires_grad=True)
+    before = fa.flash_attention_fwd.lse_launches
+    assert flash_attention(qg, q, q).shape == q.shape
+    assert fa.flash_attention_fwd.lse_launches == before
     lse = torch.empty((1, 2, 8), device="meta")
     before = (fa.flash_attention_bwd_dkv.launches,
               fa.flash_attention_bwd_dq.launches)

@@ -48,6 +48,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      prefill tier (bytes and ms per handle), frees it, and its streams
      are held to the engine phase's; both tiers' device stores end
      empty and neither process loads jax or ray_tpu;
+     then the serve plane on a new init(): build_llm_deployment's app
+     (Llama-3-8B at full width in one replica) answering run_engine's
+     prompts as server-sent events through the HTTP proxy, through its
+     DeploymentHandle and through stream_generate, and the prefix-hit
+     repeat, with K1 and K4 counted in the replica's process and TTFT,
+     TPOT and tok/s through the proxy beside the replica engine's own
+     TTFT and the engine phase's; serve.delete frees the card; then
+     build_pd_llm_deployment's prefill and decode replicas over the
+     same prompts, with the decode replica's handoff bytes; streams
+     held to the engine phase's, and no serve process loads jax,
+     ml_dtypes or ray_tpu (the controller and the proxy no torch);
   6. the training kernels (K1 with lse, K2, K3) against their plain
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
      timed beside the plain versions, SDPA and their bounds (ms and
@@ -565,15 +576,22 @@ def check_obs(label: str, runs, prompts, stats, launches, cfg,
     return out
 
 
-def latency_line(runs, wall: float) -> str:
-    """TTFT and TPOT p50 and generated tok/s of concurrent requests, each
-    run (result, submitted at, done at) on the host clock."""
+def latency(runs, wall: float) -> dict:
+    """TTFT and TPOT p50 (ms) and generated tok/s of concurrent requests,
+    each run (result, submitted at, done at) on the host clock."""
     ttft = [o["ttft_s"] for o, _, _ in runs]
     tpot = [(done - (t_sub + o["ttft_s"])) / (len(o["tokens"]) - 1)
             for o, t_sub, done in runs]
     toks = sum(len(o["tokens"]) for o, _, _ in runs)
-    return (f"TTFT p50 {np.median(ttft) * 1e3:.1f} ms, TPOT p50 "
-            f"{np.median(tpot) * 1e3:.2f} ms, {toks / wall:.1f} generated "
+    return dict(ttft_p50_ms=float(np.median(ttft)) * 1e3,
+                tpot_p50_ms=float(np.median(tpot)) * 1e3,
+                tok_s=toks / wall, wall_s=wall)
+
+
+def latency_line(runs, wall: float) -> str:
+    lat = latency(runs, wall)
+    return (f"TTFT p50 {lat['ttft_p50_ms']:.1f} ms, TPOT p50 "
+            f"{lat['tpot_p50_ms']:.2f} ms, {lat['tok_s']:.1f} generated "
             f"tok/s over {wall:.2f} s")
 
 
@@ -735,7 +753,9 @@ def run_engine(card: str):
         raise SystemExit("prefill logits through K1 disagree")
     ref = dict(prompts=prompts, repeat=repeat, new=new,
                streams=[o["tokens"] for o, _, _ in first],
-               hit_stream=hit[0]["tokens"], obs=obs)
+               hit_stream=hit[0]["tokens"],
+               hit_tokens=hit[0]["prefix_hit_tokens"], obs=obs,
+               latency=latency(first, wall))
     return launches, model, cfg, ref
 
 
@@ -1249,9 +1269,7 @@ def run_runtime_pd(cfg, ref: dict, want_bytes: int, card: str) -> dict:
     payload; streams are held to run_engine's at run_pd's bar."""
     import ray_tpu_torch
     prompts, new = ref["prompts"], ref["new"]
-    table_w = SERVE_KW["max_len"] // 16
-    # the engine phase's pool: every slot at max_len plus one chain
-    pool_blocks = SERVE_KW["max_slots"] * table_w + table_w
+    pool_blocks = engine_pool_blocks()
     ray_tpu_torch.init(num_cpus=4)
     try:
         t0 = time.monotonic()
@@ -1319,7 +1337,15 @@ def run_runtime_pd(cfg, ref: dict, want_bytes: int, card: str) -> dict:
           f"{[(f['stream'], f['position']) for f in flips]} (stream, "
           f"position); both tier processes exited")
     return dict(prefill=k1, decode=k4, flips=flips, wall_s=wall,
-                fetch_ms=fetch_ms, fetched_bytes=fetched)
+                fetch_ms=fetch_ms, fetched_bytes=fetched,
+                latency=latency(runs, wall))
+
+
+def engine_pool_blocks() -> int:
+    """The engine phase's pool at block 16: every slot at max_len plus
+    one chain of prefix-cache headroom."""
+    table_w = SERVE_KW["max_len"] // 16
+    return SERVE_KW["max_slots"] * table_w + table_w
 
 
 def wait_exited(pids, timeout_s: float) -> None:
@@ -1340,6 +1366,364 @@ def wait_exited(pids, timeout_s: float) -> None:
                 raise SystemExit(f"worker process {pid} did not exit")
             time.sleep(0.2)
 
+
+# Loaded at every interpreter start of run_serve's cluster (through
+# PYTHONPATH): a thread writes the process's module names to
+# $CHIP_SMOKE_MODULES/<pid>.txt once a second, so the phase can tell
+# what the controller, the proxy and each replica imported.
+MODULE_DUMP = """\
+import os, sys, threading, time
+
+def _dump():
+    path = os.path.join(os.environ["CHIP_SMOKE_MODULES"], f"{os.getpid()}.txt")
+    while True:
+        with open(path + ".tmp", "w") as f:
+            f.write("\\n".join(sorted(sys.modules)))
+        os.replace(path + ".tmp", path)
+        time.sleep(1.0)
+
+threading.Thread(target=_dump, daemon=True).start()
+"""
+
+
+def cluster_modules(dumps: str) -> dict:
+    """pid -> (role, its jax/ml_dtypes/ray_tpu modules, loads torch) for
+    every process of run_serve's cluster that wrote a module dump (this
+    process wrote none). The controller loads the replica's
+    module too (it creates replicas), so it is named first; a replica
+    (an engine's, a PrefillEngine's or the PD ingress's) is then any
+    process that loaded serve/replica.py, the proxy one that loaded
+    serve/proxy.py."""
+    out = {}
+    for name in os.listdir(dumps):
+        if not name.endswith(".txt"):
+            continue
+        with open(os.path.join(dumps, name)) as f:
+            mods = set(f.read().split())
+        role = None
+        if "ray_tpu_torch.serve.controller" in mods:
+            role = "controller"
+        elif "ray_tpu_torch.serve.replica" in mods:
+            role = "replica"
+        elif "ray_tpu_torch.serve.proxy" in mods:
+            role = "proxy"
+        bad = sorted(m for m in mods if m.split(".")[0] in
+                     ("jax", "jaxlib", "ml_dtypes", "ray_tpu"))
+        out[int(name[:-4])] = (role, bad, "torch" in mods)
+    return out
+
+
+def sse_request(addr: dict, path: str, tokens, new: int) -> dict:
+    """One request to the proxy as server-sent events: its tokens and,
+    on the host clock, when it was sent and when its first and last
+    ``data:`` events arrived."""
+    import http.client
+    conn = http.client.HTTPConnection(addr["host"], addr["port"],
+                                      timeout=600)
+    t_sub = time.monotonic()
+    conn.request("POST", path,
+                 body=json.dumps({"tokens": tokens, "max_new_tokens": new}),
+                 headers={"Content-Type": "application/json",
+                          "Accept": "text/event-stream"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise RuntimeError(f"SSE request got HTTP {resp.status}: "
+                           f"{resp.read()[:300]!r}")
+    toks, first, last, done = [], None, None, False
+    for raw in resp:
+        line = raw.decode().strip()
+        if line.startswith("data: ") and '"token"' in line:
+            last = time.monotonic()
+            first = first or last
+            toks.append(json.loads(line[len("data: "):])["token"])
+        elif line == "event: done":
+            done = True
+        elif line.startswith("event: "):
+            raise RuntimeError(f"SSE stream ended with {line}: "
+                               f"{resp.read()[:300]!r}")
+    conn.close()
+    if not done:
+        raise RuntimeError("SSE stream closed without 'event: done'")
+    return dict(tokens=toks, t_sub=t_sub, t_first=first, t_last=last)
+
+
+def sse_batch(addr: dict, path: str, prompts, new: int) -> list:
+    """Every prompt at once, one client thread per request."""
+    import threading
+    out, errs = [None] * len(prompts), []
+
+    def one(i):
+        try:
+            out[i] = sse_request(addr, path, prompts[i], new)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise SystemExit(f"an SSE request failed: {errs[0]!r}")
+    return out
+
+
+def stream_checks(label, prompts, got, want, new, vocab, pending) -> None:
+    """Each stream has ``new`` tokens in the vocabulary; streams of
+    prompts of at most 512 tokens equal ``want``; any other difference
+    joins ``pending`` for check_streams' near-tie test once a model is
+    on the card again."""
+    for toks in got:
+        if len(toks) != new or not all(0 <= t < vocab for t in toks):
+            raise SystemExit(f"{label}: bad generation: {toks}")
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a != b and len(p) <= 512:
+            raise SystemExit(f"{label}: stream {i} (prompt {len(p)} "
+                             f"tokens) differs: {a} vs {b}")
+    if got != want:
+        pending.append((label, got))
+
+
+def run_serve(ref: dict, want_bytes: int, rpd: dict, card: str) -> dict:
+    """Llama-3-8B at full width served through the port's serve plane on
+    ``ray_tpu_torch.init(num_cpus=8)``. (a) ``build_llm_deployment``'s
+    app, its replica class given three probes (``reset_counts``,
+    ``counts``, ``foreign_modules``) and nothing else: run_engine's 9
+    prompts at once as server-sent events through the HTTP proxy (one
+    client thread each; TTFT and TPOT from the first and last ``data:``
+    event on the host clock, beside the replica engine's own TTFT), again
+    through the DeploymentHandle, one through ``stream_generate``, then
+    the prefix-hit repeat; K1 and K4 counted in the replica's process;
+    then ``serve.delete`` until the replica's process has exited and the
+    card's memory is back. (b) ``build_pd_llm_deployment`` (one prefill,
+    one decode replica) over the same prompts through its ingress handle;
+    the decode replica's handoff bytes equal run_pd's. Streams are held
+    to run_engine's at run_pd's bar; no process of the cluster loads jax,
+    ml_dtypes or ray_tpu, and the controller and the proxy load no torch
+    (module dumps through a sitecustomize on the workers' PYTHONPATH).
+    Each app gets one short warm-up request, not counted, so its first
+    drive does not pay the replica's first CUDA calls."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import (LLMConfig, _LLMServer,
+                                         build_llm_deployment,
+                                         build_pd_llm_deployment,
+                                         stream_generate)
+
+    class ChipLLMServer(_LLMServer):
+        """build_llm_deployment's replica, with the phase's probes."""
+
+        def reset_counts(self):
+            reset_serving_counts()
+
+        def counts(self):
+            return serving_counts(), os.getpid()
+
+        def foreign_modules(self):
+            return foreign_modules()
+
+    prompts, new = ref["prompts"], ref["new"]
+    vocab = llama.llama3_8b().vocab_size
+    cfg = LLMConfig(model="llama3_8b", model_overrides={"dtype": "bfloat16"},
+                    max_slots=SERVE_KW["max_slots"],
+                    max_len=SERVE_KW["max_len"],
+                    prefill_buckets=SERVE_KW["prefill_buckets"],
+                    cache_dtype="bfloat16", seed=0, kv_block_size=16,
+                    kv_pool_blocks=engine_pool_blocks())
+    app = build_llm_deployment(cfg)
+    # the same deployment and options, the probes' subclass as its class
+    app.deployment._target = ChipLLMServer
+    warm = [int(t) for t in
+            np.random.default_rng(1).integers(0, vocab, 64)]
+    get = ray_tpu_torch.get
+    pending = []
+    free0 = torch.cuda.mem_get_info()[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    site, dumps = os.path.join(tmp, "site"), os.path.join(tmp, "modules")
+    os.mkdir(site)
+    os.mkdir(dumps)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(MODULE_DUMP)
+    # init() hands its workers this process's sys.path as PYTHONPATH;
+    # they read the dump directory from the environment when they start
+    os.environ["CHIP_SMOKE_MODULES"] = dumps
+    sys.path.insert(0, site)
+    try:
+        ray_tpu_torch.init(num_cpus=8)
+    finally:
+        sys.path.remove(site)
+    try:
+        # (a) the unified app
+        t0 = time.monotonic()
+        h = serve.run(app, name="llm", ready_timeout_s=900.0)
+        up_s = time.monotonic() - t0
+        get(h.generate.remote(warm, max_new_tokens=4), timeout=600)
+        get(h.reset_counts.remote(), timeout=60)
+        st0 = get(h.stats.remote(), timeout=60)
+        addr = serve.proxy_address()
+        sse = sse_batch(addr, "/LLMServer", prompts, new)
+        st1 = get(h.stats.remote(), timeout=60)
+        t0 = time.monotonic()
+        outs = get([h.generate.remote(p, max_new_tokens=new)
+                    for p in prompts], timeout=600)
+        handle_wall = time.monotonic() - t0
+        sg = list(stream_generate(h, prompts[0], max_new_tokens=new))
+        hit = get(h.generate.remote(ref["repeat"], max_new_tokens=new),
+                  timeout=600)
+        counts, replica_pid = get(h.counts.remote(), timeout=60)
+        replica_mods = get(h.foreign_modules.remote(), timeout=60)
+        stats = get(h.stats.remote(), timeout=60)
+
+        sse_toks = [r["tokens"] for r in sse]
+        handle_toks = [o["tokens"] for o in outs]
+        ttft = [r["t_first"] - r["t_sub"] for r in sse]
+        tpot = [(r["t_last"] - r["t_first"]) / (len(r["tokens"]) - 1)
+                for r in sse]
+        wall = max(r["t_last"] for r in sse) - min(r["t_sub"] for r in sse)
+        proxy = dict(ttft_p50_ms=float(np.median(ttft)) * 1e3,
+                     ttft_mean_ms=float(np.mean(ttft)) * 1e3,
+                     tpot_p50_ms=float(np.median(tpot)) * 1e3,
+                     tok_s=sum(map(len, sse_toks)) / wall, wall_s=wall)
+        eng_ttft_ms = ((st1["ttft_sum"] - st0["ttft_sum"])
+                       / (st1["ttft_count"] - st0["ttft_count"]) * 1e3)
+        handle_ttft = float(np.median([o["ttft_s"] for o in outs])) * 1e3
+        eng = ref["latency"]
+        print(f"serve app [{card}]: Llama-3-8B replica up in {up_s:.1f} s; "
+              f"{len(prompts)} SSE requests through the proxy, {new} new "
+              f"tokens each: TTFT p50 {proxy['ttft_p50_ms']:.1f} ms (mean "
+              f"{proxy['ttft_mean_ms']:.1f}), TPOT p50 "
+              f"{proxy['tpot_p50_ms']:.2f} ms, {proxy['tok_s']:.1f} "
+              f"generated tok/s over {wall:.2f} s; the replica engine's own "
+              f"TTFT mean over those requests {eng_ttft_ms:.1f} ms (proxy "
+              f"mean - engine mean {proxy['ttft_mean_ms'] - eng_ttft_ms:.1f}"
+              f" ms: proxy, router, replica and SSE hops); through the "
+              f"handle {len(prompts) * new / handle_wall:.1f} tok/s over "
+              f"{handle_wall:.2f} s, engine TTFT p50 {handle_ttft:.1f} ms; "
+              f"engine phase of this run TTFT p50 {eng['ttft_p50_ms']:.1f} "
+              f"ms, TPOT p50 {eng['tpot_p50_ms']:.2f} ms, "
+              f"{eng['tok_s']:.1f} tok/s; prefix-hit repeat "
+              f"{hit['prefix_hit_tokens']} tokens (engine phase "
+              f"{ref['hit_tokens']}); replica launches {counts}; replica "
+              f"stats {stats}")
+        if min(counts["flash_attention_fwd"], counts["paged_attention"]) \
+                <= 0:
+            raise SystemExit(f"the replica launched no K1 or K4: {counts}")
+        if replica_mods:
+            raise SystemExit(f"the replica loaded {replica_mods}")
+        if hit["prefix_hit_tokens"] != ref["hit_tokens"]:
+            raise SystemExit("the serve app's prefix hit differs from the "
+                             "engine phase's")
+        if sg != handle_toks[0]:
+            raise SystemExit(f"stream_generate differs from the handle: "
+                             f"{sg} vs {handle_toks[0]}")
+        stream_checks("serve SSE vs unified", prompts, sse_toks,
+                      ref["streams"], new, vocab, pending)
+        stream_checks("serve handle vs unified", prompts, handle_toks,
+                      ref["streams"], new, vocab, pending)
+        serve.delete("llm")
+        wait_exited([replica_pid], 120.0)
+        deadline = time.monotonic() + 60
+        while torch.cuda.mem_get_info()[0] < free0 - (1 << 30):
+            if time.monotonic() > deadline:
+                raise SystemExit(
+                    f"card memory not back after serve.delete: free "
+                    f"{torch.cuda.mem_get_info()[0]} of {free0} before")
+            time.sleep(0.5)
+        print(f"serve app [{card}]: deleted; replica process {replica_pid} "
+              f"exited, card free memory {torch.cuda.mem_get_info()[0]} "
+              f"bytes (before the app {free0})")
+
+        # (b) the prefill/decode app
+        t0 = time.monotonic()
+        hp = serve.run(build_pd_llm_deployment(cfg, num_prefill_replicas=1,
+                                               num_decode_replicas=1),
+                       name="pd", ready_timeout_s=900.0)
+        pd_up_s = time.monotonic() - t0
+        dec = serve.get_deployment_handle("LLMDecode")
+        get(hp.generate.remote(warm, max_new_tokens=4), timeout=600)
+        bytes0 = get(dec.stats.remote(), timeout=60)["handoff_bytes"]
+        t0 = time.monotonic()
+        refs = [hp.generate.remote(p, max_new_tokens=new) for p in prompts]
+        done, left = {}, list(refs)
+        while left:
+            ready, left = ray_tpu_torch.wait(left, num_returns=1,
+                                             timeout=600)
+            if not ready:
+                raise SystemExit("the PD app did not answer in 600 s")
+            for r in ready:
+                done[r] = time.monotonic()
+        pd_wall = time.monotonic() - t0
+        pd_outs = get(refs, timeout=60)
+        pd_stats = get(dec.stats.remote(), timeout=60)
+        pd_bytes = pd_stats["handoff_bytes"] - bytes0
+        e2e = [done[r] - t0 for r in refs]
+        dec_ttft = [o["ttft_s"] for o in pd_outs]
+        upper = [(e - t) / (len(o["tokens"]) - 1)
+                 for e, t, o in zip(e2e, dec_ttft, pd_outs)]
+        pd_lat = dict(ttft_p50_ms=float(np.median(dec_ttft)) * 1e3,
+                      e2e_p50_ms=float(np.median(e2e)) * 1e3,
+                      tpot_upper_p50_ms=float(np.median(upper)) * 1e3,
+                      tok_s=sum(len(o["tokens"]) for o in pd_outs)
+                      / pd_wall, wall_s=pd_wall)
+        rl = rpd["latency"]
+        print(f"serve PD app [{card}]: prefill + decode replicas and the "
+              f"ingress up in {pd_up_s:.1f} s; {len(prompts)} requests "
+              f"through the ingress handle: decode replica TTFT p50 "
+              f"{pd_lat['ttft_p50_ms']:.1f} ms, end to end p50 "
+              f"{pd_lat['e2e_p50_ms']:.1f} ms, TPOT p50 at most "
+              f"{pd_lat['tpot_upper_p50_ms']:.2f} ms ((end to end - decode "
+              f"TTFT) / 31: still holds the prefill and the hops), "
+              f"{pd_lat['tok_s']:.1f} generated tok/s over {pd_wall:.2f} s; "
+              f"runtime PD of this run: decode TTFT p50 "
+              f"{rl['ttft_p50_ms']:.1f} ms, TPOT p50 {rl['tpot_p50_ms']:.2f}"
+              f" ms, {rl['tok_s']:.1f} tok/s; unified app through the "
+              f"proxy TTFT p50 {proxy['ttft_p50_ms']:.1f} ms, TPOT p50 "
+              f"{proxy['tpot_p50_ms']:.2f} ms; decode replica handoff bytes "
+              f"{pd_bytes} (expected {want_bytes}); decode stats {pd_stats}")
+        if pd_bytes != want_bytes:
+            raise SystemExit("the PD app's handoff bytes are not run_pd's")
+        stream_checks("serve PD vs unified", prompts,
+                      [o["tokens"] for o in pd_outs], ref["streams"], new,
+                      vocab, pending)
+        time.sleep(2.5)     # the module dumps' next round
+        procs = cluster_modules(dumps)
+        roles = sorted(r for r, _, _ in procs.values() if r)
+        print(f"serve [{card}]: cluster processes by role {roles}; "
+              f"jax/ml_dtypes/ray_tpu modules "
+              f"{sorted({m for _, b, _ in procs.values() for m in b})}")
+        if not {"controller", "proxy"} <= set(roles) or \
+                roles.count("replica") < 4:
+            raise SystemExit(f"module dumps missing for a serve process: "
+                             f"{procs}")
+        for pid, (role, bad, has_torch) in procs.items():
+            if bad or (role in ("controller", "proxy") and has_torch):
+                raise SystemExit(f"{role} process {pid} loaded {bad}"
+                                 f"{' and torch' if has_torch else ''}")
+        serve.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+        os.environ.pop("CHIP_SMOKE_MODULES", None)
+    wait_exited(sorted(procs), 120.0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if pending:
+        # a long prompt's stream differs: hold it to a near tie against a
+        # teacher-forced forward of the same weights on the card
+        mcfg = llama.llama3_8b(dtype="bfloat16")
+        model = llama.init_params(
+            torch.Generator(device="cuda").manual_seed(0), mcfg)
+        for label, got in pending:
+            check_streams(model, mcfg, label, prompts, got, ref["streams"],
+                          exact=[i for i, p in enumerate(prompts)
+                                 if len(p) <= 512])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(launches=counts, proxy=proxy, engine_ttft_mean_ms=eng_ttft_ms,
+                pd=pd_lat, pd_bytes=pd_bytes, pending=len(pending))
 
 def hook_timers(timers: dict):
     """Wrap the observability hooks the engine calls (the tracing and
@@ -2095,6 +2479,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rpd = run_runtime_pd(cfg, ref, pd["want_bytes"], card)
+    served = run_serve(ref, pd["want_bytes"], rpd, card)
 
     serve_k1 = {"serve": launches["flash_attention_fwd"],
                 "serve_monolithic": mono["launches"]["flash_attention_fwd"],
@@ -2103,14 +2488,16 @@ def main() -> int:
                 "serve_pd_handle": pd["handle"]["prefill"][
                     "flash_attention_fwd"],
                 "serve_hooks": hooks["launches"]["flash_attention_fwd"],
-                "serve_runtime_pd": rpd["prefill"]["flash_attention_fwd"]}
+                "serve_runtime_pd": rpd["prefill"]["flash_attention_fwd"],
+                "serve_app": served["launches"]["flash_attention_fwd"]}
     serve_k4 = {"serve": launches["paged_attention"],
                 "serve_monolithic": mono["launches"]["paged_attention"],
                 "serve_spec": spec["launches"]["paged_attention"],
                 "serve_pd": pd["decode"]["paged_attention"],
                 "serve_pd_handle": pd["handle"]["decode"]["paged_attention"],
                 "serve_hooks": hooks["launches"]["paged_attention"],
-                "serve_runtime_pd": rpd["decode"]["paged_attention"]}
+                "serve_runtime_pd": rpd["decode"]["paged_attention"],
+                "serve_app": served["launches"]["paged_attention"]}
 
     tk = check_train_kernels(fa, gen)
     check_train_parity(fa, card)

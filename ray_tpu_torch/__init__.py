@@ -3,9 +3,11 @@
 The counterpart of ``ray_tpu``'s runtime (``init``/``remote``/``get``,
 actors, the shared-memory object plane, placement groups), its Llama
 decoder, paged KV pool, ``LLMEngine`` with the prefill->decode handoff,
-``make_train_step`` and the train library that drives it
-(``TorchTrainer``, async checkpoints, the goodput ledger), with hand-written Hopper kernels in place of the
-Pallas TPU kernels on those paths. It imports torch and numpy, never jax
+the serve plane that puts engines behind a controller, replicas, a
+router and an HTTP proxy (``serve``, ``serve.llm``), ``make_train_step``
+and the train library that drives it (``TorchTrainer``, async
+checkpoints, the goodput ledger), with hand-written Hopper kernels in
+place of the Pallas TPU kernels on those paths. It imports torch and numpy, never jax
 and never ``ray_tpu``. Submodules load lazily; the runtime's processes
 import torch only when a task does.
 """

@@ -7,10 +7,9 @@ src/ray/common/ray_config_def.h) — every tunable has a typed default and
 is overridable from the environment as ``RAY_TPU_<NAME>`` or from the
 ``system_config`` dict handed to :func:`ray_tpu_torch.init`. A field of
 the reference comes here with the port's code that reads it (the
-collective, pipeline, forensics, serve, KV-cache and
-speculative-decoding knobs have none yet), so no knob is accepted and
-then ignored; a ``system_config`` key that names no field lands in
-``extra``.
+collective, pipeline and forensics knobs have none yet), so no knob is
+accepted and then ignored; a ``system_config`` key that names no field
+lands in ``extra``.
 """
 
 from __future__ import annotations
@@ -70,6 +69,123 @@ class Config:
     # Deterministic fault injection, reference: src/ray/rpc/rpc_chaos.h.
     # Format: "Method=max_failures:deadline_ms,Method2=..."
     testing_rpc_failure: str = ""
+
+    # --- paged KV cache (llm/kvcache.py) ---
+    # Token-block size of the engine's paged KV cache. The serving
+    # default: fixed-size blocks from a preallocated pool, per-request
+    # block tables, ref-counted prefix reuse for shared system
+    # prompts — tensor-parallel engines included (the pool shards its
+    # kv-head dim over the mesh). 0 selects the legacy monolithic slot
+    # cache (bucketed doubling growth). The effective size is
+    # gcd-adjusted to divide every prefill bucket and max_len.
+    kvcache_block_size: int = 16
+    # Pool size in blocks (0 = auto: worst case — every slot at
+    # max_len — plus one chain of prefix-cache headroom, capped at
+    # half the free device memory).
+    kvcache_pool_blocks: int = 0
+    # Prefix reuse: hash-chained full prompt blocks enter a cached
+    # index at request finish; a later request sharing the prefix
+    # adopts those blocks ref-counted and prefills only its suffix.
+    # Off: blocks free immediately at request finish.
+    kvcache_prefix_cache: bool = True
+    # Paged decode attention impl: "paged_flash" walks each slot's
+    # block table directly in the decode kernel
+    # (ops/paged_attention.py — no gathered (slots, max_len) view, no
+    # O(slots x max_len x layers) copy per token); "gather"
+    # materializes the view per layer (the debug/parity path); "auto"
+    # = paged_flash on a CUDA device, gather on the CPU. Engines also
+    # take this per-instance via LLMEngine(kv_impl=...).
+    paged_attn_impl: str = "auto"
+
+    # --- speculative decoding (llm/spec.py) ---
+    # Draft-and-verify generation in the paged engine (speculative
+    # sampling, arxiv 2211.17192): a model-free prompt-lookup drafter
+    # proposes up to spec_draft_tokens tokens by matching the
+    # request's recent suffix against its own prompt+output history;
+    # the engine scores all k+1 positions in one batched forward and
+    # accepts the longest agreeing prefix (exact greedy match at
+    # temperature<=0, rejection sampling otherwise so the output
+    # distribution is unchanged). Off by default; engines also take
+    # this per-instance via LLMEngine(spec=...).
+    spec_decode: bool = False
+    # Max draft tokens per verify round (the k in draft-and-verify).
+    # Verify widths are padded to a small bucket set derived from
+    # this, so distinct accepted lengths share a few shapes.
+    spec_draft_tokens: int = 4
+    # Longest suffix n-gram the prompt-lookup drafter tries to match
+    # (it backs down to 1-grams before giving up).
+    spec_ngram_max: int = 3
+    # Accept-rate backoff: the drafter tracks acceptance over a
+    # sliding window of this many drafted tokens and stops proposing
+    # when the windowed accept rate drops below ~25%, re-probing
+    # periodically — adversarial low-hit prompts degrade to vanilla
+    # decode instead of paying verify overhead forever.
+    spec_backoff_window: int = 16
+
+    # --- serve fault tolerance ---
+    # Default per-request deadline budget (seconds) when the client
+    # sends no X-Request-Deadline header. The budget is spent across
+    # queueing, routing, retries, and the replica call; once spent the
+    # proxy answers 504 and downstream work is cancelled.
+    serve_default_deadline_s: float = 120.0
+    # Proxy admission control: requests beyond the deployment's live
+    # capacity (running replicas x max_ongoing_requests) wait in a
+    # bounded queue; past this depth — or when the predicted queue wait
+    # exceeds the request's remaining deadline budget — the proxy sheds
+    # with a fast 503 + Retry-After instead of letting the request ride
+    # to its full deadline.
+    serve_queue_limit: int = 128
+    # Budgeted retry policy (route refresh, reroute-on-submit-failure):
+    # attempts are jittered-exponential-backoff spaced and always capped
+    # by the request's remaining deadline.
+    serve_retry_max_attempts: int = 3
+    # Replica circuit breaker (caller-side routing table): eject a
+    # replica after this many CONSECUTIVE infrastructure failures;
+    # half-open recovery probes admit one trial request after the
+    # cooldown (ping probes can shortcut or extend it).
+    serve_cb_failure_threshold: int = 3
+    serve_cb_cooldown_s: float = 2.0
+    # Latency ejection: >0 arms it — this many consecutive calls slower
+    # than the threshold eject the replica like failures do. 0 = off.
+    serve_cb_latency_threshold_s: float = 0.0
+    serve_cb_latency_count: int = 3
+    # Graceful draining: a DRAINING replica (scale-down / redeploy)
+    # finishes its in-flight requests (incl. streams) and accepts no
+    # new ones; after this many seconds the controller stops waiting.
+    serve_drain_timeout_s: float = 30.0
+    # --- SLO-driven replica autoscaling (serve/autoscale.py) ---
+    # A deployment opts in with autoscaling_config={"policy": "slo",
+    # ...}; the controller then scales it from the health plane's
+    # burn_advice (page-tier burn -> scale up; the proxy's
+    # shed-while-burning hint is the fast path) instead of the legacy
+    # target_ongoing_requests loop. Seconds between burn-advice
+    # fetches / per-deployment decision ticks:
+    serve_autoscale_interval_s: float = 2.0
+    # Minimum seconds between two scale changes of one deployment
+    # (hysteresis: a flapping alert cannot thrash replica counts).
+    serve_autoscale_cooldown_s: float = 15.0
+    # Replicas added per scale-up decision.
+    serve_autoscale_step: int = 1
+    # Utilization deadband: below low (sustained for the window, and
+    # only while no budget is burning) scale down one replica — the
+    # victim DRAINS, in-flight streams finish; above high with a
+    # warn-tier burn, scale up before the page tier fires. Between
+    # the thresholds the target holds.
+    serve_autoscale_low_util: float = 0.25
+    serve_autoscale_low_util_window_s: float = 30.0
+    serve_autoscale_high_util: float = 0.85
+
+    # Deterministic fault injection for the SERVE data path, the
+    # serving sibling of testing_rpc_failure / testing_channel_failure
+    # (reference: src/ray/rpc/rpc_chaos.h + serve.proto health checks).
+    # Comma-separated rules "<site>:<action>:<nth>[:<param>]": site in
+    # {proxy (handle -> replica submission), replica (replica -> user
+    # code / engine)}; action in {error (raise an injected failure),
+    # delay (sleep <param> s), drop (replica only: never respond — the
+    # caller's deadline fires), kill (SIGKILL this process)}; nth =
+    # 1-based index of the matching site's requests, counted
+    # process-wide. See serve/chaos.py ServeChaos.
+    testing_serve_failure: str = ""
 
     # --- tasks / actors ---
     default_max_task_retries: int = 3

@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.config import get_config
 from ray_tpu_torch.llm import kvcache, model as lm, pd, spec as specdec
 from ray_tpu_torch.models.llama import Llama, LlamaConfig
 from ray_tpu_torch.runtime.device_store import TensorRef
@@ -175,11 +176,11 @@ class LLMEngine:
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512),
                  cache_dtype="bfloat16", seed: int = 0,
                  steps_per_sync: int = 8,
-                 kv_block_size: int = 16,
-                 kv_pool_blocks: int = 0,
-                 prefix_cache: bool = True,
-                 kv_impl: str = "auto",
-                 spec: bool = False,
+                 kv_block_size: Optional[int] = None,
+                 kv_pool_blocks: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 kv_impl: Optional[str] = None,
+                 spec: Optional[bool] = None,
                  device=None,
                  mesh=None,
                  detokenize: Optional[Callable[[List[int]], str]] = None):
@@ -189,8 +190,13 @@ class LLMEngine:
         runs every kernel's plain version. ``kv_block_size=0`` selects
         the monolithic cache; ``spec`` (paged only, ignored on the
         monolithic cache as in the JAX package) drafts through
-        ``spec.PromptLookupDrafter`` with its defaults (the JAX package's
-        Config defaults: up to 4 tokens from n-grams of up to 3)."""
+        ``spec.PromptLookupDrafter``. As in the JAX engine, a knob left
+        ``None`` reads its Config field (``kvcache_block_size``,
+        ``kvcache_pool_blocks``, ``kvcache_prefix_cache``,
+        ``paged_attn_impl``, ``spec_decode``), and the drafter takes its
+        draft length, n-gram size and accept window from
+        ``spec_draft_tokens``, ``spec_ngram_max`` and
+        ``spec_backoff_window``."""
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=) is not ported yet: "
@@ -209,9 +215,23 @@ class LLMEngine:
         cdt = getattr(torch, cache_dtype) if isinstance(cache_dtype, str) \
             else cache_dtype
         self._cdt = cdt
+        _cfg = get_config()
+        if kv_block_size is None:
+            kv_block_size = int(_cfg.kvcache_block_size)
+        if kv_pool_blocks is None:
+            kv_pool_blocks = int(_cfg.kvcache_pool_blocks)
+        if prefix_cache is None:
+            prefix_cache = bool(_cfg.kvcache_prefix_cache)
+        if kv_impl is None:
+            kv_impl = str(_cfg.paged_attn_impl)
+        if spec is None:
+            spec = bool(_cfg.spec_decode)
         self._paged = kv_block_size > 0
         self._spec = bool(spec) and self._paged
-        self._spec_buckets = specdec.width_buckets(specdec.DRAFT_K)
+        self._spec_k = max(1, int(_cfg.spec_draft_tokens))
+        self._spec_ngram = max(1, int(_cfg.spec_ngram_max))
+        self._spec_window = max(1, int(_cfg.spec_backoff_window))
+        self._spec_buckets = specdec.width_buckets(self._spec_k)
         self._specm = specdec.spec_metrics() if self._spec else None
         self._kvm = kvcache.kvcache_metrics()
         self._kv_impl = kvcache.resolve_attn_impl(kv_impl, self.device)
@@ -450,7 +470,9 @@ class LLMEngine:
             self._seq_counter += 1
             r.seq = self._seq_counter
         if self._spec:
-            r.drafter = specdec.PromptLookupDrafter()
+            r.drafter = specdec.PromptLookupDrafter(
+                k=self._spec_k, ngram_max=self._spec_ngram,
+                window=self._spec_window)
         self._waiting.put_nowait(r)
         self._requests += 1
         self._ensure_loop()

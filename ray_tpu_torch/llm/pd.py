@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.config import get_config
 from ray_tpu_torch.llm import model as lm
 from ray_tpu_torch.models.llama import Llama, LlamaConfig
 from ray_tpu_torch.runtime.device_store import put_device
@@ -91,11 +92,12 @@ class PrefillEngine:
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512),
                  max_len: int = 1024,
                  cache_dtype="bfloat16",
-                 block_size: int = 16,
+                 block_size: Optional[int] = None,
                  device=None):
         """``params`` is the port's ``Llama`` module on ``device``
         (``None``: the CUDA device, raising without one). ``block_size``
-        0 ships whole buckets."""
+        0 ships whole buckets; ``None`` reads the Config's
+        ``kvcache_block_size``, as the decode engine does."""
         self.device = resolve_device(device)
         if params.device != self.device:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -107,6 +109,8 @@ class PrefillEngine:
                                     if b <= max_len)) or (max_len,)
         self.cache_dtype = getattr(torch, cache_dtype) \
             if isinstance(cache_dtype, str) else cache_dtype
+        if block_size is None:
+            block_size = int(get_config().kvcache_block_size)
         # the engine's gcd rule, so both sides agree on what a block is
         if block_size > 0:
             for v in (*self.buckets, max_len):

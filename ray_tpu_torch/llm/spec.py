@@ -39,8 +39,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# the drafter's default draft length (the JAX package's Config default),
-# which sets the engine's verify-width buckets
+# the drafter's default draft length (the Config's spec_draft_tokens
+# default; the engine passes the Config's value)
 DRAFT_K = 4
 
 

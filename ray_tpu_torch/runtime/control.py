@@ -1075,7 +1075,7 @@ class ControlService:
         burn rates, active alerts, sentinels) — the /health endpoint,
         `ray-tpu health`, and the dashboard all serve this; its
         ``burn_advice`` map is the input contract for SLO-driven
-        replica autoscaling (ROADMAP item 3)."""
+        replica autoscaling (serve/autoscale.py)."""
         from ray_tpu_torch.util import health as _health
         return _health.local_state()
 

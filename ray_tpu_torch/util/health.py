@@ -31,9 +31,9 @@ plus the head's own registry each evaluation tick). Three layers:
 same master-switch pattern as RAY_TPU_DEVMON); ``Config.health_enabled``
 is the runtime off-switch the control service checks before starting
 the loop. The engine's ``snapshot()`` is the machine-readable /health
-contract — per-deployment burn state is exactly the input ROADMAP item
-3's SLO-driven replica autoscaler needs (serve/proxy.py already
-consults it, log-only, at shed time).
+contract — per-deployment burn state is exactly the input the
+SLO-driven replica autoscaler (serve/autoscale.py) reads, and
+serve/proxy.py consults it at shed time.
 """
 
 from __future__ import annotations

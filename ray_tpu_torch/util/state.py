@@ -5,7 +5,8 @@ python/ray/util/state/api.py list_tasks + ``ray summary tasks``): a thin
 typed view over the control service's timeline RPC, usable from any
 initialized driver/worker. The port's copy of ``ray_tpu/util/state.py``
 cut to the task rows, which read the runtime's always-on task events
-(``util/tracing.record_exec``); the node, actor, collective, pipeline,
+(``util/tracing.record_exec``), and the actor rows (the serve plane's
+tests read replicas' states from them); the node, collective, pipeline,
 goodput, trace, device, health, job and placement-group views come with
 the CLI that renders them (ROADMAP Queue 1 item 17).
 """
@@ -19,6 +20,24 @@ def _call(method: str, **kw):
     from ray_tpu_torch import api
     ctx = api._require_init()
     return api._run(ctx.pool.call(ctx.head_addr, method, **kw))
+
+
+def list_actors(state: Optional[str] = None) -> List[dict]:
+    out = []
+    for a in _call("list_actors"):
+        row = {
+            "actor_id": a["actor_id"].hex(),
+            "state": a.get("state"),
+            "name": a.get("name"),
+            "class_name": a.get("class_name"),
+            "node_id": a["node_id"].hex()
+            if a.get("node_id") is not None else None,
+            "num_restarts": a.get("num_restarts", 0),
+            "death_cause": a.get("death_cause"),
+        }
+        if state is None or row["state"] == state:
+            out.append(row)
+    return out
 
 
 def tasks_from_events(events, limit: int = 200,

@@ -964,3 +964,76 @@ def test_train_state_checkpoint_round_trip_on_card(dev, tmp_path):
     _, m2 = step_fn(other, batch)
     assert (m1["loss"].item(), m1["grad_norm"].item()) == \
         (m2["loss"].item(), m2["grad_norm"].item())
+
+
+def test_tiny_llm_app_on_card_matches_cpu(dev):
+    """``build_llm_deployment`` with ``device=None`` serves on the card:
+    its replica draws the weights from the seed on the card (so does
+    this process, and copies them to the CPU), and its greedy streams
+    through the handle equal a CPU engine's over those weights; one
+    server-sent-events request through the proxy equals the handle."""
+    import http.client
+    import json
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.engine import LLMEngine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve import llm as tllm
+    cfg = tllm.LLMConfig(
+        model="tiny", model_overrides=dict(vocab_size=256, dim=256,
+                                           n_layers=2, n_heads=4,
+                                           n_kv_heads=2, ffn_dim=512,
+                                           dtype="float32"),
+        max_slots=4, max_len=128, prefill_buckets=(16, 64),
+        cache_dtype="float32")
+    model_cfg, on_card = tllm._load_model(cfg)
+    assert on_card.device.type == "cuda"
+    cpu = llama.empty_model(model_cfg, "cpu")
+    cpu.load_state_dict(on_card.state_dict())
+    del on_card
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(1, 255, n)]
+               for n in (5, 20, 70, 9)]
+
+    async def on_cpu():
+        eng = LLMEngine(model_cfg, cpu, max_slots=cfg.max_slots,
+                        max_len=cfg.max_len,
+                        prefill_buckets=cfg.prefill_buckets,
+                        cache_dtype="float32", device="cpu")
+        outs = await asyncio.gather(*[eng.generate(p, max_new_tokens=12)
+                                      for p in prompts])
+        await eng.stop()
+        return [o["tokens"] for o in outs]
+    want = asyncio.run(on_cpu())
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        h = serve.run(tllm.build_llm_deployment(cfg), name="card",
+                      ready_timeout_s=300.0)
+        got = [o["tokens"] for o in ray_tpu_torch.get(
+            [h.generate.remote(p, max_new_tokens=12) for p in prompts],
+            timeout=300)]
+        stats = ray_tpu_torch.get(h.stats.remote(), timeout=60)
+        addr = serve.proxy_address()
+        conn = http.client.HTTPConnection(addr["host"], addr["port"],
+                                          timeout=300)
+        conn.request("POST", "/LLMServer",
+                     body=json.dumps({"tokens": prompts[2],
+                                      "max_new_tokens": 12}),
+                     headers={"Content-Type": "application/json",
+                              "Accept": "text/event-stream"})
+        raw = conn.getresponse().read().decode()
+        conn.close()
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    assert stats["device"].startswith("cuda")
+    assert stats["kv_impl"] == "paged_flash"
+    assert got == want
+    sse = [json.loads(line[len("data: "):])["token"]
+           for line in raw.splitlines()
+           if line.startswith("data: ") and "token" in line]
+    assert "event: done" in raw and sse == got[2]

@@ -6,6 +6,7 @@ plain version."""
 
 import ast
 import inspect
+import os
 import pathlib
 import subprocess
 import sys
@@ -35,7 +36,13 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.config",
                 "ray_tpu_torch.util.events", "ray_tpu_torch.util.metrics",
                 "ray_tpu_torch.util.tracing", "ray_tpu_torch.util.devmon",
-                "ray_tpu_torch.util.forensics", "ray_tpu_torch.serve.fault",
+                "ray_tpu_torch.util.forensics", "ray_tpu_torch.serve",
+                "ray_tpu_torch.serve.api", "ray_tpu_torch.serve.autoscale",
+                "ray_tpu_torch.serve.batching", "ray_tpu_torch.serve.chaos",
+                "ray_tpu_torch.serve.controller",
+                "ray_tpu_torch.serve.fault", "ray_tpu_torch.serve.handle",
+                "ray_tpu_torch.serve.llm", "ray_tpu_torch.serve.multiplex",
+                "ray_tpu_torch.serve.proxy", "ray_tpu_torch.serve.replica",
                 "ray_tpu_torch.api", "ray_tpu_torch.node",
                 "ray_tpu_torch.scripts", "ray_tpu_torch.cluster_utils",
                 "ray_tpu_torch.runtime", "ray_tpu_torch.runtime.agent",
@@ -159,6 +166,95 @@ def test_train_worker_leaves_jax_and_ray_tpu_out():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[[], []]"
+
+
+# Loaded at every interpreter start of the serve test's cluster (through
+# PYTHONPATH): a thread writes the process's module names to
+# $MODULES_DIR/<pid>.txt five times a second.
+MODULE_DUMP = """\
+import os, sys, threading, time
+
+def _dump():
+    path = os.path.join(os.environ["MODULES_DIR"], f"{os.getpid()}.txt")
+    while True:
+        with open(path + ".tmp", "w") as f:
+            f.write("\\n".join(sorted(sys.modules)))
+        os.replace(path + ".tmp", path)
+        time.sleep(0.2)
+
+threading.Thread(target=_dump, daemon=True).start()
+"""
+
+
+def test_serve_processes_leave_jax_and_ray_tpu_out(tmp_path):
+    """A fresh cluster serving a tiny ``build_llm_deployment`` app on the
+    CPU, called through its handle and through the proxy: no process of
+    it (driver, controller, proxy, replica, the runtime's own) loads
+    jax, ml_dtypes or any ray_tpu module, and the controller and the
+    proxy load no torch either. Each process reports its modules
+    through a ``sitecustomize`` on PYTHONPATH."""
+    site = tmp_path / "site"
+    dumps = tmp_path / "modules"
+    site.mkdir()
+    dumps.mkdir()
+    (site / "sitecustomize.py").write_text(MODULE_DUMP)
+    code = (
+        "import json, http.client, time\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import serve\n"
+        "from ray_tpu_torch.serve.llm import LLMConfig, "
+        "build_llm_deployment\n"
+        "serve.api.DEFAULT_HTTP_PORT = 0\n"
+        "rt.init(num_cpus=4)\n"
+        "cfg = LLMConfig(model='tiny', model_overrides=dict(n_layers=1, "
+        "dtype='float32'), max_slots=2, max_len=64, prefill_buckets=(16,), "
+        "cache_dtype='float32', device='cpu')\n"
+        "h = serve.run(build_llm_deployment(cfg), name='iso')\n"
+        "out = rt.get(h.generate.remote([1, 2, 3], max_new_tokens=4), "
+        "timeout=120)\n"
+        "a = serve.proxy_address()\n"
+        "c = http.client.HTTPConnection(a['host'], a['port'], timeout=60)\n"
+        "c.request('POST', '/LLMServer', body=json.dumps({'tokens': [1, 2, "
+        "3], 'max_new_tokens': 4}), headers={'Content-Type': "
+        "'application/json'})\n"
+        "r = c.getresponse()\n"
+        "assert r.status == 200 and json.loads(r.read())['tokens'] == "
+        "out['tokens']\n"
+        "time.sleep(1.0)\n"
+        "serve.shutdown()\n"
+        "rt.shutdown()\n"
+        "import os; print(os.getpid())\n")
+    env = dict(os.environ, MODULES_DIR=str(dumps),
+               PYTHONPATH=os.pathsep.join(
+                   [str(site), str(ROOT)]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    driver = out.stdout.split()[-1]
+    procs = {p.stem: set(p.read_text().split())
+             for p in dumps.glob("*.txt")}
+
+    def role(pid, mods):
+        # the driver imports the controller's and the proxy's classes to
+        # create them, and the controller the replica's; a replica is the
+        # process that built the engine
+        if pid == driver:
+            return "driver"
+        if "ray_tpu_torch.llm.engine" in mods:
+            return "replica"
+        for name in ("controller", "proxy"):
+            if f"ray_tpu_torch.serve.{name}" in mods:
+                return name
+        return None
+    roles = {pid: role(pid, m) for pid, m in procs.items()}
+    assert {"controller", "proxy", "replica"} <= set(roles.values()), roles
+    for pid, mods in procs.items():
+        bad = sorted(m for m in mods if m.split(".")[0] in
+                     ("jax", "jaxlib", "ml_dtypes", "ray_tpu"))
+        assert bad == [], (pid, roles[pid], bad)
+        if roles[pid] in ("controller", "proxy"):
+            assert "torch" not in mods, (pid, roles[pid])
 
 
 def _imports(path: pathlib.Path):

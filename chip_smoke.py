@@ -1,5 +1,5 @@
-"""Drive ray_tpu_torch's serving path, training step and train library
-on one CUDA card and check them.
+"""Drive ray_tpu_torch's serving path, training step, train library,
+compiled DAGs and datasets on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      own Llama-3-8B; the decode tier fetches each KV handle from the
      prefill tier (bytes and ms per handle), frees it, and its streams
      are held to the engine phase's; both tiers' device stores end
-     empty and neither process loads jax or ray_tpu;
+     empty and neither process loads jax or ray_tpu; then, on the same
+     two actors, a compiled DAG (``run_dag_pd``): the prefill tier's
+     stage returns prefill(device=True)'s payload, so only TensorRef
+     handles ride the DAG's shm rings, the decode tier's stage admits it
+     and returns the tokens; all 9 items executed before the first get,
+     with the same bytes, empty stores and streams, and the stages'
+     recv/compute seconds; then a two-actor DAG whose first stage
+     returns an 8 MiB bf16 CUDA tensor, which the next stage receives
+     staged to a CPU bf16 tensor, bitwise equal (MB/s);
      then the serve plane on a new init(): build_llm_deployment's app
      (Llama-3-8B at full width in one replica) answering run_engine's
      prompts as server-sent events through the HTTP proxy, through its
@@ -59,6 +67,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      same prompts, with the decode replica's handoff bytes; streams
      held to the engine phase's, and no serve process loads jax,
      ml_dtypes or ray_tpu (the controller and the proxy no torch);
+     then batch inference on a new init() (``run_data_llm``):
+     data.llm's build_llm_processor over 48 dataset rows (the 9 prompts
+     twice and 30 random ones) in 3 map batches through one engine actor
+     with Llama-3-8B at full width, K1 and K4 counted in its process,
+     rows in order, duplicates alike, streams held to the engine phase's,
+     the card's memory back after the actor's kill; rows/s and tok/s;
   6. the training kernels (K1 with lse, K2, K3) against their plain
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
      timed beside the plain versions, SDPA and their bounds (ms and
@@ -80,8 +94,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      steps in this process, its launches, checkpoint bytes, save and
      restore seconds and goodput anatomy printed, and no jax or ray_tpu
      in the worker;
-  10. one JSON line with every kernel's numbers;
-  11. the last line, {"ok": true, "device": {...}}.
+  10. ``iter_device_batches`` at the training shape (``run_device_batches``):
+     32 rows of 4096 tokens and targets in batches of 2 copied to the card
+     with prefetch 1, each bitwise its host rows, the 8-layer model's loss
+     on the first batch equal to its loss on the same tokens passed
+     directly; each batch summed on the consumer's stream as it is
+     yielded while every copy is held back, equal to the host's sums
+     (the consumer waits on the copy); host-to-device MB/s;
+  11. one JSON line with every kernel's numbers;
+  12. the last line, {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -1201,6 +1222,14 @@ class PrefillTier:
     def prefill(self, tokens):
         return self.engine.prefill(tokens, device=True)
 
+    def prefill_stage(self, tokens):
+        """run_dag_pd's first stage, in the pinned loop's executor thread
+        (the card made current there): the prompt and its
+        ``prefill(device=True)`` payload, whose k/v are TensorRefs."""
+        torch.cuda.set_device(0)
+        return {"tokens": tokens,
+                "prefilled": self.engine.prefill(tokens, device=True)}
+
 
 class DecodeTier:
     """The decode tier of the runtime PD phase, in its own worker
@@ -1246,6 +1275,27 @@ class DecodeTier:
         out = await self.engine.generate_prefilled(
             tokens, prefilled, max_new_tokens=new)
         return out, t_sub, time.monotonic()
+
+    async def bind_loop(self):
+        """Keeps the actor's event loop, where the engine's scheduler
+        runs, for ``decode_stage``; run_dag_pd calls it before
+        ``compile()``."""
+        self.loop = asyncio.get_running_loop()
+
+    def decode_stage(self, item, new: int):
+        """run_dag_pd's second stage. It runs synchronously in the pinned
+        loop's executor thread (the card made current there), while the
+        engine's scheduler lives on the actor's event loop (kept by
+        ``bind_loop``): the request is submitted to that loop and
+        waited for here. Returns its ``new`` tokens and, on this
+        process's clock, when the stage took and finished the item."""
+        torch.cuda.set_device(0)
+        t0 = time.monotonic()
+        out = asyncio.run_coroutine_threadsafe(
+            self.engine.generate_prefilled(
+                item["tokens"], item["prefilled"], max_new_tokens=new),
+            self.loop).result()
+        return {"tokens": out["tokens"], "t0": t0, "t1": time.monotonic()}
 
     def check(self, prompts, got, want, exact):
         """check_streams on this tier's copy of the model (the driver has
@@ -1327,6 +1377,7 @@ def run_runtime_pd(cfg, ref: dict, want_bytes: int, card: str) -> dict:
             prompts, got, ref["streams"],
             [i for i, p in enumerate(prompts) if len(p) <= 512]),
             timeout=300)
+        dag = run_dag_pd(pre, dec, ref, want_bytes, wall, card)
         for a in (pre, dec):
             ray_tpu_torch.kill(a)
     finally:
@@ -1338,7 +1389,174 @@ def run_runtime_pd(cfg, ref: dict, want_bytes: int, card: str) -> dict:
           f"position); both tier processes exited")
     return dict(prefill=k1, decode=k4, flips=flips, wall_s=wall,
                 fetch_ms=fetch_ms, fetched_bytes=fetched,
-                latency=latency(runs, wall))
+                latency=latency(runs, wall), dag=dag)
+
+
+def shm_size() -> tuple:
+    """(total, free) bytes of /dev/shm, where the DAG's rings live."""
+    import shutil
+    u = shutil.disk_usage("/dev/shm")
+    return u.total, u.free
+
+
+# The DAG's shm rings for run_dag_pd: an item's frame is the prompt, two
+# TensorRef handles and the prefill's f32 logits (128256 x 4 = 513 KB),
+# so 1 MiB slots; 4 slots a ring, 3 rings (driver -> prefill -> decode ->
+# driver): 12 MiB of /dev/shm.
+DAG_PD_SLOT_BYTES, DAG_PD_NSLOTS = 1 << 20, 4
+
+
+def run_dag_pd(pre, dec, ref: dict, want_bytes: int, rpd_wall: float,
+               card: str) -> dict:
+    """The compiled DAG over run_runtime_pd's two tier actors, after that
+    phase's own drive: ``compile(dec.decode_stage.bind(
+    pre.prefill_stage.bind(inp), new))``. The prefill stage returns
+    ``prefill(device=True)``'s payload, so only TensorRef handles (and the
+    prompt and logits) ride the shm rings; the decode stage admits it and
+    returns the request's tokens. All 9 ``execute`` calls go in before the
+    first ``get``. Checks: K1 launched in the prefill tier and K4 in the
+    decode tier during the drive; 18 handles fetched, 350,224,384 bytes
+    (run_pd's), and the engine's handoff bytes grew by as much; both
+    device stores empty after the drive; streams at run_pd's bar;
+    ``teardown()`` hands both actors back (their sync methods answer).
+    Prints the drive wall beside run_runtime_pd's, tok/s, the decode
+    stage's wall per item and ``CompiledDag.stage_stats``. Then
+    ``run_dag_staging``."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode, compile
+    prompts, new = ref["prompts"], ref["new"]
+    get = ray_tpu_torch.get
+    get([pre.reset_counts.remote(), dec.reset_counts.remote(),
+         dec.bind_loop.remote()], timeout=60)
+    hb0 = get(dec.counts.remote(), timeout=60)[5]["handoff_bytes"]
+    total, free = shm_size()
+    print(f"dag PD [{card}]: /dev/shm {total} bytes, {free} free; rings "
+          f"of {DAG_PD_NSLOTS} x {DAG_PD_SLOT_BYTES} bytes")
+    with InputNode() as inp:
+        out = dec.decode_stage.bind(pre.prefill_stage.bind(inp), new)
+    cd = compile(out, nslots=DAG_PD_NSLOTS, slot_bytes=DAG_PD_SLOT_BYTES)
+    try:
+        t0 = time.monotonic()
+        futs = [cd.execute(p) for p in prompts]
+        outs = [f.get(timeout=600) for f in futs]
+        wall = time.monotonic() - t0
+    finally:
+        cd.teardown()
+    # teardown hands the actors back: their sync methods answer again
+    k1, pre_store, _, _ = get(pre.counts.remote(), timeout=60)
+    k4, dec_store, _, _, fetches, stats = get(dec.counts.remote(),
+                                              timeout=60)
+    got = [o["tokens"] for o in outs]
+    per_item = [o["t1"] - o["t0"] for o in outs]
+    fetched = sum(b for b, _ in fetches)
+    stage = {st["method"]: {k: round(v, 4) for k, v in st["timing"].items()}
+             for st in cd.stage_stats or []}
+    processed = {st["method"]: st["processed"]
+                 for st in cd.stage_stats or []}
+    print(f"dag PD [{card}]: {len(prompts)} items through prefill_stage -> "
+          f"decode_stage, all executed before the first get: drive wall "
+          f"{wall:.2f} s (runtime PD's concurrent drive {rpd_wall:.2f} s), "
+          f"{len(prompts) * new / wall:.1f} generated tok/s; decode stage "
+          f"wall per item p50 {np.median(per_item) * 1e3:.1f} ms, max "
+          f"{max(per_item) * 1e3:.1f} ms; stage_stats (s) {stage}, items "
+          f"processed {processed}; prefill tier launches {k1}, decode tier "
+          f"launches {k4}; {len(fetches)} handles fetched, {fetched} bytes "
+          f"(expected {want_bytes}); handoff_bytes +"
+          f"{stats['handoff_bytes'] - hb0}; stores after the drive: prefill "
+          f"{pre_store}, decode {dec_store}")
+    if processed != {"prefill_stage": len(prompts),
+                     "decode_stage": len(prompts)}:
+        raise SystemExit(f"the DAG's stages processed {processed}")
+    if k1["flash_attention_fwd"] <= 0 or k4["paged_attention"] <= 0:
+        raise SystemExit(f"the DAG must launch K1 in the prefill tier and "
+                         f"K4 in the decode tier: {k1}, {k4}")
+    if len(fetches) != 2 * len(prompts) or fetched != want_bytes or \
+            stats["handoff_bytes"] - hb0 != want_bytes:
+        raise SystemExit("the DAG's handles did not carry the "
+                         "block-granular bf16 payload")
+    if pre_store["live_count"] or dec_store["live_count"]:
+        raise SystemExit("a tier's device store is not empty after the DAG")
+    for toks in got:
+        if len(toks) != new or not all(0 <= t < 128256 for t in toks):
+            raise SystemExit(f"bad generation: {toks}")
+    flips = get(dec.check.remote(
+        prompts, got, ref["streams"],
+        [i for i, p in enumerate(prompts) if len(p) <= 512]), timeout=300)
+    print(f"dag PD [{card}]: streams at run_pd's bar, {len(flips)} near-tie "
+          f"flips {[(f['stream'], f['position']) for f in flips]}")
+    staging = run_dag_staging(card)
+    return dict(prefill=k1, decode=k4, wall_s=wall, per_item_s=per_item,
+                stage_stats=stage, fetched_bytes=fetched, flips=flips,
+                staging=staging)
+
+
+class StageMake:
+    """run_dag_staging's first stage: an 8 MiB bf16 tensor on the card,
+    drawn from ``seed``, returned in a dict with an int."""
+
+    def make(self, seed):
+        torch.cuda.set_device(0)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn((2048, 2048), generator=g, device="cuda")
+        return {"x": x.to(torch.bfloat16), "n": seed}
+
+
+class StageTake:
+    """run_dag_staging's second stage: what arrived, and where."""
+
+    def take(self, d):
+        return {"x": d["x"], "n": d["n"], "device": d["x"].device.type}
+
+
+def run_dag_staging(card: str) -> dict:
+    """A two-actor DAG on the card: StageMake returns {"x": 8 MiB bf16
+    CUDA tensor, "n": int}; the DAG stages the CUDA leaf to a CPU tensor
+    before it enters the ring, and StageTake receives a CPU bf16 tensor,
+    bitwise equal to the one this process draws from the same seed (it
+    returns it through the sink ring). Slots are sized to fit /dev/shm:
+    2 slots of 8 MiB + 64 KiB on each of the 3 rings where they fit, else
+    1. One warm-up item, then 8 items executed at once; prints MB/s of the
+    tensor bytes through the two hops."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode, compile
+    slot = (8 << 20) + (64 << 10)
+    total, free = shm_size()
+    nslots = 2 if 3 * 2 * slot <= free else 1
+    a = ray_tpu_torch.remote(StageMake).remote()
+    b = ray_tpu_torch.remote(StageTake).remote()
+    with InputNode() as inp:
+        out = b.take.bind(a.make.bind(inp))
+    cd = compile(out, nslots=nslots, slot_bytes=slot)
+    try:
+        warm = cd.execute(100).get(timeout=300)
+        t0 = time.monotonic()
+        futs = [cd.execute(seed) for seed in range(8)]
+        outs = [f.get(timeout=300) for f in futs]
+        wall = time.monotonic() - t0
+    finally:
+        cd.teardown()
+    for h in (a, b):
+        ray_tpu_torch.kill(h)
+    moved = sum(o["x"].numel() * o["x"].element_size() for o in outs)
+    bad = []
+    for seed, o in zip(range(8), outs):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        want = torch.randn((2048, 2048), generator=g,
+                           device="cuda").to(torch.bfloat16).cpu()
+        if not (o["device"] == "cpu" and o["n"] == seed
+                and o["x"].dtype == torch.bfloat16
+                and torch.equal(o["x"].view(torch.int16),
+                                want.view(torch.int16))):
+            bad.append(seed)
+    mb_s = moved / wall / 1e6
+    print(f"dag staging [{card}]: /dev/shm {total} bytes, {free} free; "
+          f"{nslots} slots of {slot} bytes a ring; 8 items of an 8 MiB bf16 "
+          f"CUDA tensor through make -> take -> driver in {wall:.3f} s: "
+          f"{mb_s:.1f} MB/s of tensor bytes; arrived as CPU bf16, bitwise "
+          f"equal: {not bad}")
+    if bad or warm["device"] != "cpu":
+        raise SystemExit(f"staged tensors differ for seeds {bad}")
+    return dict(mb_s=mb_s, wall_s=wall, nslots=nslots, slot_bytes=slot)
 
 
 def engine_pool_blocks() -> int:
@@ -1484,6 +1702,20 @@ def stream_checks(label, prompts, got, want, new, vocab, pending) -> None:
         pending.append((label, got))
 
 
+def serve_llm_config():
+    """The LLMConfig of run_serve's replicas and run_data_llm's engine
+    actor: Llama-3-8B at full width, bf16, seed 0, the engine phase's
+    slots, max_len, buckets and pool at block 16."""
+    from ray_tpu_torch.serve.llm import LLMConfig
+    return LLMConfig(model="llama3_8b",
+                     model_overrides={"dtype": "bfloat16"},
+                     max_slots=SERVE_KW["max_slots"],
+                     max_len=SERVE_KW["max_len"],
+                     prefill_buckets=SERVE_KW["prefill_buckets"],
+                     cache_dtype="bfloat16", seed=0, kv_block_size=16,
+                     kv_pool_blocks=engine_pool_blocks())
+
+
 def run_serve(ref: dict, want_bytes: int, rpd: dict, card: str) -> dict:
     """Llama-3-8B at full width served through the port's serve plane on
     ``ray_tpu_torch.init(num_cpus=8)``. (a) ``build_llm_deployment``'s
@@ -1509,8 +1741,7 @@ def run_serve(ref: dict, want_bytes: int, rpd: dict, card: str) -> dict:
     import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.serve.llm import (LLMConfig, _LLMServer,
-                                         build_llm_deployment,
+    from ray_tpu_torch.serve.llm import (_LLMServer, build_llm_deployment,
                                          build_pd_llm_deployment,
                                          stream_generate)
 
@@ -1528,12 +1759,7 @@ def run_serve(ref: dict, want_bytes: int, rpd: dict, card: str) -> dict:
 
     prompts, new = ref["prompts"], ref["new"]
     vocab = llama.llama3_8b().vocab_size
-    cfg = LLMConfig(model="llama3_8b", model_overrides={"dtype": "bfloat16"},
-                    max_slots=SERVE_KW["max_slots"],
-                    max_len=SERVE_KW["max_len"],
-                    prefill_buckets=SERVE_KW["prefill_buckets"],
-                    cache_dtype="bfloat16", seed=0, kv_block_size=16,
-                    kv_pool_blocks=engine_pool_blocks())
+    cfg = serve_llm_config()
     app = build_llm_deployment(cfg)
     # the same deployment and options, the probes' subclass as its class
     app.deployment._target = ChipLLMServer
@@ -1724,6 +1950,120 @@ def run_serve(ref: dict, want_bytes: int, rpd: dict, card: str) -> dict:
         torch.cuda.empty_cache()
     return dict(launches=counts, proxy=proxy, engine_ttft_mean_ms=eng_ttft_ms,
                 pd=pd_lat, pd_bytes=pd_bytes, pending=len(pending))
+
+DATA_LLM_BATCH = 16     # rows per map batch: 48 rows make 3 batches
+
+
+def data_llm_rows(ref: dict) -> list:
+    """run_data_llm's 48 rows: run_engine's 9 prompts, then the same 9
+    again, then 30 random prompts of 16-700 tokens (numpy seed 3)."""
+    rng = np.random.default_rng(3)
+    vocab = 128256
+    extra = [rng.integers(0, vocab, int(n)).astype(np.int32)
+             for n in rng.integers(16, 701, 30)]
+    prompts = [np.array(p, np.int32) for p in ref["prompts"]] * 2 + extra
+    return [{"id": i, "tokens": p} for i, p in enumerate(prompts)]
+
+
+def run_data_llm(ref: dict, card: str) -> dict:
+    """Batch inference of Llama-3-8B at full width through the port's
+    datasets on a new ``init()``: ``build_llm_processor(serve_llm_config(),
+    max_new_tokens=32, concurrency=1, batch_size=16)`` over
+    ``data.from_items`` of ``data_llm_rows`` (3 map batches), then
+    ``take_all()``. The processor's engine actor is ``_EngineActor`` given
+    three probes (``reset_counts``, ``counts``, ``check``) and nothing else,
+    swapped in for the processor's build only. Checks: 48 rows in input
+    order, each with 32 in-vocab tokens; each duplicated prompt generates
+    alike; the 9 prompts' streams at run_pd's bar against run_engine's;
+    K1 and K4 launched in the engine actor's process, which loads no jax,
+    ml_dtypes or ray_tpu; after ``kill(proc.engines[0])`` the process
+    exits and the card's free memory comes back. Prints the wall of
+    ``take_all()``, rows/s and generated tok/s."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import llm as data_llm
+
+    class ChipEngineActor(data_llm._EngineActor):
+        """build_llm_processor's engine actor, with the phase's probes."""
+
+        def reset_counts(self):
+            reset_serving_counts()
+
+        def counts(self):
+            return serving_counts(), os.getpid(), foreign_modules()
+
+        def check(self, prompts, got, want, exact):
+            eng = self._server.engine
+            return check_streams(eng.params, eng.cfg, "data.llm vs unified",
+                                 prompts, got, want, exact=exact)
+
+    prompts, new = ref["prompts"], ref["new"]
+    rows = data_llm_rows(ref)
+    get = ray_tpu_torch.get
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        t0 = time.monotonic()
+        engine_cls = data_llm._EngineActor
+        data_llm._EngineActor = ChipEngineActor
+        try:
+            proc = data_llm.build_llm_processor(
+                serve_llm_config(), max_new_tokens=new, concurrency=1,
+                batch_size=DATA_LLM_BATCH)
+        finally:
+            data_llm._EngineActor = engine_cls
+        eng = proc.engines[0]
+        get(eng.reset_counts.remote(), timeout=900)   # its model is up
+        up_s = time.monotonic() - t0
+        ds = proc(data.from_items(rows))
+        t0 = time.monotonic()
+        out = ds.take_all()
+        wall = time.monotonic() - t0
+        counts, pid, mods = get(eng.counts.remote(), timeout=60)
+        got = [[int(t) for t in np.asarray(r["generated_tokens"])]
+               for r in out]
+        n9 = len(prompts)
+        print(f"data.llm [{card}]: engine actor (Llama-3-8B) up in "
+              f"{up_s:.1f} s; {len(rows)} rows in {len(rows) // DATA_LLM_BATCH}"
+              f" map batches of {DATA_LLM_BATCH}, {new} new tokens each: "
+              f"take_all() {wall:.2f} s, {len(out) / wall:.2f} rows/s, "
+              f"{sum(map(len, got)) / wall:.1f} generated tok/s; engine "
+              f"actor launches {counts}")
+        if [r["id"] for r in out] != [r["id"] for r in rows]:
+            raise SystemExit("data.llm rows are not in input order")
+        for toks in got:
+            if len(toks) != new or not all(0 <= t < 128256 for t in toks):
+                raise SystemExit(f"data.llm: bad generation: {toks}")
+        if got[:n9] != got[n9:2 * n9]:
+            raise SystemExit("data.llm: a duplicated prompt generated "
+                             "differently")
+        if min(counts["flash_attention_fwd"], counts["paged_attention"]) \
+                <= 0:
+            raise SystemExit(f"the engine actor launched no K1 or K4: "
+                             f"{counts}")
+        if mods:
+            raise SystemExit(f"the engine actor loaded {mods}")
+        exact = [i for i, p in enumerate(prompts) if len(p) <= 512]
+        flips = get(eng.check.remote(prompts, got[:n9], ref["streams"],
+                                     exact), timeout=300)
+        ray_tpu_torch.kill(eng)
+        wait_exited([pid], 120.0)
+        deadline = time.monotonic() + 60
+        while torch.cuda.mem_get_info()[0] < free0 - (1 << 30):
+            if time.monotonic() > deadline:
+                raise SystemExit(
+                    f"card memory not back after the engine actor's kill: "
+                    f"free {torch.cuda.mem_get_info()[0]} of {free0}")
+            time.sleep(0.5)
+    finally:
+        ray_tpu_torch.shutdown()
+    print(f"data.llm [{card}]: streams at run_pd's bar, {len(flips)} "
+          f"near-tie flips {[(f['stream'], f['position']) for f in flips]}; "
+          f"engine actor process {pid} exited, card free memory "
+          f"{torch.cuda.mem_get_info()[0]} bytes (before {free0})")
+    return dict(launches=counts, wall_s=wall, rows_s=len(out) / wall,
+                tok_s=sum(map(len, got)) / wall, up_s=up_s, flips=flips)
+
 
 def hook_timers(timers: dict):
     """Wrap the observability hooks the engine calls (the tracing and
@@ -2438,6 +2778,105 @@ def run_trainer(card: str) -> dict:
             "restore_s": hist_[-1]["restore_s"], "goodput": anatomy}
 
 
+COPY_SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's 1.98 GHz clock
+
+
+def check_consumer_waits(ds, batch_size: int) -> list:
+    """Consumes each batch of ``ds.iter_device_batches`` on the current
+    stream as it is yielded, before any synchronize, while the copy
+    stream is slowed: ``torch.cuda._sleep(COPY_SLEEP_CYCLES)`` is queued
+    ahead of every column's copy (through ``torch.from_numpy``, which the
+    iterator calls inside the copy stream's context). A consumer that did
+    not wait on the copy's event would sum memory the copy has not
+    written yet. Returns the indices of the batches whose int64 column
+    sums, taken on the card as each batch was yielded, differ from the
+    host's. The caller keeps its own batches alive, so no freed block
+    still holds the right rows."""
+    want = [[int(b[k].astype(np.int64).sum()) for k in sorted(b)]
+            for b in ds.iter_batches(batch_size=batch_size)]
+    real = torch.from_numpy
+
+    def slowed(a):
+        torch.cuda._sleep(COPY_SLEEP_CYCLES)
+        return real(a)
+
+    sums = []
+    torch.from_numpy = slowed
+    try:
+        for b in ds.iter_device_batches(batch_size=batch_size, prefetch=1):
+            sums.append(torch.stack([b[k].to(torch.int64).sum()
+                                     for k in sorted(b)]))
+    finally:
+        torch.from_numpy = real
+    torch.cuda.synchronize()
+    got = [s.tolist() for s in sums]
+    return [i for i in range(max(len(got), len(want)))
+            if i >= len(got) or i >= len(want) or got[i] != want[i]]
+
+
+def run_device_batches(card: str) -> dict:
+    """``iter_device_batches`` at the training shape: ``data.from_numpy``
+    of 32 rows of 4096 int32 tokens and their 4096 targets (one 32 x 4097
+    draw, numpy seed 4, shifted by one), ``batch_size=2``, ``prefetch=1``,
+    ``device=None`` (the card). Each batch must be on the card and bitwise
+    its host rows. The train phase's model (Llama-3-8B's widths at 8
+    layers, bf16, f32 logits, seed 0) gives ``loss_fn`` on the first
+    batch equal to its loss on the same tokens moved to the card
+    directly. ``check_consumer_waits`` then shows the consumer's stream
+    waiting on each copy. Prints the host-to-device MB/s over the whole
+    iteration (batching, pinning and copies; the consumer only checks)."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models import llama
+    cfg = llama.llama3_8b(n_layers=8, dtype="bfloat16",
+                          logits_dtype="float32", ce_chunk=0)
+    draw = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (32, 4097)).astype(np.int32)
+    host = {"tokens": draw[:, :-1], "targets": draw[:, 1:]}
+    ds = data.from_numpy(host)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = list(ds.iter_device_batches(batch_size=2, prefetch=1))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    moved = sum(t.numel() * t.element_size() for b in got
+                for t in b.values())
+    bad = [i for i, b in enumerate(got)
+           if set(b) != set(host) or any(
+               not (t.is_cuda and t.dtype == torch.int32
+                    and np.array_equal(t.cpu().numpy(),
+                                       host[k][2 * i:2 * i + 2]))
+               for k, t in b.items())]
+    raced = check_consumer_waits(ds, 2)
+    model = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    direct = {k: torch.from_numpy(np.ascontiguousarray(v[:2])).cuda()
+              for k, v in host.items()}
+    with torch.no_grad():
+        loss_it = llama.loss_fn(model, got[0], cfg).item()
+        loss_direct = llama.loss_fn(model, direct, cfg).item()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb_s = moved / wall / 1e6
+    print(f"iter_device_batches [{card}]: {len(got)} batches of 2 x 4096 "
+          f"tokens + targets (int32) on the card in {wall * 1e3:.1f} ms, "
+          f"{moved} bytes, {mb_s:.1f} MB/s host to device; bitwise equal "
+          f"to the host rows: {not bad}; loss_fn on batch 0 {loss_it!r}, "
+          f"on the same tokens passed directly {loss_direct!r}; each "
+          f"batch summed on the consumer's stream as it was yielded, the "
+          f"copy stream slowed by {COPY_SLEEP_CYCLES} cycles per column: "
+          f"batches whose sums differ from the host's {raced}")
+    if raced:
+        raise SystemExit(f"iter_device_batches: the consumer read batches "
+                         f"{raced} before their copies finished")
+    if len(got) != 16 or bad:
+        raise SystemExit(f"iter_device_batches: {len(got)} batches, bad "
+                         f"{bad}")
+    if loss_it != loss_direct or not np.isfinite(loss_it):
+        raise SystemExit("the loss over the iterator's batch differs")
+    return dict(mb_s=mb_s, wall_s=wall, loss=loss_it)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
@@ -2480,6 +2919,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rpd = run_runtime_pd(cfg, ref, pd["want_bytes"], card)
     served = run_serve(ref, pd["want_bytes"], rpd, card)
+    dllm = run_data_llm(ref, card)
 
     serve_k1 = {"serve": launches["flash_attention_fwd"],
                 "serve_monolithic": mono["launches"]["flash_attention_fwd"],
@@ -2489,7 +2929,9 @@ def main() -> int:
                     "flash_attention_fwd"],
                 "serve_hooks": hooks["launches"]["flash_attention_fwd"],
                 "serve_runtime_pd": rpd["prefill"]["flash_attention_fwd"],
-                "serve_app": served["launches"]["flash_attention_fwd"]}
+                "serve_app": served["launches"]["flash_attention_fwd"],
+                "data_llm": dllm["launches"]["flash_attention_fwd"],
+                "dag_pd": rpd["dag"]["prefill"]["flash_attention_fwd"]}
     serve_k4 = {"serve": launches["paged_attention"],
                 "serve_monolithic": mono["launches"]["paged_attention"],
                 "serve_spec": spec["launches"]["paged_attention"],
@@ -2497,7 +2939,9 @@ def main() -> int:
                 "serve_pd_handle": pd["handle"]["decode"]["paged_attention"],
                 "serve_hooks": hooks["launches"]["paged_attention"],
                 "serve_runtime_pd": rpd["decode"]["paged_attention"],
-                "serve_app": served["launches"]["paged_attention"]}
+                "serve_app": served["launches"]["paged_attention"],
+                "data_llm": dllm["launches"]["paged_attention"],
+                "dag_pd": rpd["dag"]["decode"]["paged_attention"]}
 
     tk = check_train_kernels(fa, gen)
     check_train_parity(fa, card)
@@ -2505,6 +2949,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trainer = run_trainer(card)
+    run_device_batches(card)
     train_k = {name: {f"train_{p}": train[p]["launches"][key]
                       for p in TRAIN_POLICIES}
                for name, key in (("K1", "flash_attention_fwd_lse"),

@@ -6,7 +6,9 @@ decoder, paged KV pool, ``LLMEngine`` with the prefill->decode handoff,
 the serve plane that puts engines behind a controller, replicas, a
 router and an HTTP proxy (``serve``, ``serve.llm``), ``make_train_step``
 and the train library that drives it (``TorchTrainer``, async
-checkpoints, the goodput ledger), with hand-written Hopper kernels in
+checkpoints, the goodput ledger), compiled actor DAGs over shared-memory
+rings (``dag``) and streaming datasets with batch LLM inference
+(``data``, ``data.llm``), with hand-written Hopper kernels in
 place of the Pallas TPU kernels on those paths. It imports torch and numpy, never jax
 and never ``ray_tpu``. Submodules load lazily; the runtime's processes
 import torch only when a task does.
@@ -24,8 +26,8 @@ _API = (
     "WorkerCrashedError", "ObjectLostError", "GetTimeoutError",
 )
 
-_SUBMODULES = ("api", "bridge", "config", "dag", "llm", "models", "ops",
-               "parallel", "runtime", "serve", "train", "util")
+_SUBMODULES = ("api", "bridge", "config", "dag", "data", "llm", "models",
+               "ops", "parallel", "runtime", "serve", "train", "util")
 
 
 def __getattr__(name):

@@ -554,11 +554,10 @@ class ActorMethod:
         return refs[0] if num_returns == 1 else refs
 
     def bind(self, *args):
-        """Add this actor method as a node in a (to-be-compiled) DAG
-        (reference: dag/class_node.py bind API)."""
-        raise NotImplementedError(
-            "bind(): the compiled DAG (dag/) is not ported to "
-            "ray_tpu_torch yet (ROADMAP Queue 1 item 8.5d)")
+        """Add this actor method as a node in a (to-be-compiled) DAG;
+        see ray_tpu_torch.dag (reference: dag/class_node.py bind API)."""
+        from ray_tpu_torch.dag import MethodNode
+        return MethodNode(self._handle, self._name, args)
 
 
 class ActorHandle:

@@ -6,7 +6,7 @@ the reference's ``RAY_CONFIG`` X-macro table (reference:
 src/ray/common/ray_config_def.h) — every tunable has a typed default and
 is overridable from the environment as ``RAY_TPU_<NAME>`` or from the
 ``system_config`` dict handed to :func:`ray_tpu_torch.init`. A field of
-the reference comes here with the port's code that reads it (the
+the reference comes here with the port's code that reads it (the ring
 collective, pipeline and forensics knobs have none yet), so no knob is
 accepted and then ignored; a ``system_config`` key that names no field
 lands in ``extra``.
@@ -61,6 +61,11 @@ class Config:
     object_spill_dir: str = ""              # "" = <session>/spill
     stream_backpressure_window: int = 64    # unconsumed items per stream
     stream_producer_inflight: int = 8       # unacked pushes per producer
+    # Collective plane: dag allreduce(impl="auto") with a payload hint
+    # picks the star reduce for payloads at or below this; above it the
+    # chunked ring, which the port does not have yet (ROADMAP Queue 1
+    # item 13), so such a group raises at compile().
+    allreduce_star_max_bytes: int = 4 * 1024 * 1024
 
     # --- rpc ---
     rpc_connect_timeout_s: float = 10.0
@@ -69,6 +74,15 @@ class Config:
     # Deterministic fault injection, reference: src/ray/rpc/rpc_chaos.h.
     # Format: "Method=max_failures:deadline_ms,Method2=..."
     testing_rpc_failure: str = ""
+    # Deterministic fault injection on the compiled-DAG channels (shm
+    # rings and TCP edges), the channel-layer sibling of
+    # testing_rpc_failure. Comma-separated rules
+    # "<op>:<action>:<nth>[:<param>]": op in {write, read}; action in
+    # {delay (sleep <param> s before the op), drop (writes: silently
+    # discard the frame; reads: raise ChannelTimeout), kill (SIGKILL
+    # this process)}; nth = 1-based index of the matching op counted
+    # process-wide. See dag/channel.py ChannelChaos.
+    testing_channel_failure: str = ""
 
     # --- paged KV cache (llm/kvcache.py) ---
     # Token-block size of the engine's paged KV cache. The serving

@@ -2,14 +2,22 @@
 
 The analog of the reference's SerializationContext + pickle5 out-of-band
 support (reference: python/ray/_private/serialization.py): values are
-pickled with protocol 5; large contiguous buffers (numpy arrays, jax host
-arrays, bytes) are split out so the object plane can place them in shared
-memory without a copy, and readers can map them back zero-copy.
+pickled with protocol 5; large contiguous buffers (numpy arrays, CPU
+torch tensors, bytes) are split out so the object plane can place them in
+shared memory without a copy, and readers can map them back zero-copy.
+A CPU tensor travels as its bytes, dtype and shape (``_reduce_tensor``),
+so bfloat16, which numpy lacks, crosses as itself. As under torch's own
+reduce with ``pickle``, one tensor object pickled twice arrives as one
+object, while distinct tensors that share a storage (views of one
+buffer) arrive as independent copies.
 """
 
 from __future__ import annotations
 
+import copyreg
+import io
 import pickle
+import sys
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional
 
@@ -83,6 +91,77 @@ class Serialized:
         return cls(inband, buffers)
 
 
+def _rebuild_tensor(buf, dtype: str, shape: tuple):
+    """A CPU tensor from ``buf`` (the frame's out-of-band buffer, or the
+    in-band bytes of a small one), viewed as ``dtype``. torch has no
+    read-only tensors, so a read-only buffer (a sealed object in the
+    node's shared memory, a stored ``bytes`` frame) is copied once: a
+    tensor over it would let an in-place op overwrite the object for
+    every later reader. A writable buffer (a ring slot read with
+    ``compile(zero_copy=True)``) is viewed without a copy."""
+    import torch
+    mv = memoryview(buf).cast("B")
+    if not mv.nbytes:
+        flat = torch.empty(0, dtype=torch.uint8)
+    else:
+        flat = torch.frombuffer(bytearray(mv) if mv.readonly else mv,
+                                dtype=torch.uint8)
+    return flat.view(getattr(torch, dtype)).reshape(shape)
+
+
+def _reduce_tensor(t):
+    """Pickle a plain CPU tensor as its bytes (a PickleBuffer, so a large
+    one rides out of band like a numpy array, with no copy into the
+    pickle stream) plus its dtype and shape; bf16 keeps its dtype. Any
+    other tensor (on a card, requiring grad, a subclass, sparse,
+    quantized, with a conj/neg bit) keeps torch's own reduce."""
+    import torch
+    if t.device.type != "cpu" or t.layout != torch.strided or \
+            t.requires_grad or t.is_quantized or t.is_conj() or \
+            t.is_neg():
+        return t.__reduce_ex__(pickle.HIGHEST_PROTOCOL)
+    flat = t.contiguous().reshape(-1).view(torch.uint8).numpy()
+    return (_rebuild_tensor,
+            (pickle.PickleBuffer(flat), str(t.dtype).split(".")[-1],
+             tuple(t.shape)))
+
+
+class _TensorDispatch:
+    """A pickler's dispatch table: copyreg's, with ``_reduce_tensor`` for
+    ``torch.Tensor`` (the exact type, so subclasses such as parameters
+    keep torch's reduce). Read per pickled type; nothing is copied."""
+
+    def __init__(self, tensor_t):
+        self.tensor_t = tensor_t
+
+    def __getitem__(self, cls):
+        if cls is self.tensor_t:
+            return _reduce_tensor
+        return copyreg.dispatch_table[cls]
+
+
+_DISPATCH: Optional[_TensorDispatch] = None
+
+
+def _pickle_dumps(value: Any, buffer_callback) -> bytes:
+    """``pickle.dumps(protocol 5)``; once this process has loaded torch,
+    through a pickler whose dispatch table sends plain CPU tensors out of
+    band (``_reduce_tensor``). The table is this pickler's own, so
+    torch.save and every other pickler keep torch's reduce."""
+    global _DISPATCH
+    if _DISPATCH is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return pickle.dumps(value, protocol=5,
+                                buffer_callback=buffer_callback)
+        _DISPATCH = _TensorDispatch(torch.Tensor)
+    f = io.BytesIO()
+    p = pickle.Pickler(f, protocol=5, buffer_callback=buffer_callback)
+    p.dispatch_table = _DISPATCH
+    p.dump(value)
+    return f.getvalue()
+
+
 def serialize(value: Any) -> Serialized:
     """C-pickler fast path with a cloudpickle fallback. Plain data
     (ints, strings, dicts, numpy arrays — the overwhelming majority of
@@ -104,8 +183,7 @@ def serialize(value: Any) -> Serialized:
         return False
 
     try:
-        inband = pickle.dumps(value, protocol=5,
-                              buffer_callback=buffer_callback)
+        inband = _pickle_dumps(value, buffer_callback)
         # b"_main__" covers both __main__ and __mp_main__ (the main
         # module's name in multiprocessing-spawned drivers; cloudpickle
         # by-values both)

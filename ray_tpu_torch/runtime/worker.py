@@ -572,12 +572,23 @@ class WorkerExecutor:
                     fn, args, kwargs, stream_id, owner_addr,
                     hosted.executor)
             args, kwargs = await self._resolve_args(args_frame)
-            if method in ("__dag_exec_loop__", "__pipe_exec_loop__"):
-                # the compiled-dag and pipeline-stage pinned loops
-                # (dag/runtime.py exec_loop, pipe_exec_loop)
+            if method == "__dag_exec_loop__":
+                # Compiled-dag pinned loop (see ray_tpu_torch/dag/
+                # runtime.py): a long-running sync loop over shm
+                # channels, dispatched specially so user classes need no
+                # dag-specific methods.
+                from functools import partial
+
+                from ray_tpu_torch.dag.runtime import exec_loop
+                fn = partial(exec_loop, hosted.instance)
+            elif method == "__pipe_exec_loop__":
+                # the pipeline-stage pinned loop (train/pipeline.py
+                # schedules run by dag/runtime.py pipe_exec_loop)
                 raise NotImplementedError(
-                    f"{method}: dag/runtime.py is not ported to "
-                    "ray_tpu_torch yet (ROADMAP Queue 1 item 8.5d)")
+                    "__pipe_exec_loop__: the pipeline-stage loop "
+                    "(dag/runtime.py pipe_exec_loop, train/pipeline.py) "
+                    "is not ported to ray_tpu_torch yet (ROADMAP Queue 1 "
+                    "item 13)")
             else:
                 fn = getattr(hosted.instance, method)
             if hosted.groups:

@@ -10,8 +10,8 @@ whose train_fns drive ``make_train_step`` on their cards) and its gloo
 wrapper that translated the jax.distributed env goes). The trainer wires
 scaling config, gang scheduling, distributed bootstrap, the
 report/checkpoint plane, and Data shards into the controller loop.
-``SklearnTrainer`` waits for the port's ``data/`` (ROADMAP.md, Queue 1
-item 8.5d).
+``SklearnTrainer`` fits an sklearn estimator on a ``data`` dataset in
+one worker, as the reference's does.
 """
 
 from __future__ import annotations
@@ -102,11 +102,99 @@ class TorchTrainer(BaseTrainer):
 
 
 class SklearnTrainer(BaseTrainer):
-    """Fits an sklearn estimator on a ``data`` dataset inside a train
-    worker (``ray_tpu/train/trainer.py``): waits for the port's
-    ``data/`` (ROADMAP.md, Queue 1 item 8.5d)."""
+    """Fit an sklearn estimator on a ray_tpu_torch.data dataset inside a
+    train worker, with cross-validation metrics reported through the
+    normal report plane and the fitted model persisted as the run's
+    checkpoint (reference: train/sklearn/sklearn_trainer.py — fit on
+    one remote worker, parallelize internally via joblib).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SklearnTrainer needs the port's data/ datasets, not ported "
-            "yet (ROADMAP.md, Queue 1 item 8.5d)")
+    Feature columns are taken in the DATASET's column order (minus the
+    label; recorded in metrics["feature_columns"]) — build prediction
+    inputs in that order. ``n_jobs`` > 1 fans cross-validation out
+    over the cluster through util/joblib_backend. On multi-node
+    clusters set ``run_config.storage_path`` (a shared mount or a
+    memory://-style URI) so the checkpoint is readable off-worker;
+    without it the model directory lives on the worker's node.
+
+        res = SklearnTrainer(
+            estimator=RandomForestClassifier(),
+            datasets={"train": ds}, label_column="y").fit()
+        model = pickle.load(open(os.path.join(
+            res.checkpoint.as_directory(), "model.pkl"), "rb"))
+    """
+
+    def __init__(self, *, estimator, label_column: str,
+                 datasets: Dict[str, Any],
+                 cv: int = 0,
+                 scoring: Optional[str] = None,
+                 n_jobs: Optional[int] = None,
+                 run_config: Optional[RunConfig] = None):
+        if "train" not in (datasets or {}):
+            raise ValueError("SklearnTrainer needs datasets={'train': ...}")
+        est, label, cv_, scoring_, n_jobs_ = (estimator, label_column,
+                                              cv, scoring, n_jobs)
+
+        def train_fn():
+            import contextlib
+            import os
+            import pickle
+            import tempfile
+
+            import numpy as np
+
+            from ray_tpu_torch import train as _train
+            from ray_tpu_torch.util.storage import is_remote
+            ctx = _train.get_context()
+            it = ctx.get_dataset_shard("train")
+            Xs, ys = [], []
+            cols = None
+            for b in it.iter_batches(batch_size=None):
+                ys.append(np.asarray(b[label]))
+                if cols is None:
+                    # dataset column order, NOT sorted: with 10+
+                    # columns a lexicographic sort would scramble
+                    # f0,f1,f10,f2... vs prediction-time inputs
+                    cols = [k for k in b if k != label]
+                Xs.append(np.column_stack(
+                    [np.asarray(b[c]) for c in cols]))
+            X, y = np.concatenate(Xs), np.concatenate(ys)
+            metrics: Dict[str, Any] = {"n_samples": int(len(X)),
+                                       "feature_columns": cols}
+            if cv_ and cv_ > 1:
+                from sklearn.model_selection import cross_val_score
+                if n_jobs_ is not None and n_jobs_ != 1:
+                    from joblib import parallel_backend
+
+                    from ray_tpu_torch.util.joblib_backend import \
+                        register_ray_tpu
+                    register_ray_tpu()
+                    backend = parallel_backend("ray_tpu_torch")
+                else:
+                    backend = contextlib.nullcontext()
+                with backend:
+                    scores = cross_val_score(est, X, y, cv=cv_,
+                                             scoring=scoring_,
+                                             n_jobs=n_jobs_)
+                metrics["cv_mean"] = float(scores.mean())
+                metrics["cv_std"] = float(scores.std())
+            est.fit(X, y)
+            metrics["train_score"] = float(est.score(X, y))
+            sp = ctx._storage_path
+            local_shared = sp and not is_remote(sp)
+            if local_shared:
+                os.makedirs(sp, exist_ok=True)
+            d = tempfile.mkdtemp(prefix="sk_ckpt_",
+                                 dir=sp if local_shared else None)
+            with open(os.path.join(d, "model.pkl"), "wb") as f:
+                pickle.dump(est, f)
+            _train.report(metrics,
+                          checkpoint=_train.Checkpoint.from_directory(d))
+            if sp and is_remote(sp):
+                # report() uploaded the dir and rewrote the checkpoint
+                # to its storage URI — the local staging copy is dead
+                import shutil
+                shutil.rmtree(d, ignore_errors=True)
+
+        super().__init__(train_fn,
+                         scaling_config=ScalingConfig(num_workers=1),
+                         run_config=run_config, datasets=datasets)

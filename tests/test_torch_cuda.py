@@ -1037,3 +1037,148 @@ def test_tiny_llm_app_on_card_matches_cpu(dev):
            for line in raw.splitlines()
            if line.startswith("data: ") and "token" in line]
     assert "event: done" in raw and sse == got[2]
+
+
+def test_dag_stages_cuda_bf16_leaves_to_host(dev):
+    """A compiled DAG between two actors on the card: the first stage
+    returns CUDA tensors (bf16 and f32, bare in a dict and inside a
+    list) and an int; the second receives CPU tensors of the same dtype
+    and shape, bit for bit the tensors this process draws from the same
+    seed."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode, compile
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        class Make:
+            def f(self, seed):
+                import torch
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                x = torch.randn((300, 129), generator=g, device="cuda")
+                return {"x": x.to(torch.bfloat16),
+                        "more": [torch.randn((77,), generator=g,
+                                             device="cuda")], "n": seed}
+
+        @ray_tpu_torch.remote
+        class Take:
+            def g(self, d):
+                return {"devs": [d["x"].device.type,
+                                 d["more"][0].device.type],
+                        "x": d["x"], "y": d["more"][0], "n": d["n"]}
+
+        a, b = Make.remote(), Take.remote()
+        with InputNode() as inp:
+            out = b.g.bind(a.f.bind(inp))
+        cd = compile(out)
+        try:
+            got = [cd.execute(s).get(timeout=300) for s in (5, 6)]
+        finally:
+            cd.teardown()
+    finally:
+        ray_tpu_torch.shutdown()
+    for seed, v in zip((5, 6), got):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((300, 129), generator=g, device=dev)
+        y = torch.randn((77,), generator=g, device=dev)
+        assert v["devs"] == ["cpu", "cpu"] and v["n"] == seed
+        assert v["x"].dtype == torch.bfloat16 and v["x"].shape == x.shape
+        assert torch.equal(v["x"].view(torch.int16),
+                           x.to(torch.bfloat16).cpu().view(torch.int16))
+        assert torch.equal(v["y"], y.cpu())
+
+
+def test_tensor_ref_over_dag_between_card_actors(dev):
+    """A stage that parks a CUDA tensor returns its TensorRef: only the
+    handle rides the shm ring; the next stage, another process on the
+    card, resolves it onto its card (one fetch, bf16 bit for bit) and
+    frees it, so the producer's store ends empty."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode, compile
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        class Park:
+            def f(self, seed):
+                import torch
+
+                from ray_tpu_torch.runtime.device_store import put_device
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                return put_device(torch.randn(
+                    (4, 1024), generator=g,
+                    device="cuda").to(torch.bfloat16))
+
+            def live(self):
+                from ray_tpu_torch.runtime.device_store import _store
+                return _store().live_count()
+
+        @ray_tpu_torch.remote
+        class Use:
+            def g(self, ref):
+                t = ref.resolve()
+                ref.free()
+                return t.device.type, t.cpu()
+
+        a, b = Park.remote(), Use.remote()
+        with InputNode() as inp:
+            out = b.g.bind(a.f.bind(inp))
+        cd = compile(out)
+        try:
+            got = [cd.execute(s).get(timeout=300) for s in (1, 2)]
+        finally:
+            cd.teardown()
+        live = ray_tpu_torch.get(a.live.remote(), timeout=60)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert live == 0
+    for seed, (where, t) in zip((1, 2), got):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        want = torch.randn((4, 1024), generator=g,
+                           device=dev).to(torch.bfloat16).cpu()
+        assert where == "cuda"
+        assert torch.equal(t.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("prefetch", [0, 1, 2])
+def test_iter_device_batches_on_card(dev, prefetch):
+    """``iter_device_batches`` (device=None: the card) yields CUDA
+    tensors bit for bit the host batches of ``iter_batches``, with the
+    copies of up to ``prefetch`` later batches in flight."""
+    from ray_tpu_torch import data
+    toks = np.random.default_rng(0).integers(
+        0, 128256, (12, 4096)).astype(np.int32)
+    ds = data.from_numpy(toks)
+    host = list(ds.iter_batches(batch_size=2, drop_last=True))
+    got = list(ds.iter_device_batches(batch_size=2, prefetch=prefetch))
+    assert len(got) == len(host) == 6
+    for g, h in zip(got, host):
+        assert set(g) == set(h)
+        for k in g:
+            assert g[k].device.type == "cuda" and g[k].dtype == torch.int32
+            assert np.array_equal(g[k].cpu().numpy(), h[k])
+
+
+def test_iter_device_batches_consumer_waits_for_copy(dev, monkeypatch):
+    """Each batch is summed on the consumer's stream as soon as it is
+    yielded, before any synchronize, while ``torch.cuda._sleep`` queued
+    ahead of every column's copy (``torch.from_numpy`` runs in the copy
+    stream's context) holds the copies back: the sums equal the host's
+    only if the consumer's stream waits on each copy's event."""
+    from ray_tpu_torch import data
+    toks = np.random.default_rng(1).integers(
+        0, 128256, (16, 4096)).astype(np.int32)
+    ds = data.from_numpy(toks)
+    want = [int(b["data"].astype(np.int64).sum())
+            for b in ds.iter_batches(batch_size=2)]
+    keep = list(ds.iter_device_batches(batch_size=2))  # no stale right rows
+    real = torch.from_numpy
+
+    def slowed(a):
+        torch.cuda._sleep(20_000_000)
+        return real(a)
+
+    monkeypatch.setattr(torch, "from_numpy", slowed)
+    sums = [b["data"].to(torch.int64).sum()
+            for b in ds.iter_device_batches(batch_size=2, prefetch=1)]
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert [int(s) for s in sums] == want and len(keep) == len(want)

@@ -60,6 +60,13 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.util.health", "ray_tpu_torch.util.state",
                 "ray_tpu_torch.util.timeseries", "ray_tpu_torch.util.tpu",
                 "ray_tpu_torch.dag", "ray_tpu_torch.dag.ring",
+                "ray_tpu_torch.dag.channel", "ray_tpu_torch.dag.runtime",
+                "ray_tpu_torch._native", "ray_tpu_torch.data",
+                "ray_tpu_torch.data.block", "ray_tpu_torch.data.dataset",
+                "ray_tpu_torch.data.datasource",
+                "ray_tpu_torch.data.iterator", "ray_tpu_torch.data.llm",
+                "ray_tpu_torch.data.shuffle", "ray_tpu_torch.data.tfrecord",
+                "ray_tpu_torch.util.joblib_backend",
                 "ray_tpu_torch.train", "ray_tpu_torch.train.api",
                 "ray_tpu_torch.train.checkpoint",
                 "ray_tpu_torch.train.ckptio",
@@ -126,6 +133,70 @@ def test_runtime_leaves_jax_and_ray_tpu_out():
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[[], [], []]"
+
+
+def test_dag_and_data_import_leave_jax_torch_and_pandas_out():
+    """Importing the compiled DAG and the datasets (``data.llm``
+    included) loads neither jax, ml_dtypes nor any ray_tpu module, and
+    no torch, pandas or pyarrow either: a map task or a DAG stage loads
+    them only if its own function does."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.dag, ray_tpu_torch.dag.runtime\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.llm\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu', 'torch',\n"
+        "              'pandas', 'pyarrow')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_dag_and_map_batches_workers_leave_jax_and_ray_tpu_out():
+    """In a fresh cluster, a compiled DAG of two stages that stage a
+    torch tensor between them, and a dataset ``map_batches`` fanned out
+    to tasks: no worker (and not the driver) loads jax, ml_dtypes or any
+    ray_tpu module."""
+    code = (
+        "import numpy as np\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import data\n"
+        "from ray_tpu_torch.dag import InputNode, compile\n"
+        "def bad():\n"
+        "    import sys\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                  ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu'))\n"
+        "rt.init(num_cpus=4)\n"
+        "@rt.remote\n"
+        "class A:\n"
+        "    def f(self, x):\n"
+        "        import torch\n"
+        "        return {'t': torch.ones(3, dtype=torch.bfloat16) * x,\n"
+        "                'bad': bad()}\n"
+        "@rt.remote\n"
+        "class B:\n"
+        "    def g(self, d):\n"
+        "        return [d['bad'], bad(), float(d['t'].float().sum())]\n"
+        "a, b = A.remote(), B.remote()\n"
+        "with InputNode() as inp:\n"
+        "    out = b.g.bind(a.f.bind(inp))\n"
+        "cd = compile(out)\n"
+        "got = cd.execute(2).get(timeout=120)\n"
+        "cd.teardown()\n"
+        "assert got[2] == 6.0, got\n"
+        "def mark(b):\n"
+        "    return {'id': b['id'], 'bad': np.array([','.join(bad())]\n"
+        "                                          * len(b['id']))}\n"
+        "rows = data.range(40).map_batches(mark, batch_size=10,\n"
+        "                                  concurrency=2).take_all()\n"
+        "rt.shutdown()\n"
+        "marks = sorted({str(r['bad']) for r in rows})\n"
+        "print([bad(), got[0], got[1], marks])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[[], [], [], ['']]"
 
 
 def test_train_worker_leaves_jax_and_ray_tpu_out():

@@ -17,9 +17,7 @@ Left out, each for the ROADMAP.md Queue 1 item it waits for:
   test_allreduce_gradients_single_worker_is_identity: item 13 (the
   controller-wired gradient ring, ``allreduce_gradients``);
 - test_collectives_barrier_broadcast: item 13 (``train/collective.py``
-  and its rendezvous actor);
-- test_sklearn_trainer_fits_and_checkpoints: item 8.5d (``data/``,
-  which ``SklearnTrainer`` reads).
+  and its rendezvous actor).
 """
 
 from _torch_ported import adopt, ported
@@ -35,8 +33,6 @@ SKIP = {
         "Queue 1 item 13: allreduce_gradients",
     "test_collectives_barrier_broadcast":
         "Queue 1 item 13: train/collective.py's rendezvous",
-    "test_sklearn_trainer_fits_and_checkpoints":
-        "Queue 1 item 8.5d: data/",
 }
 
 adopt(ported("test_train", rename=RENAME), globals(), skip=SKIP)

@@ -18,7 +18,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   4. LLMEngine serving Llama-3-8B at full width (32 layers, random bf16
      weights from a fixed seed): concurrent greedy requests, a chunked
      long prompt and a prefix hit, with the kernels' launch counts over
-     that phase; then the same requests through the monolithic cache
+     that phase; then the same requests tensor-parallel (``run_tp``): the
+     model split into 2 shards, both on the one card, two prompts
+     admitted through prefilled=, streams held to the same engine's at
+     tp 1, K1 and K4 launched exactly twice as often, TTFT and TPOT of
+     both, a tp-2 decode block traced and K4 at one shard's shape (4 kv
+     heads) against its plain version; then the same requests through
+     the monolithic cache
      (no K4 launch), speculative decoding (verify forwards, drafted
      tokens, paged_attention_verify against K4 per row) alternating with
      the same engine without it, with host seconds per engine stage,
@@ -276,11 +282,14 @@ def tflops(work: dict, ms: float) -> float:
     return work["flops"] / ms / 1e9
 
 
-def check_flash(fa, gen) -> dict:
+def check_flash(fa, gen, h: int = 32, kvh: int = 8,
+                label: str = "") -> dict:
     """K1 on the slice's shapes: prefill buckets (64, a ragged 100, 512)
     and chunked prefill (512 queries against the 1536-long accumulator
-    at q_offset 512); Llama-3-8B heads: 32 query, 8 kv, head_dim 128."""
-    h, kvh, d = 32, 8, 128
+    at q_offset 512); Llama-3-8B heads by default: 32 query, 8 kv,
+    head_dim 128. ``h``/``kvh`` set one tensor shard's heads (run_tp),
+    ``label`` tags the printed lines."""
+    d = 128
     cases = [(64, 64, None), (100, 100, None), (512, 512, None),
              (512, 1536, 512)]
     worst = worst_rel = 0.0
@@ -307,13 +316,13 @@ def check_flash(fa, gen) -> dict:
                    / torch.linalg.vector_norm(want.float(), dim=-1)
                    .clamp_min(1e-30)).max().item()
         ok = row_rel <= K1_ROW_REL_TOL
-        print(f"K1 flash sq={sq} sk={sk} q_offset={off}: worst row "
+        print(f"K1 flash{label} sq={sq} sk={sk} q_offset={off}: worst row "
               f"relative error {row_rel:.3e} (tol {K1_ROW_REL_TOL}), "
               f"max_abs_err {err:.3e}, output rms "
               f"{want.float().pow(2).mean().sqrt().item():.3e} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit("K1 disagrees with its plain version")
+            raise SystemExit(f"K1{label} disagrees with its plain version")
         worst_rel = max(worst_rel, row_rel)
         worst = max(worst, err)
         if (sq, sk) == (512, 512):
@@ -332,16 +341,16 @@ def check_flash(fa, gen) -> dict:
             timed = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
                          library_ms=time_ms(library), bound_ms=b,
                          bound_by=by)
-            print(f"K1 flash s=512: kernel {timed['ms']:.4f} ms "
+            print(f"K1 flash{label} s=512: kernel {timed['ms']:.4f} ms "
                   f"({tflops(w, timed['ms']):.1f} TF/s), plain "
                   f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f}"
                   f" ms ({tflops(w, timed['library_ms']):.1f} TF/s), bound "
                   f"{b:.4f} ms ({by})")
         if off is not None:
             b, by = bound_ms(fa.work(1, sq, sk, h, kvh, d, 2, q_offset=off))
-            print(f"K1 flash chunk sq={sq} sk={sk} q_offset={off}: kernel "
-                  f"{time_ms(kernel):.4f} ms, plain {time_ms(plain):.4f} ms,"
-                  f" bound {b:.4f} ms ({by})")
+            print(f"K1 flash{label} chunk sq={sq} sk={sk} q_offset={off}: "
+                  f"kernel {time_ms(kernel):.4f} ms, plain "
+                  f"{time_ms(plain):.4f} ms, bound {b:.4f} ms ({by})")
     return dict(max_abs_err=worst, max_row_rel_err=worst_rel, **timed)
 
 
@@ -778,6 +787,137 @@ def run_engine(card: str):
                hit_tokens=hit[0]["prefix_hit_tokens"], obs=obs,
                latency=latency(first, wall))
     return launches, model, cfg, ref
+
+
+TP = 2      # run_tp's tensor-parallel size, both shards on card 0
+
+
+def check_paged_shard(pa, gen) -> dict:
+    """K4 at one tensor shard's shape under tp 2: 8 slots, 4 kv heads
+    (Llama-3-8B's 8 over 2 shards), group 4, head_dim 128, block 16,
+    table width 64, bf16 pool, the engine lengths of ``check_paged``
+    (3044 live tokens) over a seeded permutation of the pool: kernel
+    against its plain version, timed beside it, with its byte bound."""
+    slots, kvh, g, hd, bs, w = 8, 8 // TP, 4, 128, 16, 64
+    nb = 1 + slots * w
+    q = torch.randn((slots, kvh, g, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp, vp = (torch.randn((nb, bs, kvh, hd), generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    tables = (1 + torch.randperm(slots * w, generator=gen, device="cuda")
+              ).to(torch.int32).reshape(slots, w)
+    ls = [1, 1024, 17, 300, 511, 64, 999, 128]
+    lengths = torch.tensor(ls, dtype=torch.int32, device="cuda")
+
+    def kernel():
+        return pa.paged_attention(q, kp, vp, tables, lengths)
+
+    def plain():
+        return pa.paged_attention_reference(q, kp, vp, tables, lengths)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    e = (got - want).abs().max().item()
+    if not torch.allclose(got, want, **K4_TOL):
+        raise SystemExit(f"K4 at the tp shard shape disagrees with its "
+                         f"plain version: max_abs_err {e:.3e}")
+    b, by = bound_ms(pa.work(ls, kvh, g, hd, 2, 2))
+    out = dict(at=f"8 slots, {kvh} kv heads, g {g}, hd {hd}, bs {bs}, "
+                  f"bf16 pool, {sum(ls)} live tokens",
+               max_abs_err=e, ms=time_ms(kernel), plain_ms=time_ms(plain),
+               bound_ms=b, bound_by=by, library_ms=None)
+    print(f"K4 paged at the tp-{TP} shard shape ({out['at']}): "
+          f"max_abs_err {e:.3e} (tol atol {K4_TOL['atol']}) ok; kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+          f"{b:.4f} ms ({by})")
+    return out
+
+
+def run_tp(model, cfg, ref: dict, fa, pa, gen, card: str) -> dict:
+    """Tensor-parallel serving on the one card: run_engine's Llama-3-8B
+    split into TP shards (``shard_params_for_serving`` over
+    ``TensorMesh(("cuda:0",) * TP)``), the same 9 concurrent prompts (the
+    700-token one chunked) and the prefix-hit repeat through the paged
+    engine, two of the prompts admitted through ``prefilled=`` payloads
+    of a PrefillEngine; then the same requests at tp 1. Streams at tp 2
+    held to tp 1's (near-tie rule); K1 and K4 launched exactly TP times
+    as often as at tp 1; TTFT and TPOT p50 of both; one tp-2 decode
+    block traced (device busy, idle share); K1 (check_flash's cases) and
+    K4 at the shard's heads against their plain versions."""
+    from ray_tpu_torch.llm import kvcache, model as lm
+    from ray_tpu_torch.llm.pd import PrefillEngine
+    from ray_tpu_torch.parallel.tp import TensorMesh
+    mesh = TensorMesh(("cuda:0",) * TP)
+    t0 = time.monotonic()
+    sharded = lm.shard_params_for_serving(model, mesh, cfg)
+    torch.cuda.synchronize()
+    shard_gb = sum(p.nbytes for p in sharded.shards[0].parameters()) / 1e9
+    print(f"tp {TP}: {len(sharded.shards)} shards of {shard_gb:.2f} GB on "
+          f"{[str(d) for d in mesh.devices]} in "
+          f"{time.monotonic() - t0:.1f} s")
+    prompts, new = ref["prompts"], ref["new"]
+    pre = PrefillEngine(cfg, model, max_len=SERVE_KW["max_len"],
+                        prefill_buckets=SERVE_KW["prefill_buckets"])
+    shipped = (1, 2)
+    runs = {}
+    for tp, params, kw in ((TP, sharded, dict(mesh=mesh)), (1, model, {})):
+        payloads = [pre.prefill(p) if i in shipped else None
+                    for i, p in enumerate(prompts)]
+        reset_serving_counts()
+        first, wall, (hit,), stats = serve(params, cfg, prompts, new,
+                                           then=[ref["repeat"]],
+                                           payloads=payloads, **kw)
+        runs[tp] = dict(first=first, wall=wall, hit=hit, stats=stats,
+                        launches=serving_counts(),
+                        latency=latency(first, wall))
+        print(f"tp {tp} engine [{card}]: {latency_line(first, wall)}; "
+              f"launches {runs[tp]['launches']}; prefix hit "
+              f"{hit[0]['prefix_hit_tokens']} tokens; handoff_bytes "
+              f"{stats['handoff_bytes']}")
+    a, b = runs[TP], runs[1]
+    if a["stats"]["tensor_parallel"] != TP or a["hit"][0][
+            "prefix_hit_tokens"] != b["hit"][0]["prefix_hit_tokens"] or \
+            a["hit"][0]["prefix_hit_tokens"] <= 0:
+        raise SystemExit(f"tp {TP} engine: stats {a['stats']}, prefix hit "
+                         f"{a['hit'][0]['prefix_hit_tokens']}")
+    for key in ("flash_attention_fwd", "paged_attention"):
+        n1 = b["launches"][key]
+        if n1 <= 0 or n1 % cfg.n_layers or \
+                a["launches"][key] != TP * n1:
+            raise SystemExit(f"{key}: {a['launches'][key]} launches at tp "
+                             f"{TP}, {n1} at tp 1 ({cfg.n_layers} layers)")
+    print(f"tp {TP} launches [{card}]: K1 {a['launches']['flash_attention_fwd']}"
+          f" = {TP} x {b['launches']['flash_attention_fwd']}, K4 "
+          f"{a['launches']['paged_attention']} = {TP} x "
+          f"{b['launches']['paged_attention']} ({cfg.n_layers} layers)")
+    flips = check_streams(
+        model, cfg, f"tp {TP} vs tp 1", prompts + [ref["repeat"]],
+        [o["tokens"] for o, _, _ in a["first"] + [a["hit"]]],
+        [o["tokens"] for o, _, _ in b["first"] + [b["hit"]]])
+    slots, w, bs, n = 8, 64, 16, 8
+    pool = kvcache.init_pool(cfg, 1 + slots * w, bs, torch.bfloat16,
+                             "cuda", mesh)
+    tables = (1 + torch.arange(slots * w, dtype=torch.int32,
+                               device="cuda")).reshape(slots, w)
+    lengths = torch.full((slots,), 512, dtype=torch.int32, device="cuda")
+    tokens = torch.zeros((slots,), dtype=torch.int32, device="cuda")
+
+    def decode_block():
+        out, _ = kvcache.paged_decode_steps(
+            sharded, pool, tables, lengths, tokens, None, None, cfg, n,
+            impl="paged_flash")
+        return out.cpu()
+
+    step = trace_step(f"tp {TP} decode step (8 slots x 512 tokens)",
+                      decode_block, n, card)
+    shard_k1 = check_flash(fa, gen, 32 // TP, 8 // TP,
+                           f" at the tp-{TP} shard heads")
+    shard_k4 = check_paged_shard(pa, gen)
+    del sharded, pool
+    return dict(launches=a["launches"], launches_tp1=b["launches"],
+                latency={str(TP): a["latency"], "1": b["latency"]},
+                step=step, flips=flips, k1_shard=shard_k1,
+                k4_shard=shard_k4)
 
 
 def trace_step(name: str, fn, per: int, card: str) -> dict:
@@ -2824,7 +2964,10 @@ def run_device_batches(card: str) -> dict:
     batch equal to its loss on the same tokens moved to the card
     directly. ``check_consumer_waits`` then shows the consumer's stream
     waiting on each copy. Prints the host-to-device MB/s over the whole
-    iteration (batching, pinning and copies; the consumer only checks)."""
+    iteration (batching, pinning and copies; the consumer only checks),
+    for the process's first iteration (cold: it pays the first pinned
+    allocations and varies widely from run to run) and for a second one
+    over the same dataset (warm)."""
     from ray_tpu_torch import data
     from ray_tpu_torch.models import llama
     cfg = llama.llama3_8b(n_layers=8, dtype="bfloat16",
@@ -2838,6 +2981,11 @@ def run_device_batches(card: str) -> dict:
     got = list(ds.iter_device_batches(batch_size=2, prefetch=1))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    t0 = time.monotonic()
+    again = list(ds.iter_device_batches(batch_size=2, prefetch=1))
+    torch.cuda.synchronize()
+    warm = time.monotonic() - t0
+    del again
     moved = sum(t.numel() * t.element_size() for b in got
                 for t in b.values())
     bad = [i for i, b in enumerate(got)
@@ -2857,10 +3005,11 @@ def run_device_batches(card: str) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    mb_s = moved / wall / 1e6
+    mb_s, warm_mb_s = moved / wall / 1e6, moved / warm / 1e6
     print(f"iter_device_batches [{card}]: {len(got)} batches of 2 x 4096 "
           f"tokens + targets (int32) on the card in {wall * 1e3:.1f} ms, "
-          f"{moved} bytes, {mb_s:.1f} MB/s host to device; bitwise equal "
+          f"{moved} bytes, {mb_s:.1f} MB/s host to device (a second pass, "
+          f"warm: {warm * 1e3:.1f} ms, {warm_mb_s:.1f} MB/s); bitwise equal "
           f"to the host rows: {not bad}; loss_fn on batch 0 {loss_it!r}, "
           f"on the same tokens passed directly {loss_direct!r}; each "
           f"batch summed on the consumer's stream as it was yielded, the "
@@ -2874,7 +3023,8 @@ def run_device_batches(card: str) -> dict:
                          f"{bad}")
     if loss_it != loss_direct or not np.isfinite(loss_it):
         raise SystemExit("the loss over the iterator's batch differs")
-    return dict(mb_s=mb_s, wall_s=wall, loss=loss_it)
+    return dict(mb_s=mb_s, wall_s=wall, warm_mb_s=warm_mb_s,
+                warm_wall_s=warm, loss=loss_it)
 
 
 def main() -> int:
@@ -2909,6 +3059,9 @@ def main() -> int:
     k1 = check_flash(fa, gen)
     k4 = check_paged(pa, gen)
     launches, model, cfg, ref = run_engine(card)
+    tp = run_tp(model, cfg, ref, fa, pa, gen, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     mono = run_monolithic(model, cfg, ref, card)
     spec = run_spec(model, cfg, pa, gen, card)
     pd = run_pd(model, cfg, ref, card)
@@ -2922,6 +3075,7 @@ def main() -> int:
     dllm = run_data_llm(ref, card)
 
     serve_k1 = {"serve": launches["flash_attention_fwd"],
+                "serve_tp": tp["launches"]["flash_attention_fwd"],
                 "serve_monolithic": mono["launches"]["flash_attention_fwd"],
                 "serve_spec": spec["launches"]["flash_attention_fwd"],
                 "serve_pd": pd["prefill"]["flash_attention_fwd"],
@@ -2933,6 +3087,7 @@ def main() -> int:
                 "data_llm": dllm["launches"]["flash_attention_fwd"],
                 "dag_pd": rpd["dag"]["prefill"]["flash_attention_fwd"]}
     serve_k4 = {"serve": launches["paged_attention"],
+                "serve_tp": tp["launches"]["paged_attention"],
                 "serve_monolithic": mono["launches"]["paged_attention"],
                 "serve_spec": spec["launches"]["paged_attention"],
                 "serve_pd": pd["decode"]["paged_attention"],
@@ -2973,7 +3128,10 @@ def main() -> int:
              tolerance={"row_rel_l2": K1_ROW_REL_TOL,
                         "lse_abs": LSE_ABS_TOL},
              card=card, train_per_launch_ms=full_ms.get("K1"),
-             serving=dict(at="s=512 causal, no lse", **k1), **tk["fwd"]),
+             serving=dict(at="s=512 causal, no lse", **k1),
+             serving_tp_shard=dict(
+                 at=f"s=512 causal, no lse, {32 // TP} q / {8 // TP} kv "
+                    "heads", **tp["k1_shard"]), **tk["fwd"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              tensor_cores=sass["flash_attention_bwd_dkv"],
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3002,7 +3160,8 @@ def main() -> int:
              at="8 slots, 8 kv heads, g 4, hd 128, bs 16, bf16 pool, "
                 "3044 live tokens",
              library_note="no single PyTorch call computes paged decode",
-             tolerance=K4_TOL, card=card, **k4),
+             tolerance=K4_TOL, card=card, serving_tp_shard=tp["k4_shard"],
+             **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,16 @@ A ``prefilled`` payload's k/v may be host arrays or device-resident
 ``TensorRef`` handles (``PrefillEngine.prefill(device=True)``): a handle
 resolves onto the engine's device (the parked tensor itself in the same
 process, one fetch from another) and is freed once the cache holds its
-KV, or when its request fails. Not ported in this slice, and rejected with an error rather than
-ignored: tensor-parallel meshes (``mesh=``).
+KV, or when its request fails.
+
+``mesh=`` (a ``parallel.tp.TensorMesh``) serves tensor-parallel, as the
+JAX engine does over a ``("tensor",)`` mesh: the weights are split
+Megatron-style (``model.shard_params_for_serving``), the pool or the
+slot cache on its kv-head dim, and every forward runs each shard on its
+own heads, K1 and K4 included, with the two reductions of each layer and
+the logits gather done by the mesh. One process drives every shard; the
+pool is sized once for all of them, and a shipped payload's full-head KV
+is split onto the shards at admission.
 """
 
 from __future__ import annotations
@@ -196,15 +204,34 @@ class LLMEngine:
         ``paged_attn_impl``, ``spec_decode``), and the drafter takes its
         draft length, n-gram size and accept window from
         ``spec_draft_tokens``, ``spec_ngram_max`` and
-        ``spec_backoff_window``."""
+        ``spec_backoff_window``.
+
+        With ``mesh`` (a ``TensorMesh``), ``params`` is the whole model on
+        any device (or already a ``ShardedLlama`` over this mesh); the
+        engine splits it over the mesh and runs on the mesh's devices, the
+        first of which is ``device`` (left None, it is taken from the
+        mesh). The pool is sized here from the cards' free memory, so
+        whole weights the caller still holds count against it:
+        ``serve.llm`` shards and drops them before building the engine."""
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet: "
-                "ROADMAP Queue 1 item 11")
-        self.device = resolve_device(device)
-        if params.device != self.device:
-            raise ValueError(f"params live on {params.device}, the engine "
-                             f"on {self.device}: move them first")
+            from ray_tpu_torch.parallel.tp import TensorMesh
+            if not isinstance(mesh, TensorMesh):
+                raise TypeError(
+                    "mesh= takes a parallel.tp.TensorMesh (tensor-parallel "
+                    f"serving), got {type(mesh).__name__}")
+            self.device = mesh.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device={device} is not the mesh's first "
+                                 f"device {self.device}")
+            if not (isinstance(params, lm.ShardedLlama)
+                    and params.mesh is mesh):
+                params = lm.shard_params_for_serving(params, mesh, cfg)
+        else:
+            self.device = resolve_device(device)
+            if params.device != self.device:
+                raise ValueError(f"params live on {params.device}, the "
+                                 f"engine on {self.device}: move them first")
+        self.mesh = mesh
         self.cfg = cfg
         self.params = params
         self.max_slots = max_slots
@@ -248,12 +275,14 @@ class LLMEngine:
             itemsize = torch.empty((), dtype=cdt).element_size()
             per_tok = (cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
                        * itemsize)
-            nb = kvcache.auto_pool_blocks(max_slots, self._table_w,
-                                          per_tok * self._block,
-                                          kv_pool_blocks, self.device)
+            # sized once, for every shard, before any is allocated
+            nb = kvcache.auto_pool_blocks(
+                max_slots, self._table_w, per_tok * self._block,
+                kv_pool_blocks,
+                self.device if mesh is None else list(mesh.devices))
             self._cache_len = max_len     # no growth: tables span it
             self._pool = kvcache.init_pool(cfg, nb, self._block, cdt,
-                                           self.device)
+                                           self.device, mesh)
             # what one decode step would copy materialising the gathered
             # (slots, table_w * block) view: the bytes K4 keeps out of
             # device memory
@@ -271,7 +300,7 @@ class LLMEngine:
             # an admitted request needs the room (_grow_cache)
             self._cache_len = min(max_len, max(1024, self.buckets[-1]))
             self._cache = lm.init_cache(cfg, max_slots, self._cache_len,
-                                        cdt, self.device)
+                                        cdt, self.device, mesh)
         self._slots: List[Optional[_Request]] = [None] * max_slots
         self._waiting: "asyncio.Queue[_Request]" = asyncio.Queue()
         self._rng = np.random.default_rng(seed)
@@ -311,7 +340,8 @@ class LLMEngine:
                "cache_len": self._cache_len,
                "paged": self._paged,
                "handoff_bytes": self._handoff_bytes,
-               "device": str(self.device)}
+               "device": str(self.device),
+               "tensor_parallel": 1 if self.mesh is None else self.mesh.size}
         if self._paged:
             out.update(block_size=self._block,
                        blocks_used=self._kv.used_blocks(),
@@ -322,26 +352,32 @@ class LLMEngine:
                        spec=self._spec)
         return out
 
+    def _cache_bytes(self) -> int:
+        """The monolithic cache's k/v bytes, over every shard."""
+        return sum(x.nbytes for key in ("k", "v")
+                   for x in lm.parts(self._cache[key]))
+
     def _kv_per_token_bytes(self) -> float:
         """Device bytes one KV position of one slot costs (k and v, all
-        layers): the unit a request's device memory is priced in."""
+        layers, all shards): the unit a request's device memory is priced
+        in."""
         if self._paged:
             return kvcache.pool_block_bytes(self._pool) / self._block
-        n = self._cache["k"].nbytes + self._cache["v"].nbytes
-        return n / float(self.max_slots * self._cache_len)
+        return self._cache_bytes() / float(self.max_slots * self._cache_len)
 
     def _kv_account(self) -> None:
         """Publish the KV bytes held in device memory. Paged: live bytes
         are the blocks live requests reference plus the resident
         prefix-cache blocks; headroom is the free blocks. Monolithic: the
-        cache's bytes, and the growth left before max_len."""
+        cache's bytes, and the growth left before max_len. Under a mesh
+        both sum over the shards (the JAX engine's global array bytes)."""
         if self._paged:
             bb = kvcache.pool_block_bytes(self._pool)
             live = self._kv.used_blocks() + self._kv.cached_blocks()
             self._m["kv_bytes"].set(bb * live)
             self._m["kv_headroom"].set(bb * self._kv.free_blocks())
             return
-        cur = self._cache["k"].nbytes + self._cache["v"].nbytes
+        cur = self._cache_bytes()
         per_tok = self._kv_per_token_bytes()
         headroom = per_tok * self.max_slots \
             * (self.max_len - self._cache_len)
@@ -352,7 +388,7 @@ class LLMEngine:
         """Double the monolithic cache's per-slot length until >= need,
         capped at max_len; active slots' KV is kept (zero-padded on the
         length axis, into new tensors: the old ones are held until the
-        copy is made)."""
+        copy is made; every shard under a mesh)."""
         new_len = self._cache_len
         while new_len < need:
             new_len *= 2
@@ -362,8 +398,8 @@ class LLMEngine:
             return
         c = self._cache
         widths = (0, 0, 0, 0, 0, pad)
-        self._cache = {"k": F.pad(c["k"], widths),
-                       "v": F.pad(c["v"], widths),
+        self._cache = {"k": lm.map_parts(lambda x: F.pad(x, widths), c["k"]),
+                       "v": lm.map_parts(lambda x: F.pad(x, widths), c["v"]),
                        "length": c["length"]}
         self._cache_len = new_len
         self._kv_account()
@@ -739,8 +775,9 @@ class LLMEngine:
     @contextlib.contextmanager
     def _take_prefilled(self, r: _Request):
         """Yields the request's shipped KV on the device in the cache
-        dtype, {"k", "v": (layers, ship, kvh, hd)}, and its logits on the
-        host. A host array arrives in its shipped dtype (the port's
+        dtype, {"k", "v": (layers, ship, kvh, hd)} (under a mesh, split
+        on the kv-head dim into per-shard lists on the shards' devices),
+        and its logits on the host. A host array arrives in its shipped dtype (the port's
         ``uint16`` bf16 bits, the JAX package's ml_dtypes bf16, or a
         float dtype) and is widened or cast on the device; a handle
         arrives as the tensor it parks. Counts the KV bytes as shipped;
@@ -763,6 +800,9 @@ class LLMEngine:
             kv = {key: (pd.kv_to_torch(x, tag) if isinstance(x, np.ndarray)
                         else x).to(self.device).to(self._cdt)
                   for key, x in (("k", k), ("v", v))}
+            if self.mesh is not None:
+                kv = {key: lm.split_kv_heads(x, self.mesh)
+                      for key, x in kv.items()}
             yield kv, np.asarray(logits, np.float32)
             self._sync()          # the cache holds the KV now
         finally:
@@ -827,10 +867,7 @@ class LLMEngine:
         t0 = time.monotonic()
         if r.prefilled is not None:
             with self._take_prefilled(r) as (kv, logits_np):
-                pad = pad_to - kv["k"].shape[1]
-                if pad > 0:
-                    kv = {k: F.pad(x, (0, 0, 0, 0, 0, pad))
-                          for k, x in kv.items()}
+                kv = self._pad_kv(kv, pad_to)
                 lm.write_prefill_to_cache(self._cache, kv, slot, n)
         else:
             if n <= self.buckets[-1]:
@@ -844,10 +881,11 @@ class LLMEngine:
                 # back to the cache length
                 chunk = self.buckets[-1]
                 acc = lm.zero_acc(self.cfg, -(-self._cache_len // chunk)
-                                  * chunk, self._cdt, self.device)
+                                  * chunk, self._cdt, self.device, self.mesh)
                 logits, acc = lm.chunked_prefill(self.params, r.tokens,
                                                  self.buckets, acc, self.cfg)
-                kv = {k: x[:, :self._cache_len] for k, x in acc.items()}
+                kv = {k: lm.map_parts(lambda a: a[:, :self._cache_len], x)
+                      for k, x in acc.items()}
             lm.write_prefill_to_cache(self._cache, kv, slot, n)
             logits_np = logits.float().cpu().numpy()   # host sync
         r.prefill_device_s = time.monotonic() - t0
@@ -872,9 +910,7 @@ class LLMEngine:
         t0 = time.monotonic()
         if r.prefilled is not None:
             with self._take_prefilled(r) as (kv, logits_np):
-                pad = self._acc_len() - kv["k"].shape[1]
-                acc = {k: F.pad(x, (0, 0, 0, 0, 0, pad))
-                       for k, x in kv.items()}
+                acc = self._pad_kv(kv, self._acc_len())
                 targets = table.copy()
                 targets[:hit // B] = kvcache.TRASH
                 kvcache.scatter_table(self._pool, acc, targets)
@@ -896,6 +932,15 @@ class LLMEngine:
         self._record_prefill_span(r)
         self._slots[slot] = r
         return self._sample_one(logits_np, r)
+
+    @staticmethod
+    def _pad_kv(kv: dict, length: int) -> dict:
+        """Shipped KV (layers, ship, kvh, hd), each shard's, zero-padded on
+        the position axis to ``length`` (left as it is when longer)."""
+        def pad(x):
+            n = length - x.shape[1]
+            return F.pad(x, (0, 0, 0, 0, 0, n)) if n > 0 else x
+        return {k: lm.map_parts(pad, v) for k, v in kv.items()}
 
     @staticmethod
     def _record_prefill_span(r: _Request) -> None:

@@ -13,7 +13,10 @@ imports ``ray_tpu``. The device half works on torch tensors:
   (``paged_flash``: the hand-written kernel) or through a gathered view
   (``gather``: the plain path);
 - where the JAX package donates the pool to a jitted update, the port
-  updates the pool tensors in place (``index_put_``/``index_copy_``).
+  updates the pool tensors in place (``index_put_``/``index_copy_``);
+- under a tensor-parallel mesh each of k/v is a list of per-shard
+  tensors split on the kv-head dim; every block op applies the same
+  block ids to every shard, and decode attends per shard.
 
 Physical block 0 is the TRASH block: writes for finished/empty slots and
 bucket-padding garbage land there; it is never read unmasked. Several
@@ -30,6 +33,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.llm.model import kv_zeros, map_parts, parts as _parts
 
 TRASH = 0   # physical block 0: garbage-write target, never allocated
 
@@ -455,19 +460,21 @@ class KVBlockManager:
 
 
 def init_pool(cfg, num_blocks: int, block_size: int, dtype: torch.dtype,
-              device) -> dict:
+              device, mesh=None) -> dict:
     """The pool tensors: k/v of shape
-    (layers, num_blocks, block_size, kv_heads, head_dim), zeroed."""
+    (layers, num_blocks, block_size, kv_heads, head_dim), zeroed. With
+    ``mesh``, each of k/v is a list of one (layers, num_blocks,
+    block_size, kv_heads/tp, head_dim) tensor per mesh device (the JAX
+    pool's kv-head sharding); block ids index dim 1 of every shard."""
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {key: kv_zeros(shape, dtype, device, mesh) for key in ("k", "v")}
 
 
 def pool_block_bytes(pool: dict) -> int:
-    """Device bytes one block costs (k + v, all layers)."""
-    k, v = pool["k"], pool["v"]
-    return (k.nbytes + v.nbytes) // k.shape[1]
+    """Device bytes one block costs (k + v, all layers, all shards)."""
+    ks, vs = _parts(pool["k"]), _parts(pool["v"])
+    return sum((k.nbytes + v.nbytes) // k.shape[1] for k, v in zip(ks, vs))
 
 
 def auto_pool_blocks(slots: int, table_width: int, block_bytes: int,
@@ -476,13 +483,22 @@ def auto_pool_blocks(slots: int, table_width: int, block_bytes: int,
     slot at max_len) plus one full chain of prefix-cache headroom, capped
     on a CUDA device at half its free memory (the engine is not the only
     tenant). The cap never shrinks below one full-horizon request
-    (table_width blocks)."""
+    (table_width blocks). ``device`` may be a list, one device per
+    tensor shard (repeats allowed), with ``block_bytes`` the bytes of
+    one block over all shards: each CUDA device is then charged for the
+    shards it holds, once, before any shard is allocated."""
     if configured:
         return max(2, int(configured))
     base = slots * table_width + table_width
-    if device is not None and torch.device(device).type == "cuda":
-        free, _ = torch.cuda.mem_get_info(torch.device(device))
-        cap = int(free * 0.5 // max(1, block_bytes))
+    devices = [] if device is None else [
+        torch.device(d) for d in (device if isinstance(device, (list, tuple))
+                                  else [device])]
+    for dev in dict.fromkeys(devices):
+        if dev.type != "cuda":
+            continue
+        on_dev = block_bytes * devices.count(dev) // len(devices)
+        free, _ = torch.cuda.mem_get_info(dev)
+        cap = int(free * 0.5 // max(1, on_dev))
         base = max(table_width, min(base, cap))
     return base + 1     # + trash block
 
@@ -495,49 +511,52 @@ def _phys(phys, device) -> torch.Tensor:
 def scatter_bucket(pool: dict, kv: dict, phys, nb: int) -> dict:
     """Write a bucket-padded prefill's KV (layers, nb*bs, kvh, hd) into
     ``nb`` physical blocks, in place (pad-garbage blocks are redirected
-    to trash by the caller's ``phys``)."""
-    bs = pool["k"].shape[2]
-    idx = _phys(phys, pool["k"].device)
+    to trash by the caller's ``phys``). A sharded pool takes per-shard KV
+    and writes the same blocks of every shard."""
     for key in ("k", "v"):
-        src = kv[key]
-        src = src.reshape(src.shape[0], nb, bs, *src.shape[2:])
-        pool[key].index_copy_(1, idx, src.to(pool[key].dtype))
+        for p, src in zip(_parts(pool[key]), _parts(kv[key])):
+            bs = p.shape[2]
+            src = src.reshape(src.shape[0], nb, bs, *src.shape[2:])
+            p.index_copy_(1, _phys(phys, p.device), src.to(p.dtype))
     return pool
 
 
 def gather_table(pool: dict, phys, acc_len: int) -> dict:
     """Gather one block table's KV into a contiguous accumulator
-    (layers, acc_len, kvh, hd) for chunked prefill over a cached prefix.
-    acc_len >= table_width * block_size (zero tail)."""
-    L, _, bs, kvh, hd = pool["k"].shape
-    idx = _phys(phys, pool["k"].device)
-    w = idx.shape[0]
-    out = {}
-    for key in ("k", "v"):
-        acc = torch.zeros((L, acc_len, kvh, hd), dtype=pool[key].dtype,
-                          device=pool[key].device)
-        acc[:, :w * bs] = pool[key][:, idx].reshape(L, w * bs, kvh, hd)
-        out[key] = acc
-    return out
+    (layers, acc_len, kvh, hd) for chunked prefill over a cached prefix
+    (per shard for a sharded pool). acc_len >= table_width * block_size
+    (zero tail)."""
+    def gather(p):
+        L, _, bs, kvh, hd = p.shape
+        idx = _phys(phys, p.device)
+        w = idx.shape[0]
+        acc = torch.zeros((L, acc_len, kvh, hd), dtype=p.dtype,
+                          device=p.device)
+        acc[:, :w * bs] = p[:, idx].reshape(L, w * bs, kvh, hd)
+        return acc
+    return {key: map_parts(gather, pool[key]) for key in ("k", "v")}
 
 
 def scatter_table(pool: dict, acc: dict, phys) -> dict:
     """Write an accumulator back through a full-width physical target
     vector, in place (shared-prefix and beyond-horizon entries point at
-    trash, so shared blocks are never written)."""
-    L, _, bs, kvh, hd = pool["k"].shape
-    idx = _phys(phys, pool["k"].device)
-    w = idx.shape[0]
+    trash, so shared blocks are never written); per shard for a sharded
+    pool, with the same targets."""
     for key in ("k", "v"):
-        a = acc[key][:, :w * bs].reshape(L, w, bs, kvh, hd)
-        pool[key][:, idx] = a.to(pool[key].dtype)
+        for p, a in zip(_parts(pool[key]), _parts(acc[key])):
+            L, _, bs, kvh, hd = p.shape
+            idx = _phys(phys, p.device)
+            w = idx.shape[0]
+            p[:, idx] = a[:, :w * bs].reshape(L, w, bs, kvh, hd).to(p.dtype)
     return pool
 
 
 def copy_block(pool: dict, src: int, dst: int) -> dict:
-    """Device-side block copy (the COW divergence path), in place."""
+    """Device-side block copy (the COW divergence path), in place, in
+    every shard."""
     for key in ("k", "v"):
-        pool[key][:, dst] = pool[key][:, src]
+        for p in _parts(pool[key]):
+            p[:, dst] = p[:, src]
     return pool
 
 
@@ -562,24 +581,30 @@ def _paged_decode_core(model, pool, tables, lengths, tokens, temps,
                        impl="auto"):
     """One token for every slot against the paged pool: the shared
     decode transformer with block-table write/attend plugged in. The new
-    token's KV is written into the pool in place."""
+    token's KV is written into the pool in place. For a ``ShardedLlama``
+    (its pool split over the same mesh) the hooks run once per shard on
+    its kv heads, with the block tables and lengths replicated, as the
+    JAX package's ``shard_map`` over its kernel does: K4 launches once
+    per shard."""
     from ray_tpu_torch.llm.model import decode_token_core
-    impl = resolve_attn_impl(impl, pool["k"].device)
+    impl = resolve_attn_impl(impl, _parts(pool["k"])[0].device)
     b = tokens.shape[0]
-    bs = pool["k"].shape[2]
+    bs = _parts(pool["k"])[0].shape[2]
     w = tables.shape[1]
-    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     positions = lengths
     blk = torch.clamp(positions // bs, 0, w - 1).long()
     off = (positions % bs).long()
     phys = tables[torch.arange(b, device=tables.device), blk].long()
 
     def write(ck, cv, k, v):    # ck/cv: (num_blocks, bs, kvh, hd)
-        ck.index_put_((phys, off), k.to(ck.dtype))
-        cv.index_put_((phys, off), v.to(cv.dtype))
+        at = (phys.to(ck.device), off.to(ck.device))
+        ck.index_put_(at, k.to(ck.dtype))
+        cv.index_put_(at, v.to(cv.dtype))
 
     def view(ck, cv):
-        t = tables.long()
+        t = tables.to(ck.device).long()
+        kvh = ck.shape[2]
         return (ck[t].reshape(b, w * bs, kvh, hd),
                 cv[t].reshape(b, w * bs, kvh, hd))
 
@@ -587,10 +612,10 @@ def _paged_decode_core(model, pool, tables, lengths, tokens, temps,
     if impl == "paged_flash":
         from ray_tpu_torch.ops.paged_attention import paged_attention
 
-        def attend(q, ck, cv, pos):     # q: (b, h, hd)
-            qg = q.reshape(b, kvh, cfg.n_heads // kvh, hd)
-            o = paged_attention(qg, ck, cv, tables, pos + 1)
-            return o.reshape(b, cfg.n_heads * hd)
+        def attend(q, ck, cv, pos):     # q: (b, h, hd), one shard's heads
+            qg = q.reshape(b, ck.shape[2], -1, hd)
+            o = paged_attention(qg, ck, cv, tables.to(ck.device), pos + 1)
+            return o.reshape(b, -1)
 
     return decode_token_core(model, pool["k"], pool["v"], tokens,
                              positions, temps, generator, cfg, write, view,
@@ -604,12 +629,13 @@ def paged_decode_steps(model, pool, tables, lengths, tokens, temps,
     """n chained decode steps against the block pool, as a loop on the
     device: each step feeds its sampled tokens to the next without a host
     sync. tables (slots, W) int32, lengths/tokens (slots,) int32 and
-    temps (slots,) f32 live on the pool's device; ``temps=None`` samples
-    greedily. Returns (tokens
-    (n, slots) int32 on the device, pool); the caller syncs once per
+    temps (slots,) f32 live on the pool's (first shard's) device;
+    ``temps=None`` samples greedily; a ``ShardedLlama`` runs as in
+    ``_paged_decode_core``. Returns (tokens (n, slots) int32 on the
+    device, pool); the caller syncs once per
     block when it copies the tokens to the host. Slots past their
     request produce discardable garbage in the trash block."""
-    impl = resolve_attn_impl(impl, pool["k"].device)
+    impl = resolve_attn_impl(impl, _parts(pool["k"])[0].device)
     outs = []
     toks = tokens
     for i in range(n):
@@ -625,7 +651,8 @@ def _paged_verify_core(model, pool, tables, lengths, tokens, cfg):
     tokens per slot (the last emitted one and up to w-1 drafts) in one
     forward, ``verify_tokens_core`` with the block-table write and
     ``paged_attention_verify`` plugged in (the JAX package's gather twin:
-    the one-query kernel takes no multi-query rows). tokens (b, w) int32,
+    the one-query kernel takes no multi-query rows), per shard on its kv
+    heads for a ``ShardedLlama``. tokens (b, w) int32,
     column 0 at cache position ``lengths``; all w KVs are written through
     the table in place. A write past a slot's table clamps its block
     index into the table's last row (as the JAX package's clip does):
@@ -637,9 +664,9 @@ def _paged_verify_core(model, pool, tables, lengths, tokens, cfg):
     from ray_tpu_torch.llm.model import verify_tokens_core
     from ray_tpu_torch.ops.paged_attention import paged_attention_verify
     b, wq = tokens.shape
-    bs = pool["k"].shape[2]
+    bs = _parts(pool["k"])[0].shape[2]
     w = tables.shape[1]
-    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     pos = lengths[:, None] + torch.arange(wq, dtype=lengths.dtype,
                                           device=lengths.device)[None]
     blk = torch.clamp(pos // bs, 0, w - 1).long()
@@ -647,13 +674,15 @@ def _paged_verify_core(model, pool, tables, lengths, tokens, cfg):
     phys = torch.take_along_dim(tables.long(), blk, dim=1)   # (b, wq)
 
     def write(ck, cv, k, v):    # k/v: (b, wq, kvh, hd)
-        ck.index_put_((phys, off), k.to(ck.dtype))
-        cv.index_put_((phys, off), v.to(cv.dtype))
+        at = (phys.to(ck.device), off.to(ck.device))
+        ck.index_put_(at, k.to(ck.dtype))
+        cv.index_put_(at, v.to(cv.dtype))
 
     def attend(q, ck, cv, pos_grid):    # q: (b, wq, h, hd)
-        qg = q.reshape(b, wq, kvh, cfg.n_heads // kvh, hd)
-        o = paged_attention_verify(qg, ck, cv, tables, pos_grid + 1)
-        return o.reshape(b, wq, cfg.n_heads * hd)
+        qg = q.reshape(b, wq, ck.shape[2], -1, hd)
+        o = paged_attention_verify(qg, ck, cv, tables.to(ck.device),
+                                   pos_grid + 1)
+        return o.reshape(b, wq, -1)
 
     return verify_tokens_core(model, pool["k"], pool["v"], tokens, lengths,
                               cfg, write, attend)
@@ -664,8 +693,9 @@ def paged_verify_steps(model, pool, tables, lengths, tokens, cfg):
     """One speculative verify round, the verify twin of
     ``paged_decode_steps``: tokens (b, w) int32 with w from the engine's
     verify-width buckets, tables (b, W) int32 and lengths (b,) int32 on
-    the pool's device. Returns ((b, w, vocab) f32 logits on the device,
-    pool); the pool is updated in place. Each call adds one to
+    the pool's (first shard's) device; a ``ShardedLlama`` runs as in
+    ``_paged_decode_core``. Returns ((b, w, vocab) f32 logits on the
+    device, pool); the pool is updated in place. Each call adds one to
     ``paged_verify_steps.launches`` (verify forwards, read by
     chip_smoke.py)."""
     logits = _paged_verify_core(model, pool, tables, lengths, tokens, cfg)

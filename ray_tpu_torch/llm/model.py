@@ -8,6 +8,17 @@ prompt buckets stay only because the paged engine's block arithmetic is
 written over them. Where the JAX package donates a buffer to update it,
 the port updates the tensor in place (``index_copy_``/``index_put_``)
 and says so.
+
+Tensor-parallel serving: ``shard_params_for_serving`` splits a ``Llama``
+over a ``parallel.tp.TensorMesh`` in the JAX package's Megatron layout
+(``serve_param_specs``), and every forward here takes the resulting
+``ShardedLlama`` where it takes a ``Llama``. There is one transformer
+body for both: each shard computes its heads and its slice of the ffn,
+the mesh sums the two row-parallel products of each layer (wo's and
+w_down's, GSPMD's two psums in the JAX package) and gathers the logits'
+vocab shards, and the sampler runs once on the gathered logits. The KV
+of a sharded forward is a list of per-shard tensors, split on the
+kv-head dim.
 """
 
 from __future__ import annotations
@@ -18,9 +29,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ray_tpu_torch.models.llama import (Llama, LlamaConfig, _rmsnorm, _rope,
-                                        _rope_tables)
+                                        _rope_tables, swiglu)
 
 
 def bucket_for(buckets, n: int) -> int:
@@ -38,35 +50,250 @@ def pad_prompt(tokens, bucket: int) -> np.ndarray:
     return out
 
 
+# --- tensor-parallel shards ---------------------------------------------------
+
+
+def serve_param_specs(cfg: LlamaConfig, axis: str = "tensor") -> dict:
+    """The Megatron tensor-parallel layout for inference, as the JAX
+    package's ``serve_param_specs`` gives it, over the port's tensors: for
+    each weight, one entry per dim, ``axis`` on the dim split over the
+    mesh and None elsewhere (all None: replicated). ``nn.Linear`` stores
+    (out, in), so the column-parallel projections (wq/wk/wv, w_gate/w_up,
+    lm_head on the vocab) split dim 0 and the row-parallel ones (wo,
+    w_down), whose partial products are summed over the mesh, dim 1. The
+    embedding and the norms are replicated."""
+    t = axis
+    return {
+        "embed": (None, None),
+        "layers": {
+            "attn_norm": (None,),
+            "wq": (t, None),
+            "wk": (t, None),
+            "wv": (t, None),
+            "wo": (None, t),
+            "mlp_norm": (None,),
+            "w_gate": (t, None),
+            "w_up": (t, None),
+            "w_down": (None, t),
+        },
+        "final_norm": (None,),
+        "lm_head": (t, None),
+    }
+
+
+class _ShardLayer(nn.Module):
+    """One layer's shard: ``LlamaLayer``'s parameters at 1/tp of the
+    heads and of the ffn width, the norms whole."""
+
+    def __init__(self, cfg: LlamaConfig, tp: int, **factory):
+        super().__init__()
+        d, hd = cfg.dim, cfg.head_dim
+        h, kvh, f = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.ffn_dim // tp
+        self.attn_norm = nn.Parameter(torch.empty(d, **factory))
+        self.wq = nn.Linear(d, h * hd, bias=False, **factory)
+        self.wk = nn.Linear(d, kvh * hd, bias=False, **factory)
+        self.wv = nn.Linear(d, kvh * hd, bias=False, **factory)
+        self.wo = nn.Linear(h * hd, d, bias=False, **factory)
+        self.mlp_norm = nn.Parameter(torch.empty(d, **factory))
+        self.w_gate = nn.Linear(d, f, bias=False, **factory)
+        self.w_up = nn.Linear(d, f, bias=False, **factory)
+        self.w_down = nn.Linear(f, d, bias=False, **factory)
+
+
+class LlamaShard(nn.Module):
+    """One tensor shard of a ``Llama``: the same parameter names, with
+    the split weights at their per-shard shapes (``serve_param_specs``)
+    and a whole copy of the replicated ones."""
+
+    def __init__(self, cfg: LlamaConfig, tp: int, *, device="meta",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype or cfg.torch_dtype)
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, **factory)
+        self.layers = nn.ModuleList(
+            _ShardLayer(cfg, tp, **factory) for _ in range(cfg.n_layers))
+        self.final_norm = nn.Parameter(torch.empty(cfg.dim, **factory))
+        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size // tp, bias=False,
+                                 **factory)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+
+class ShardedLlama(nn.Module):
+    """A ``Llama`` split over a ``TensorMesh``: ``shards[j]`` lives on
+    ``mesh.devices[j]``. The forwards of this module take it where they
+    take a ``Llama``; ``device`` is the first shard's, where the logits
+    are gathered and sampled."""
+
+    def __init__(self, cfg: LlamaConfig, shards, mesh):
+        super().__init__()
+        self.cfg = cfg
+        self.shards = nn.ModuleList(shards)
+        self.mesh = mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[0]
+
+
+def _spec_of(specs: dict, name: str) -> tuple:
+    """The spec of a parameter by its ``named_parameters`` name."""
+    path = name.split(".")
+    if path[0] == "layers":
+        return specs["layers"][path[2]]
+    return specs[path[0]]
+
+
+@torch.no_grad()
+def shard_params_for_serving(model: Llama, mesh,
+                             cfg: LlamaConfig) -> ShardedLlama:
+    """``model`` split per ``serve_param_specs`` over ``mesh``: one
+    ``LlamaShard`` per mesh device, each holding its own storage (a copy
+    of its slice, never a view into the full weights). Validates the
+    divisibility the layout needs: heads, kv heads, ffn and vocab all
+    split over the mesh's axis."""
+    axis = mesh.axis
+    tp = mesh.shape[axis]
+    for name, n in (("n_heads", cfg.n_heads),
+                    ("n_kv_heads", cfg.n_kv_heads),
+                    ("ffn_dim", cfg.ffn_dim),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(
+                f"{name}={n} not divisible by tensor-parallel size {tp}")
+    specs = serve_param_specs(cfg, axis)
+    full = dict(model.named_parameters())
+    shards = []
+    for j, dev in enumerate(mesh.devices):
+        shard = LlamaShard(cfg, tp, dtype=model.dtype).to_empty(device=dev)
+        for name, p in shard.named_parameters():
+            src = full[name]
+            spec = _spec_of(specs, name)
+            if axis in spec:
+                dim = spec.index(axis)
+                n = src.shape[dim] // tp
+                src = src.narrow(dim, j * n, n)
+            p.copy_(src)
+        shards.append(shard.requires_grad_(False).eval())
+    return ShardedLlama(cfg, shards, mesh)
+
+
+class _Shards:
+    """The shards one forward runs over and where they live. A ``Llama``
+    is one shard with no reduction, so the single-device forward is the
+    same op sequence as before meshes existed; a ``ShardedLlama`` runs
+    each sharded op once per shard and each replicated one (the
+    embedding, the norms, the RoPE tables, the residual stream) once per
+    distinct device, on the first shard there. Shards on distinct
+    devices each run the replicated ops, as GSPMD's replicas do; only
+    where a device repeats (the one-card and CPU stand-in meshes) is the
+    repeat skipped, so a stand-in's host time per step is a lower bound
+    for the same tp over distinct cards."""
+
+    def __init__(self, model):
+        if isinstance(model, ShardedLlama):
+            self.mods, self.mesh = list(model.shards), model.mesh
+        else:
+            self.mods, self.mesh = [model], None
+        self.devs = [m.device for m in self.mods]
+        self.lead: dict = {}            # device -> first shard index there
+        for j, d in enumerate(self.devs):
+            self.lead.setdefault(d, j)
+
+    def __iter__(self):
+        return iter(zip(self.mods, self.devs))
+
+    def per_device(self, fn) -> dict:
+        """{device: fn(device, the first shard module there)}."""
+        return {d: fn(d, self.mods[j]) for d, j in self.lead.items()}
+
+    def norm(self, xs: dict, i: int, name: str, eps: float) -> dict:
+        """Layer i's replicated norm ``name`` of the residual stream."""
+        return self.per_device(
+            lambda d, m: _rmsnorm(xs[d], getattr(m.layers[i], name), eps))
+
+    def add(self, xs: dict, parts) -> dict:
+        """The residual stream plus the sum over shards of a row-parallel
+        product: each shard's partial is reduced once, then added once
+        per device."""
+        red = parts if self.mesh is None else self.mesh.all_reduce(parts)
+        return {d: xs[d] + red[j] for d, j in self.lead.items()}
+
+    def gather(self, parts, dim: int) -> torch.Tensor:
+        """The shards' parts concatenated in shard order, on the first
+        shard's device."""
+        return parts[0] if self.mesh is None else \
+            self.mesh.all_gather(parts, dim)[0]
+
+    def pack(self, parts):
+        """Per-shard tensors as the caches hold them: a list under a mesh,
+        the one tensor otherwise."""
+        return list(parts) if self.mesh is not None else parts[0]
+
+
+def split_kv_heads(x: torch.Tensor, mesh) -> list:
+    """A full-head KV tensor (..., kvh, hd) cut on its kv-head dim over
+    ``mesh``: shard j's slice, on mesh device j."""
+    n = x.shape[-2] // mesh.size
+    return [x[..., j * n:(j + 1) * n, :].to(d)
+            for j, d in enumerate(mesh.devices)]
+
+
+def parts(x) -> list:
+    """The per-shard tensors of a cache entry (one, unsharded)."""
+    return x if isinstance(x, list) else [x]
+
+
+def map_parts(fn, x):
+    """``fn`` applied to each shard's tensor of a cache entry, keeping its
+    form (a list under a mesh, one tensor otherwise)."""
+    return [fn(p) for p in x] if isinstance(x, list) else fn(x)
+
+
+def kv_zeros(shape, dtype: torch.dtype, device, mesh=None):
+    """A zeroed KV tensor of ``shape`` (..., kv_heads, head_dim) on
+    ``device``; with ``mesh``, a list of one tensor per mesh device with
+    the kv heads split over them."""
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    local = (*shape[:-2], shape[-2] // mesh.size, shape[-1])
+    return [torch.zeros(local, dtype=dtype, device=d) for d in mesh.devices]
+
+
 def init_cache(cfg: LlamaConfig, slots: int, max_len: int,
                dtype: torch.dtype, device, mesh=None) -> dict:
     """The monolithic slot cache: k/v (layers, slots, max_len, kvh, hd),
     zeroed, and ``length`` (slots,) int32, the cache position of each
-    slot's next token."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a cache sharded over a mesh (tensor-parallel serving) is not "
-            "ported yet: ROADMAP Queue 1 item 11")
+    slot's next token. With ``mesh``, k/v are split on the kv-head dim:
+    a list of (layers, slots, max_len, kvh/tp, hd) tensors, one on each
+    mesh device, and ``length`` (replicated) lives on the first."""
     shape = (cfg.n_layers, slots, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+    return {"k": kv_zeros(shape, dtype, device, mesh),
+            "v": kv_zeros(shape, dtype, device, mesh),
             "length": torch.zeros((slots,), dtype=torch.int32,
-                                  device=device)}
+                                  device=device if mesh is None
+                                  else mesh.devices[0])}
 
 
 def _qkv(y, lyr, cfg: LlamaConfig):
+    """q, k, v (b, s, heads, hd) at the heads ``lyr`` holds (all of them,
+    or one shard's)."""
     b, s = y.shape[:2]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return (lyr.wq(y).view(b, s, h, hd), lyr.wk(y).view(b, s, kvh, hd),
-            lyr.wv(y).view(b, s, kvh, hd))
+    hd = cfg.head_dim
+    return (lyr.wq(y).view(b, s, -1, hd), lyr.wk(y).view(b, s, -1, hd),
+            lyr.wv(y).view(b, s, -1, hd))
 
 
 def _gqa_attend_cached(q, cache_k, cache_v, lengths, cfg: LlamaConfig):
     """q: (b, h, hd) current-token queries; cache_k/v: (b, L, kvh, hd);
     lengths: (b,) valid cache entries per slot (incl. current token).
-    The plain decode attention of the ``gather`` impl."""
-    b = q.shape[0]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    The plain decode attention of the ``gather`` impl, at the heads given
+    (all of them, or one shard's)."""
+    b, h, hd = q.shape
+    kvh = cache_k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, hd).float()
     scores = torch.einsum("bkgd,blkd->bkgl", qg,
                           cache_k.float()) / math.sqrt(hd)
@@ -93,14 +320,32 @@ def flash_capable(cfg: LlamaConfig, device: torch.device) -> bool:
             and _serve_attn_impl(cfg) in ("auto", "flash"))
 
 
-def _layer_tail(x, o, lyr, cfg: LlamaConfig):
-    x = x + lyr.wo(o.to(x.dtype))
-    return x + lyr.mlp(x, cfg.norm_eps)
+def _layer_tail(par: _Shards, xs: dict, outs, i: int,
+                cfg: LlamaConfig) -> dict:
+    """The rest of layer i after attention: ``outs`` holds each shard's
+    attention output (.., heads * hd). Adds wo's reduced product, then
+    the MLP's (w_down's), each to the residual stream once."""
+    xs = par.add(xs, [m.layers[i].wo(o.to(xs[d].dtype))
+                      for (m, d), o in zip(par, outs)])
+    ys = par.norm(xs, i, "mlp_norm", cfg.norm_eps)
+    return par.add(xs, [swiglu(m.layers[i], ys[d]) for m, d in par])
 
 
-def _logits(model: Llama, x, length: int):
-    x = _rmsnorm(x, model.final_norm, model.cfg.norm_eps)
-    return model.lm_head(x[0, length - 1]).float()
+def _logits(par: _Shards, xs: dict, cfg: LlamaConfig, pick) -> torch.Tensor:
+    """f32 logits of the rows ``pick(x)`` selects from the final normed
+    residual stream, gathered over the vocab shards."""
+    ys = par.per_device(
+        lambda d, m: _rmsnorm(xs[d], m.final_norm, cfg.norm_eps))
+    return par.gather([m.lm_head(pick(ys[d])).float() for m, d in par], -1)
+
+
+def _embed(par: _Shards, tokens: torch.Tensor) -> dict:
+    return par.per_device(lambda d, m: m.embed(tokens.to(d).long()))
+
+
+def _ropes(par: _Shards, positions: torch.Tensor, cfg: LlamaConfig) -> dict:
+    return par.per_device(lambda d, m: _rope_tables(
+        positions.to(d), cfg.head_dim, cfg.rope_theta))
 
 
 @torch.no_grad()
@@ -108,29 +353,35 @@ def prefill(model: Llama, tokens: torch.Tensor, length: int,
             cfg: LlamaConfig, max_len: int) -> Tuple[torch.Tensor, dict]:
     """One padded prompt. tokens: (s,) int (padded to a bucket); length:
     actual prompt length. Returns (last-token logits (vocab,) f32,
-    per-layer kv padded to max_len: k/v (layers, max_len, kvh, hd)).
-    Causal alone is exact: pad keys sit at positions >= length and every
-    used query row is < length."""
+    per-layer kv padded to max_len: k/v (layers, max_len, kvh, hd), per
+    shard for a ``ShardedLlama``). Causal alone is exact: pad keys sit at
+    positions >= length and every used query row is < length."""
     from ray_tpu_torch.ops.attention import attention
     s = tokens.shape[0]
-    h, hd = cfg.n_heads, cfg.head_dim
-    x = model.embed(tokens[None].long())                   # (1, s, dim)
+    hd = cfg.head_dim
+    par = _Shards(model)
+    xs = _embed(par, tokens[None])                          # (1, s, dim)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    rc, rs = _rope_tables(positions[None], hd, cfg.rope_theta)
-    ks, vs = [], []
-    for lyr in model.layers:
-        y = _rmsnorm(x, lyr.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(y, lyr, cfg)
-        q, k = _rope(q, rc, rs), _rope(k, rc, rs)
-        o = attention(q, k, v, causal=True, sm_scale=hd ** -0.5,
-                      impl=_serve_attn_impl(cfg))
-        x = _layer_tail(x, o.reshape(1, s, h * hd), lyr, cfg)
-        ks.append(k[0])
-        vs.append(v[0])
-    logits = _logits(model, x, length)
+    ropes = _ropes(par, positions[None], cfg)
+    ks = [[] for _ in par.mods]
+    vs = [[] for _ in par.mods]
+    for i in range(cfg.n_layers):
+        ys = par.norm(xs, i, "attn_norm", cfg.norm_eps)
+        outs = []
+        for j, (m, d) in enumerate(par):
+            rc, rs = ropes[d]
+            q, k, v = _qkv(ys[d], m.layers[i], cfg)
+            q, k = _rope(q, rc, rs), _rope(k, rc, rs)
+            o = attention(q, k, v, causal=True, sm_scale=hd ** -0.5,
+                          impl=_serve_attn_impl(cfg))
+            outs.append(o.reshape(1, s, -1))
+            ks[j].append(k[0])
+            vs[j].append(v[0])
+        xs = _layer_tail(par, xs, outs, i, cfg)
+    logits = _logits(par, xs, cfg, lambda x: x[0, length - 1])
     pad = (0, 0, 0, 0, 0, max_len - s)
-    return logits, {"k": F.pad(torch.stack(ks), pad),
-                    "v": F.pad(torch.stack(vs), pad)}
+    return logits, {"k": par.pack([F.pad(torch.stack(k), pad) for k in ks]),
+                    "v": par.pack([F.pad(torch.stack(v), pad) for v in vs])}
 
 
 @torch.no_grad()
@@ -140,30 +391,32 @@ def prefill_chunk(model: Llama, tokens: torch.Tensor, length: int,
     """One chunk of a long prompt: process ``tokens`` (one padded bucket)
     starting at absolute position ``offset``, attending to all earlier
     chunks' K/V in ``acc`` plus causally within the chunk. acc: {"k","v"}
-    (layers, L, kvh, hd), updated IN PLACE with this chunk's KV (where
-    the JAX package donates it). Returns (logits of the chunk's last valid
-    token (vocab,) f32, acc). Positions beyond offset+length may hold pad
-    garbage; every consumer masks by total length.
+    (layers, L, kvh, hd), per shard for a ``ShardedLlama``, updated IN
+    PLACE with this chunk's KV (where the JAX package donates it).
+    Returns (logits of the chunk's last valid token (vocab,) f32, acc).
+    Positions beyond offset+length may hold pad garbage; every consumer
+    masks by total length.
 
     Dispatch: on a flash-capable device the kernel runs with the chunk's
     absolute offset placing the causal diagonal; otherwise the
     dynamic-offset plain path runs."""
-    if offset + tokens.shape[0] > acc["k"].shape[1]:
+    L = parts(acc["k"])[0].shape[1]
+    if offset + tokens.shape[0] > L:
         raise ValueError(
             f"chunk [{offset}, {offset + tokens.shape[0]}) overruns the "
-            f"accumulator of length {acc['k'].shape[1]}")
+            f"accumulator of length {L}")
     flash = flash_capable(cfg, tokens.device)
     return _prefill_chunk(model, tokens, int(length), int(offset), acc,
                           cfg, flash)
 
 
 def zero_acc(cfg: LlamaConfig, length: int, dtype: torch.dtype,
-             device) -> dict:
+             device, mesh=None) -> dict:
     """A zeroed chunked-prefill accumulator: k/v (layers, length, kvh,
-    hd)."""
+    hd); with ``mesh``, one (layers, length, kvh/tp, hd) tensor per mesh
+    device."""
     shape = (cfg.n_layers, length, cfg.n_kv_heads, cfg.head_dim)
-    return {key: torch.zeros(shape, dtype=dtype, device=device)
-            for key in ("k", "v")}
+    return {key: kv_zeros(shape, dtype, device, mesh) for key in ("k", "v")}
 
 
 @torch.no_grad()
@@ -180,12 +433,13 @@ def chunked_prefill(model: Llama, tokens, buckets, acc: dict,
     n = len(tokens)
     off = start
     logits = None
+    dev = parts(acc["k"])[0].device
     while off < n:
         end = min(n, (off // chunk + 1) * chunk)
         part = tokens[off:end]
         padded = torch.tensor(pad_prompt(part, bucket_for(buckets,
                                                           len(part))),
-                              device=acc["k"].device)
+                              device=dev)
         logits, acc = prefill_chunk(model, padded, len(part), off, acc, cfg)
         off = end
     return logits, acc
@@ -195,39 +449,48 @@ def _prefill_chunk(model: Llama, tokens, length: int, offset: int,
                    acc: dict, cfg: LlamaConfig, flash: bool):
     from ray_tpu_torch.ops.attention import attention
     s = tokens.shape[0]
-    L = acc["k"].shape[1]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // kvh
-    dev = tokens.device
-    x = model.embed(tokens[None].long())                   # (1, s, dim)
-    positions = offset + torch.arange(s, dtype=torch.int32, device=dev)
-    rc, rs = _rope_tables(positions[None], hd, cfg.rope_theta)
+    hd = cfg.head_dim
+    par = _Shards(model)
+    accs = list(zip(parts(acc["k"]), parts(acc["v"])))
+    L = accs[0][0].shape[1]
+    xs = _embed(par, tokens[None])                          # (1, s, dim)
+    positions = offset + torch.arange(s, dtype=torch.int32,
+                                      device=tokens.device)
+    ropes = _ropes(par, positions[None], cfg)
     if not flash:
         # causal over absolute positions, limited to valid keys
-        k_pos = torch.arange(L, dtype=torch.int32, device=dev)
-        keep = ((k_pos[None, :] <= positions[:, None])
-                & (k_pos[None, :] < offset + length))
-    for i, lyr in enumerate(model.layers):
-        ak, av = acc["k"][i], acc["v"][i]                  # (L, kvh, hd)
-        y = _rmsnorm(x, lyr.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(y, lyr, cfg)
-        q, k = _rope(q, rc, rs), _rope(k, rc, rs)
-        ak[offset:offset + s] = k[0].to(ak.dtype)
-        av[offset:offset + s] = v[0].to(av.dtype)
-        if flash:
-            o = attention(q, ak[None].to(q.dtype), av[None].to(q.dtype),
-                          causal=True, sm_scale=hd ** -0.5,
-                          impl=_serve_attn_impl(cfg), q_offset=offset)
-        else:
-            qg = q[0].reshape(s, kvh, g, hd).float()
-            scores = torch.einsum("skgd,lkd->kgsl", qg,
-                                  ak.float()) / math.sqrt(hd)
-            scores = torch.where(keep[None, None], scores,
-                                 torch.full_like(scores, -1e30))
-            probs = torch.softmax(scores, dim=-1)
-            o = torch.einsum("kgsl,lkd->skgd", probs, av.float())
-        x = _layer_tail(x, o.reshape(1, s, h * hd), lyr, cfg)
-    return _logits(model, x, length), acc
+        def mask(d, m):
+            k_pos = torch.arange(L, dtype=torch.int32, device=d)
+            p = positions.to(d)
+            return ((k_pos[None, :] <= p[:, None])
+                    & (k_pos[None, :] < offset + length))
+        keeps = par.per_device(mask)
+    for i in range(cfg.n_layers):
+        ys = par.norm(xs, i, "attn_norm", cfg.norm_eps)
+        outs = []
+        for (m, d), (acc_k, acc_v) in zip(par, accs):
+            ak, av = acc_k[i], acc_v[i]                     # (L, kvh, hd)
+            rc, rs = ropes[d]
+            q, k, v = _qkv(ys[d], m.layers[i], cfg)
+            q, k = _rope(q, rc, rs), _rope(k, rc, rs)
+            ak[offset:offset + s] = k[0].to(ak.dtype)
+            av[offset:offset + s] = v[0].to(av.dtype)
+            if flash:
+                o = attention(q, ak[None].to(q.dtype), av[None].to(q.dtype),
+                              causal=True, sm_scale=hd ** -0.5,
+                              impl=_serve_attn_impl(cfg), q_offset=offset)
+            else:
+                kvh = ak.shape[1]
+                qg = q[0].reshape(s, kvh, -1, hd).float()
+                scores = torch.einsum("skgd,lkd->kgsl", qg,
+                                      ak.float()) / math.sqrt(hd)
+                scores = torch.where(keeps[d][None, None], scores,
+                                     torch.full_like(scores, -1e30))
+                probs = torch.softmax(scores, dim=-1)
+                o = torch.einsum("kgsl,lkd->skgd", probs, av.float())
+            outs.append(o.reshape(1, s, -1))
+        xs = _layer_tail(par, xs, outs, i, cfg)
+    return _logits(par, xs, cfg, lambda x: x[0, length - 1]), acc
 
 
 class _NUMPY_OPS:
@@ -349,30 +612,39 @@ def decode_token_core(model: Llama, kcache, vcache, tokens: torch.Tensor,
                       top_ks: Optional[torch.Tensor] = None,
                       attend=None) -> torch.Tensor:
     """The decode-step transformer, one token for every slot. The cache
-    layout is abstracted by callables applied per layer i: ``write(ck,
-    cv, k, v)`` stores the new token's KV (k/v: (slots, kvh, hd)) into
-    layer views ``ck = kcache[i]``, in place; ``view(ck, cv) -> (vk,
-    vv)`` yields the (slots, L, kvh, hd) attention view. ``attend(q, ck,
-    cv, positions) -> (slots, h*hd) f32`` replaces view +
-    _gqa_attend_cached when set (the paged kernel path). Returns the
-    sampled tokens (slots,) int32."""
+    layout is abstracted by callables applied per layer i and shard:
+    ``write(ck, cv, k, v)`` stores the new token's KV (k/v: (slots, kvh,
+    hd)) into layer views ``ck = kcache[i]``, in place; ``view(ck, cv) ->
+    (vk, vv)`` yields the (slots, L, kvh, hd) attention view. ``attend(q,
+    ck, cv, positions) -> (slots, heads*hd) f32`` replaces view +
+    _gqa_attend_cached when set (the paged kernel path). For a
+    ``ShardedLlama`` the caches are per-shard lists and the hooks run
+    once per shard on its heads (kvh and h read from the shapes), with
+    ``positions`` on the shard's device. Returns the sampled tokens
+    (slots,) int32, sampled once from the gathered logits."""
     b = tokens.shape[0]
-    x = model.embed(tokens[:, None].long())                # (b, 1, dim)
-    rc, rs = _rope_tables(positions[:, None], cfg.head_dim, cfg.rope_theta)
-    for i, lyr in enumerate(model.layers):
-        ck, cv = kcache[i], vcache[i]
-        y = _rmsnorm(x, lyr.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(y, lyr, cfg)                        # (b, 1, ...)
-        q, k = _rope(q, rc, rs), _rope(k, rc, rs)
-        write(ck, cv, k[:, 0], v[:, 0])
-        if attend is not None:
-            o = attend(q[:, 0], ck, cv, positions)
-        else:
-            vk, vv = view(ck, cv)
-            o = _gqa_attend_cached(q[:, 0], vk, vv, positions + 1, cfg)
-        x = _layer_tail(x, o.reshape(b, 1, -1), lyr, cfg)
-    x = _rmsnorm(x, model.final_norm, cfg.norm_eps)
-    logits = model.lm_head(x[:, 0]).float()
+    par = _Shards(model)
+    caches = list(zip(parts(kcache), parts(vcache)))
+    xs = _embed(par, tokens[:, None])                      # (b, 1, dim)
+    ropes = _ropes(par, positions[:, None], cfg)
+    pos = par.per_device(lambda d, m: positions.to(d))
+    for i in range(cfg.n_layers):
+        ys = par.norm(xs, i, "attn_norm", cfg.norm_eps)
+        outs = []
+        for (m, d), (kc, vc) in zip(par, caches):
+            ck, cv = kc[i], vc[i]
+            rc, rs = ropes[d]
+            q, k, v = _qkv(ys[d], m.layers[i], cfg)        # (b, 1, ...)
+            q, k = _rope(q, rc, rs), _rope(k, rc, rs)
+            write(ck, cv, k[:, 0], v[:, 0])
+            if attend is not None:
+                o = attend(q[:, 0], ck, cv, pos[d])
+            else:
+                vk, vv = view(ck, cv)
+                o = _gqa_attend_cached(q[:, 0], vk, vv, pos[d] + 1, cfg)
+            outs.append(o.reshape(b, 1, -1))
+        xs = _layer_tail(par, xs, outs, i, cfg)
+    logits = _logits(par, xs, cfg, lambda x: x[:, 0])
     return sample(logits, temps, generator, top_ps, top_ks)
 
 
@@ -386,25 +658,30 @@ def verify_tokens_core(model: Llama, kcache, vcache, tokens: torch.Tensor,
     the draft; positions: (b,) cache position of column 0. All w KVs are
     written (position p+j for column j) in place; ``write(ck, cv, k, v)``
     takes (b, w, kvh, hd) slabs, ``attend(q, ck, cv, pos)`` q (b, w, h,
-    hd) and the (b, w) position grid. Returns (b, w, vocab) f32 logits:
-    row j is the distribution for position p+j+1, the verdict on draft
-    token j+1. No device sampling: acceptance is a host decision
-    (``llm/spec.py``)."""
+    hd) and the (b, w) position grid, per shard as in
+    ``decode_token_core``. Returns (b, w, vocab) f32 logits: row j is the
+    distribution for position p+j+1, the verdict on draft token j+1. No
+    device sampling: acceptance is a host decision (``llm/spec.py``)."""
     b, w = tokens.shape
-    x = model.embed(tokens.long())                          # (b, w, dim)
-    pos = positions[:, None] + torch.arange(
+    par = _Shards(model)
+    caches = list(zip(parts(kcache), parts(vcache)))
+    xs = _embed(par, tokens)                                # (b, w, dim)
+    grid = positions[:, None] + torch.arange(
         w, dtype=positions.dtype, device=positions.device)[None]
-    rc, rs = _rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-    for i, lyr in enumerate(model.layers):
-        ck, cv = kcache[i], vcache[i]
-        y = _rmsnorm(x, lyr.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(y, lyr, cfg)                         # (b, w, ...)
-        q, k = _rope(q, rc, rs), _rope(k, rc, rs)
-        write(ck, cv, k, v)
-        o = attend(q, ck, cv, pos)
-        x = _layer_tail(x, o.reshape(b, w, -1), lyr, cfg)
-    x = _rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return model.lm_head(x).float()
+    ropes = _ropes(par, grid, cfg)
+    pos = par.per_device(lambda d, m: grid.to(d))
+    for i in range(cfg.n_layers):
+        ys = par.norm(xs, i, "attn_norm", cfg.norm_eps)
+        outs = []
+        for (m, d), (kc, vc) in zip(par, caches):
+            ck, cv = kc[i], vc[i]
+            rc, rs = ropes[d]
+            q, k, v = _qkv(ys[d], m.layers[i], cfg)         # (b, w, ...)
+            q, k = _rope(q, rc, rs), _rope(k, rc, rs)
+            write(ck, cv, k, v)
+            outs.append(attend(q, ck, cv, pos[d]).reshape(b, w, -1))
+        xs = _layer_tail(par, xs, outs, i, cfg)
+    return _logits(par, xs, cfg, lambda x: x)
 
 
 def _decode_core(model: Llama, cache: dict, tokens: torch.Tensor,
@@ -422,11 +699,12 @@ def _decode_core(model: Llama, cache: dict, tokens: torch.Tensor,
     b = tokens.shape[0]
     positions = cache["length"]
     rows = torch.arange(b, device=tokens.device)
-    at = torch.clamp(positions, max=cache["k"].shape[2] - 1).long()
+    at = torch.clamp(positions, max=parts(cache["k"])[0].shape[2] - 1).long()
 
     def write(ck, cv, k, v):    # ck/cv: (slots, L, kvh, hd)
-        ck.index_put_((rows, at), k.to(ck.dtype))
-        cv.index_put_((rows, at), v.to(cv.dtype))
+        idx = (rows.to(ck.device), at.to(ck.device))
+        ck.index_put_(idx, k.to(ck.dtype))
+        cv.index_put_(idx, v.to(cv.dtype))
 
     def view(ck, cv):
         return ck, cv
@@ -473,9 +751,10 @@ def decode_steps(model: Llama, cache: dict, tokens: torch.Tensor,
 def write_prefill_to_cache(cache: dict, kv: dict, slot: int,
                            length: int) -> dict:
     """Install a prefilled request's KV (layers, n, kvh, hd), n <= the
-    cache length, into ``slot`` in place, and set its length."""
-    n = kv["k"].shape[1]
+    cache length, into ``slot`` in place, and set its length. A sharded
+    cache takes per-shard KV."""
     for key in ("k", "v"):
-        cache[key][:, slot, :n] = kv[key].to(cache[key].dtype)
+        for c, x in zip(parts(cache[key]), parts(kv[key])):
+            c[:, slot, :x.shape[1]] = x.to(c.dtype)
     cache["length"][slot] = int(length)
     return cache

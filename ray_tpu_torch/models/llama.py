@@ -129,8 +129,13 @@ class LlamaLayer(nn.Module):
         self.w_down = nn.Linear(f, d, bias=False, **factory)
 
     def mlp(self, x: torch.Tensor, eps: float) -> torch.Tensor:
-        y = _rmsnorm(x, self.mlp_norm, eps)
-        return self.w_down(F.silu(self.w_gate(y)) * self.w_up(y))
+        return swiglu(self, _rmsnorm(x, self.mlp_norm, eps))
+
+
+def swiglu(lyr, y: torch.Tensor) -> torch.Tensor:
+    """The MLP's product on its normed input ``y``, over the ffn width
+    ``lyr`` holds (all of it, or one tensor shard's)."""
+    return lyr.w_down(F.silu(lyr.w_gate(y)) * lyr.w_up(y))
 
 
 class Llama(nn.Module):

@@ -97,13 +97,6 @@ def _safe_close(shm: shared_memory.SharedMemory) -> None:
         _LEAKED.append(shm)
 
 
-def _is_remote(uri: Optional[str]) -> bool:
-    """util/storage.py's ``is_remote``: a URI with a scheme other than
-    ``file``."""
-    return bool(uri) and "://" in uri \
-        and uri.split("://", 1)[0].lower() != "file"
-
-
 def _align(n: int) -> int:
     return (max(n, 1) + ALIGN - 1) // ALIGN * ALIGN
 
@@ -241,12 +234,21 @@ class SharedObjectStore:
         self._spill_root = None
         self._spill_q = None
         self._spill_lock = threading.Lock()
-        if _is_remote(spill_dir):
-            raise NotImplementedError(
-                f"remote object spill to {spill_dir!r} needs "
-                "util/storage.py, which is not ported to ray_tpu_torch "
-                "yet (ROADMAP Queue 1 item 17); spill to a local "
-                "directory")
+        if spill_dir:
+            from ray_tpu_torch.util.storage import get_storage, is_remote
+            if is_remote(spill_dir):
+                self._spill_storage, root = get_storage(
+                    spill_dir, head_addr=head_addr)
+                self._spill_root = f"{root}/{node_uid or session_id}"
+                import queue as _queue
+                import tempfile
+                self._spill_stage_dir = tempfile.mkdtemp(
+                    prefix=f"rtspill_{(node_uid or session_id)[:8]}_")
+                self._spill_q = _queue.Queue()
+                self._spill_thread = threading.Thread(
+                    target=self._spill_upload_loop, daemon=True,
+                    name="rt-spill-upload")
+                self._spill_thread.start()
         self._entries: "OrderedDict[ObjectID, _Entry]" = OrderedDict()
         self._arenas: List[_Arena] = []
         self._arena_seq = 0

@@ -14,8 +14,11 @@ The port's copy of ``ray_tpu/serve/llm.py``. ``LLMConfig.device`` is the
 one field the JAX package's lacks: ``None`` serves on the CUDA device (and
 a replica raises without one), ``"cpu"`` runs the kernels' plain
 versions. Weights are drawn from ``seed`` on that device
-(``llama.init_params``); a ``checkpoint`` and ``tensor_parallel > 1``
-raise until the port has them. Nothing here imports torch until a
+(``llama.init_params``); a ``checkpoint`` raises until the port has it.
+``tensor_parallel > 1`` serves each replica's engine over a
+``TensorMesh`` (``_serving_mesh``): the first ``tensor_parallel`` visible
+cards, or on ``device="cpu"`` that many CPU entries, which stand in for
+the JAX package's virtual CPU devices. Nothing here imports torch until a
 replica's ``__init__`` builds its engine, so the controller and the proxy
 never load it.
 """
@@ -70,14 +73,25 @@ class LLMConfig:
     device: Optional[str] = None
 
 
-def _serving_mesh(tensor_parallel: int):
-    """None when tensor_parallel == 1 (single-device engine); a
-    tensor-parallel replica waits for the port's TP serving."""
+def _serving_mesh(tensor_parallel: int, device: Optional[str] = None):
+    """A ("tensor",)-axis ``TensorMesh`` over the replica's local
+    devices, or None when tensor_parallel == 1 (single-device engine).
+    On the CPU it repeats the CPU ``tensor_parallel`` times; otherwise
+    it takes the first ``tensor_parallel`` visible cards and raises when
+    fewer are visible."""
     if tensor_parallel <= 1:
         return None
-    raise NotImplementedError(
-        f"tensor_parallel={tensor_parallel}: tensor-parallel serving is "
-        "not ported to ray_tpu_torch yet (ROADMAP Queue 1 item 11)")
+    import torch
+
+    from ray_tpu_torch.parallel.tp import TensorMesh
+    if device is not None and torch.device(device).type == "cpu":
+        return TensorMesh(("cpu",) * tensor_parallel)
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < tensor_parallel:
+        raise ValueError(
+            f"tensor_parallel={tensor_parallel} but only {n} local "
+            "devices are visible")
+    return TensorMesh([f"cuda:{i}" for i in range(tensor_parallel)])
 
 
 def _load_model(cfg: LLMConfig):
@@ -90,7 +104,7 @@ def _load_model(cfg: LLMConfig):
             "LLMConfig.checkpoint: restoring served weights from a "
             "checkpoint directory is not ported to ray_tpu_torch yet "
             "(ROADMAP Queue 1 item 17)")
-    _serving_mesh(cfg.tensor_parallel)
+    _serving_mesh(cfg.tensor_parallel, cfg.device)   # before any weights
     import torch
 
     from ray_tpu_torch._device import resolve_device
@@ -110,13 +124,22 @@ class _LLMServer:
 
     def __init__(self, cfg: LLMConfig):
         from ray_tpu_torch.llm.engine import LLMEngine
+        from ray_tpu_torch.llm.model import shard_params_for_serving
         model_cfg, params = _load_model(cfg)
+        mesh = _serving_mesh(cfg.tensor_parallel, cfg.device)
+        if mesh is not None:
+            # split here, so the whole weights are gone before the engine
+            # sizes its pool from the cards' free memory
+            params = shard_params_for_serving(params, mesh, model_cfg)
+            if mesh.devices[0].type == "cuda":
+                import torch
+                torch.cuda.empty_cache()
         self.engine = LLMEngine(
             model_cfg, params, max_slots=cfg.max_slots,
             max_len=cfg.max_len, prefill_buckets=cfg.prefill_buckets,
             cache_dtype=cfg.cache_dtype,
             steps_per_sync=cfg.steps_per_sync, seed=cfg.seed,
-            mesh=_serving_mesh(cfg.tensor_parallel),
+            mesh=mesh,
             kv_block_size=cfg.kv_block_size,
             kv_pool_blocks=cfg.kv_pool_blocks,
             prefix_cache=cfg.prefix_cache, device=params.device)

@@ -289,17 +289,17 @@ def test_paged_attention_verify_matches_k4_per_row(dev, dtype, wq):
         torch.testing.assert_close(got[:, j], want, atol=2e-5, rtol=2e-5)
 
 
-def _tiny_streams(model, device, mode, reqs):
+def _tiny_streams(model, device, mode, reqs, mesh=None):
     """Greedy streams of the tiny engine in one of the serving modes:
-    speculative (periodic prompts draft), monolithic, or prefill/decode
-    handoff (PrefillEngine payloads admitted by a paged engine: host
-    arrays, or with "pd_handle" TensorRef handles to the KV parked on
-    ``device``)."""
+    paged, speculative (periodic prompts draft), monolithic, or
+    prefill/decode handoff (PrefillEngine payloads admitted by a paged
+    engine: host arrays, or with "pd_handle" TensorRef handles to the KV
+    parked on ``device``); tensor-parallel over ``mesh`` where given."""
     from ray_tpu_torch.llm.engine import LLMEngine
     from ray_tpu_torch.llm.pd import PrefillEngine
     cfg = model.cfg
     kw = dict(max_slots=2, max_len=128, prefill_buckets=(16, 32),
-              cache_dtype="float32", device=device)
+              cache_dtype="float32", device=device, mesh=mesh)
     if mode == "spec":
         kw["spec"] = True
     if mode == "monolithic":
@@ -353,6 +353,39 @@ def test_tiny_serving_modes_on_card_match_cpu(dev, mode):
         assert (k4 == 0) == (mode == "monolithic")
     assert (verify > 0) == (mode == "spec")
     assert on_gpu == _tiny_streams(cpu, "cpu", mode, reqs)
+
+
+@pytest.mark.parametrize("mode", ["paged", "spec", "monolithic", "pd"])
+def test_tiny_tp2_engine_on_card_matches_tp1(dev, mode):
+    """Tensor-parallel serving on one card: the tiny engine at tp 2, both
+    shards on the card (``TensorMesh(("cuda:0",) * 2)``), gives the tp-1
+    engine's greedy streams, with the engine's K1 and K4 launched exactly
+    twice as often (once per shard on its heads)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.tp import TensorMesh
+    cfg = llama.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                     n_kv_heads=2, ffn_dim=512, dtype="float32")
+    model = llama.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, dev)
+    rng = np.random.default_rng(2)
+    pat = [int(t) for t in rng.integers(1, 255, 12)]
+    reqs = [((pat * 6)[:60], 24), ([int(t) for t in
+                                    rng.integers(1, 255, 70)], 12),
+            ([int(t) for t in rng.integers(1, 255, 9)], 8)]
+    counts = []
+    streams = []
+    for mesh in (None, TensorMesh(("cuda:0",) * 2)):
+        before = (fa.flash_attention_fwd.launches,
+                  pa.paged_attention.launches)
+        streams.append(_tiny_streams(model, dev, mode, reqs, mesh=mesh))
+        counts.append((fa.flash_attention_fwd.launches - before[0],
+                       pa.paged_attention.launches - before[1]))
+    assert streams[1] == streams[0]
+    # the PD payloads come from an unsharded PrefillEngine: its K1
+    # launches are the same in both runs
+    k1_per = 1 if mode == "pd" else 2
+    assert counts[1] == (k1_per * counts[0][0], 2 * counts[0][1])
+    assert counts[0][0] > 0 and (counts[0][1] > 0) == (mode != "monolithic")
 
 
 LSE_CASES = [

@@ -155,7 +155,10 @@ def test_deadline_exceeded(models):
     (dict(mesh=object()), "tensor-parallel"),
 ])
 def test_unported_options_raise(models, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """``mesh=`` takes a ``TensorMesh``; anything else is refused before
+    the engine builds anything (tensor-parallel serving itself is held to
+    the JAX engine in ``test_torch_llm_sharded.py``)."""
+    with pytest.raises(TypeError, match=match):
         _engine(models, **kw)
 
 

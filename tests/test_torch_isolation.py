@@ -33,7 +33,8 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.llm.model", "ray_tpu_torch.llm.kvcache",
                 "ray_tpu_torch.llm.engine", "ray_tpu_torch.llm.spec",
                 "ray_tpu_torch.llm.pd", "ray_tpu_torch.parallel",
-                "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.config",
+                "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.tp",
+                "ray_tpu_torch.config",
                 "ray_tpu_torch.util.events", "ray_tpu_torch.util.metrics",
                 "ray_tpu_torch.util.tracing", "ray_tpu_torch.util.devmon",
                 "ray_tpu_torch.util.forensics", "ray_tpu_torch.serve",
@@ -67,6 +68,8 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.data.iterator", "ray_tpu_torch.data.llm",
                 "ray_tpu_torch.data.shuffle", "ray_tpu_torch.data.tfrecord",
                 "ray_tpu_torch.util.joblib_backend",
+                "ray_tpu_torch.util.actor_pool", "ray_tpu_torch.util.queue",
+                "ray_tpu_torch.util.multiprocessing",
                 "ray_tpu_torch.train", "ray_tpu_torch.train.api",
                 "ray_tpu_torch.train.checkpoint",
                 "ray_tpu_torch.train.ckptio",
@@ -104,6 +107,34 @@ def test_port_modules_list_every_module():
                                   "ray_tpu_torch._device",
                                   "ray_tpu_torch.ops._build"}
     assert found <= listed, sorted(found - listed)
+
+
+def test_tp2_engine_leaves_jax_and_ray_tpu_out():
+    """In a fresh process, a tensor-parallel engine over the CPU
+    stand-in mesh (``parallel.tp.TensorMesh``) serves a request through
+    its sharded prefill and decode: jax, ml_dtypes and every ray_tpu
+    module stay out of ``sys.modules``."""
+    code = (
+        "import asyncio, sys, torch\n"
+        "from ray_tpu_torch.llm.engine import LLMEngine\n"
+        "from ray_tpu_torch.models import llama\n"
+        "from ray_tpu_torch.parallel.tp import TensorMesh\n"
+        "cfg = llama.tiny(dtype='float32', n_layers=1)\n"
+        "m = llama.init_params(torch.Generator().manual_seed(0), cfg, 'cpu')\n"
+        "async def go():\n"
+        "    eng = LLMEngine(cfg, m, mesh=TensorMesh(('cpu', 'cpu')),\n"
+        "                    max_slots=2, max_len=64, prefill_buckets=(16,),\n"
+        "                    cache_dtype='float32')\n"
+        "    out = await eng.generate([1, 2, 3], max_new_tokens=4)\n"
+        "    await eng.stop()\n"
+        "    return out['tokens']\n"
+        "assert len(asyncio.run(go())) == 4\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_runtime_leaves_jax_and_ray_tpu_out():

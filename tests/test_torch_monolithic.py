@@ -84,8 +84,19 @@ def test_init_cache_matches_jax(models):
         assert not tc[key].any()
     assert tc["k"].dtype == torch.bfloat16
     assert tc["length"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tlm.init_cache(tcfg, 3, 40, torch.float32, "cpu", mesh=object())
+    # over a mesh: the JAX cache's per-device shards, one tensor each
+    from jax.sharding import Mesh
+
+    from ray_tpu_torch.parallel.tp import TensorMesh
+    jm = jlm.init_cache(jcfg, 3, 40, dtype=jnp.float32,
+                        mesh=Mesh(np.asarray(jax.devices()[:2]), ("tensor",)))
+    tm = tlm.init_cache(tcfg, 3, 40, torch.float32, "cpu",
+                        mesh=TensorMesh(("cpu",) * 2))
+    for key in ("k", "v"):
+        want = [s.data.shape for s in jm[key].addressable_shards]
+        assert [tuple(x.shape) for x in tm[key]] == want
+        assert not any(x.any() for x in tm[key])
+    assert tuple(tm["length"].shape) == jm["length"].shape
 
 
 def test_write_prefill_to_cache_matches_jax(models):

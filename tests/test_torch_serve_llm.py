@@ -187,20 +187,26 @@ def test_llm_config_is_the_jax_config_plus_device():
     assert fields(LLMConfig) == fields(jllm.LLMConfig) + [("device", None)]
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(tensor_parallel=2), "item 11"),
-    (dict(checkpoint="/nonexistent/params"), "item 17"),
+@pytest.mark.parametrize("kw, exc, match", [
+    pytest.param(dict(tensor_parallel=2, device="cuda"), ValueError,
+                 "only 1 local devices", id="kw0-item 11"),
+    pytest.param(dict(checkpoint="/nonexistent/params"),
+                 NotImplementedError, "item 17", id="kw1-item 17"),
 ])
 def test_unported_options_raise_before_drawing_weights(monkeypatch, kw,
-                                                       item):
-    """(f) ``tensor_parallel > 1`` and ``checkpoint=`` raise, naming the
-    ROADMAP Queue 1 item they wait for, before any weights are drawn."""
+                                                       exc, match):
+    """(f) ``checkpoint=`` raises, naming the ROADMAP Queue 1 item it
+    waits for, and ``tensor_parallel`` beyond the visible cards raises as
+    the JAX package's ``_serving_mesh`` does, both before any weights are
+    drawn (one card visible here)."""
     from ray_tpu_torch.models import llama
 
     def drawn(*a, **k):
         raise AssertionError("weights drawn")
     monkeypatch.setattr(llama, "init_params", drawn)
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(exc, match=match):
         tllm._load_model(dataclasses.replace(CFG, **kw))
 
 

@@ -83,6 +83,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      versions at the training shapes (s 4096, a ragged 1000, non-causal),
      timed beside the plain versions, SDPA and their bounds (ms and
      TF/s), and K2 and K3 each twice on the same inputs (bitwise equal);
+     then the same at one tensor shard's heads (16 query, 4 kv), the
+     shape mesh A's shards run;
   7. a 2-layer full-width model's loss and gradients through the kernels
      against the same through plain attention;
   8. make_train_step on Llama-3-8B at full width cut to 8 layers (bf16,
@@ -91,7 +93,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      kernels' launch counts (K1/K2/K3 per step 16/8/8 under "full",
      8/8/8 under the others), step time, tok/s, MFU and peak memory, one
      step traced for the device's busy share, and step 1's loss and grad
-     norm held equal across the policies;
+     norm held equal across the policies; then the same "dots" step over
+     two meshes of four shards on the one card (``run_mesh``): mesh A
+     (fsdp 2, tensor 2: K1 with lse, K2 and K3 exactly 32 times a step)
+     and mesh B (tensor 2, context 2: ring attention, no kernel), each
+     from the same weights, its first 3 losses and grad norms held to
+     the single-device run's, step time, tok/s, peak memory and one
+     traced step's busy time and idle share beside the single-device
+     step's;
   9. the training path through the train library (``run_trainer``):
      init(), a TorchTrainer whose one worker trains Llama-3-8B's widths
      at 2 layers under "dots" for 6 steps on the card, saves through
@@ -2325,13 +2334,16 @@ def run_hooks(model, cfg, card: str) -> dict:
     return dict(launches=launches, drives=drives)
 
 
-def check_train_kernels(fa, gen) -> dict:
+def check_train_kernels(fa, gen, h: int = 32, kvh: int = 8,
+                        label: str = "") -> dict:
     """K1 with lse, K2 and K3 at the training path's shapes: Llama-3-8B
-    heads (32 query, 8 kv, head_dim 128), bf16, batch 1; s 4096 causal
-    (timed), a ragged 1000 causal and 1000 non-causal (checked). Each
-    kernel gets the same inputs as its plain version (K2/K3 the kernel
-    forward's lse and delta)."""
-    b, h, kvh, d = 1, 32, 8, 128
+    heads (32 query, 8 kv, head_dim 128) by default, bf16, batch 1; s 4096
+    causal (timed), a ragged 1000 causal and 1000 non-causal (checked).
+    Each kernel gets the same inputs as its plain version (K2/K3 the
+    kernel forward's lse and delta). ``h``/``kvh`` set one tensor shard's
+    heads (run_mesh's mesh A: 16/4 at one batch row, its shards' shape),
+    ``label`` tags the printed lines."""
+    b, d = 1, 128
     worst = {"fwd": [0.0, 0.0, 0.0], "dkv": [0.0, 0.0], "dq": [0.0, 0.0]}
     timed = {}
     for s_, causal in ((4096, True), (1000, True), (1000, False)):
@@ -2390,7 +2402,8 @@ def check_train_kernels(fa, gen) -> dict:
               and errs["dkv"][0] <= BWD_ROW_REL_TOL
               and errs["dq"][0] <= BWD_ROW_REL_TOL
               and row0 <= ONE_KEY_ULPS)
-        print(f"train kernels s={s_} causal={causal}: K1+lse worst row "
+        print(f"train kernels{label} h={h} kvh={kvh} s={s_} "
+              f"causal={causal}: K1+lse worst row "
               f"rel {errs['fwd'][0]:.3e} (tol {K1_ROW_REL_TOL}), lse max "
               f"abs {errs['fwd'][1]:.3e} (tol {LSE_ABS_TOL}); K2 dK/dV "
               f"worst row rel {errs['dkv'][0]:.3e}, K3 dQ worst row rel "
@@ -2401,8 +2414,8 @@ def check_train_kernels(fa, gen) -> dict:
               f"{dq_r.float().pow(2).mean().sqrt().item():.3e}); K2 and K3 "
               f"twice bitwise equal {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit("a training kernel disagrees with its plain "
-                             "version")
+            raise SystemExit(f"a training kernel{label} disagrees with "
+                             "its plain version")
         for name, e in errs.items():
             worst[name] = [max(a, b_) for a, b_ in zip(worst[name], e)]
         if s_ != 4096:
@@ -2450,7 +2463,8 @@ def check_train_kernels(fa, gen) -> dict:
                                library=tflops(lib_w, t["library_ms"]),
                                bound=tflops(w, bms))
             tf = t["tflops"]
-            print(f"train kernel {name} b=1 s=4096 causal: kernel "
+            print(f"train kernel{label} {name} b=1 s=4096 h={h} kvh={kvh} "
+                  f"causal: kernel "
                   f"{t['ms']:.4f} ms ({tf['kernel']:.1f} TF/s), plain "
                   f"{t['plain_ms']:.4f} ms ({tf['plain']:.1f} TF/s), SDPA "
                   f"{t['library_ms']:.4f} ms ({tf['library']:.1f} TF/s"
@@ -2538,6 +2552,115 @@ POLICY_LOSS_REL_TOL = 1e-6
 POLICY_GNORM_REL_TOL = 1e-5
 
 
+def sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+class TrainLoop:
+    """Steps of one train state on one batch: each step's host wall
+    around a sync of every card, its loss and grad norm."""
+
+    def __init__(self, state, step_fn, batch):
+        self.state, self.step_fn, self.batch = state, step_fn, batch
+        self.losses, self.norms, self.walls = [], [], []
+
+    def step(self) -> None:
+        sync_cards()
+        t = time.monotonic()
+        self.state, m = self.step_fn(self.state, self.batch)
+        self.losses.append(m["loss"].item())
+        self.norms.append(m["grad_norm"].item())
+        sync_cards()
+        self.walls.append(time.monotonic() - t)
+
+
+def train_batch(cfg, b: int, s: int) -> dict:
+    """The training phases' batch: b x s random tokens from seed 0,
+    targets shifted by one, on the card."""
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1)), device="cuda")
+    return {"tokens": toks[:, :-1].contiguous(),
+            "targets": toks[:, 1:].contiguous()}
+
+
+def reset_train_counts(fa) -> None:
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.lse_launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+
+
+def train_counts(fa) -> dict:
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_fwd_lse": fa.flash_attention_fwd.lse_launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
+
+
+def ops_per_step(loop: TrainLoop) -> int:
+    """The ops one more step of ``loop`` dispatches (every aten call the
+    host issues, counted by a dispatch mode): the host's work a step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        loop.step()
+    return Count.n
+
+
+def trace_train(loop: TrainLoop, label: str, card: str) -> dict:
+    """One more step of ``loop`` under the profiler: device busy time
+    by kernel kind (over every card), the busiest card's idle share of
+    the step's host wall, each attention kernel's time per launch and the
+    top kernels; then the ops one more step dispatches
+    (``ops_per_step``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop.step()
+    kinds, names, cards = {}, {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            kind = _kernel_kind(e.name)
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+            t, c = names.get(e.name, (0.0, 0))
+            names[e.name] = (t + ms, c + 1)
+            cards[e.device_index] = cards.get(e.device_index, 0.0) + ms
+    busy = max(cards.values(), default=0.0)
+    wall_ms = loop.walls[-1] * 1e3
+    idle = f"{1 - busy / wall_ms:.3f}" if busy else "not measured"
+    per_launch = {k: names[n][0] / names[n][1] for n in names
+                  for k in ("K1", "K2", "K3") if _kernel_kind(n) == k}
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:8]
+    n_ops = ops_per_step(loop)
+    per_card = ("" if len(cards) < 2 else " (per card: " + ", ".join(
+        f"cuda:{i} {v:.1f}" for i, v in sorted(cards.items())) + ")")
+    print(f"train step traced [{label}] [{card}]: host wall {wall_ms:.1f} "
+          f"ms, device busy {busy:.1f} ms{per_card}, device idle share "
+          f"{idle}; "
+          f"{n_ops} ops dispatched by the next step; by "
+          f"kind (ms): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1]))
+          + "; per launch (ms): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in sorted(per_launch.items()))
+          + "; top kernels (ms, count): "
+          + "; ".join(f"{k[:50]} {v[0]:.1f} x{v[1]}" for k, v in top))
+    return {"kinds_ms": kinds, "per_launch_ms": per_launch,
+            "busy_ms": busy, "wall_ms": wall_ms, "idle": idle,
+            "ops": n_ops}
+
+
 def train_policy(fa, card: str, policy: str) -> dict:
     """make_train_step on Llama-3-8B at its published widths (dim 4096,
     32/8 heads, ffn 14336, vocab 128256, rope 5e5) cut to 8 layers, bf16,
@@ -2547,9 +2670,6 @@ def train_policy(fa, card: str, policy: str) -> dict:
     timed steps whose launch counts must be K1 (all with lse) = 2 * 8 * 5
     under "full" and 8 * 5 under "attn" and "dots", K2 = K3 = 8 * 5; the
     peak memory of the timed steps; then one step traced."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import default_optimizer, make_train_step
     from ray_tpu_torch.parallel.mesh import global_norm
@@ -2566,36 +2686,17 @@ def train_policy(fa, card: str, policy: str) -> dict:
     print(f"train [{policy}] [{card}]: llama3_8b widths, {cfg.n_layers} layers, "
           f"{cfg.num_params() / 1e9:.3f}B params, bf16, random weights "
           f"(seed 0) and AdamW state in {time.monotonic() - t0:.1f} s")
-    toks = torch.tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (b, s + 1)), device="cuda")
-    batch = {"tokens": toks[:, :-1].contiguous(),
-             "targets": toks[:, 1:].contiguous()}
-    losses, norms, walls = [], [], []
-
-    def step():
-        nonlocal state
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        state, m = step_fn(state, batch)
-        losses.append(m["loss"].item())
-        norms.append(m["grad_norm"].item())
-        torch.cuda.synchronize()
-        walls.append(time.monotonic() - t)
-
+    loop = TrainLoop(state, step_fn, train_batch(cfg, b, s))
+    del state
     for _ in range(2):
-        step()
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_fwd.lse_launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
+        loop.step()
+    reset_train_counts(fa)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(steps):
-        step()
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "flash_attention_fwd_lse": fa.flash_attention_fwd.lse_launches,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
+        loop.step()
+    launches = train_counts(fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, norms, walls = loop.losses, loop.norms, loop.walls
     n = cfg.n_layers * steps
     k1 = (2 if policy == "full" else 1) * n
     want = {"flash_attention_fwd": k1, "flash_attention_fwd_lse": k1,
@@ -2621,50 +2722,28 @@ def train_policy(fa, card: str, policy: str) -> dict:
           f"{tok_s:.1f} tok/s, MFU {mfu:.4f} (flops_per_token(4096) "
           f"{cfg.flops_per_token(s):.4e} / 989 TF/s), peak memory "
           f"{peak_gb:.2f} GB (max_memory_allocated over the timed steps)")
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-    kinds, names = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            kind = _kernel_kind(e.name)
-            kinds[kind] = kinds.get(kind, 0.0) + ms
-            t, c = names.get(e.name, (0.0, 0))
-            names[e.name] = (t + ms, c + 1)
-    busy = sum(kinds.values())
-    wall_ms = walls[-1] * 1e3
-    idle = f"{1 - busy / wall_ms:.3f}" if busy else "not measured"
-    per_launch = {k: names[n][0] / names[n][1] for n in names
-                  for k in ("K1", "K2", "K3") if _kernel_kind(n) == k}
-    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"train step traced [{policy}] [{card}]: host wall {wall_ms:.1f} "
-          f"ms, device busy {busy:.1f} ms, device idle share {idle}; by "
-          f"kind (ms): "
-          + "; ".join(f"{k} {v:.1f}" for k, v in
-                      sorted(kinds.items(), key=lambda kv: -kv[1]))
-          + "; per launch at b=2 s=4096 (ms): "
-          + "; ".join(f"{k} {v:.3f}" for k, v in sorted(per_launch.items()))
-          + "; top kernels (ms, count): "
-          + "; ".join(f"{k[:50]} {v[0]:.1f} x{v[1]}" for k, v in top))
+    traced = trace_train(loop, policy, card)
 
     if policy == "full":
-        params = list(state.params.parameters())
+        params = list(loop.state.params.parameters())
         grads = [p.grad for p in params]
 
         def update():
-            opt.update(state.opt_state, params, grads, global_norm(grads))
+            opt.update(loop.state.opt_state, params, grads,
+                       global_norm(grads))
 
         print(f"optimizer update alone [{card}] (global norm, clip, AdamW over "
               f"{len(params)} tensors): {time_ms(update, iters=3):.1f} ms")
-    del state
+        del params, grads
+    del loop
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "per_launch_ms": per_launch,
-            "step1": (losses[0], norms[0]), "step_ms": step_s * 1e3,
-            "tok_s": tok_s, "mfu": mfu, "peak_gb": peak_gb,
-            "kinds_ms": kinds}
+    return {"launches": launches, "per_launch_ms": traced["per_launch_ms"],
+            "step1": (losses[0], norms[0]), "losses": losses,
+            "norms": norms, "step_ms": step_s * 1e3, "tok_s": tok_s,
+            "mfu": mfu, "peak_gb": peak_gb, "kinds_ms": traced["kinds_ms"],
+            "busy_ms": traced["busy_ms"], "idle": traced["idle"],
+            "ops": traced["ops"]}
 
 
 def run_train(fa, card: str) -> dict:
@@ -2692,6 +2771,140 @@ def run_train(fa, card: str) -> dict:
                   "flash_attention_fwd_lse", "flash_attention_bwd_dkv",
                   "flash_attention_bwd_dq"))
               for p, r in runs.items()))
+    return runs
+
+
+# The mesh phase (run_mesh): run_train's 8-layer "dots" step over two
+# meshes of four shards, all on the one card (a repeated device stands in
+# for four cards, with the real per-shard shapes and launches): mesh A
+# splits the batch rows and the weights' width over fsdp and heads, ffn
+# and vocab over tensor; mesh B splits heads over tensor and the sequence
+# over context, where attention is the plain ring (no kernel). Each from
+# run_train's weights and batch, its first MESH_PARITY_STEPS losses and
+# grad norms held to the single-device "dots" run's at TRAIN_LOSS_REL_TOL
+# and TRAIN_GNORM_REL_TOL: bf16 partial sums over the tensor shards (and
+# the ring's f32 attention against K1-K3's bf16 rounding) move the loss by
+# ~1e-4 and the grad norm by ~1e-3, as kernels against plain attention do
+# (check_train_parity); a dropped shard or a doubled sum moves them by
+# percents.
+MESHES = {"A": dict(data=1, fsdp=2, tensor=2, context=1),
+          "B": dict(data=1, fsdp=1, tensor=2, context=2)}
+MESH_PARITY_STEPS = 3
+
+
+def mesh_step(fa, card: str, name: str, single: dict,
+              devices=("cuda:0",) * 4) -> dict:
+    """make_train_step(cfg, mesh) on mesh ``name`` over ``devices``:
+    the shards drawn from seed 0 (the same weights as run_train's), 2
+    warm-up and 5 timed steps on run_train's batch with K1 (with lse), K2
+    and K3 counted (mesh A: each 4 shards x 8 layers a step; mesh B: 0),
+    the peak memory of the timed steps, one step traced; the first steps'
+    losses and grad norms held to ``single``'s."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import (MeshSpec, default_optimizer,
+                                        make_mesh, make_train_step)
+
+    cfg = llama.llama3_8b(n_layers=8, dtype="bfloat16", remat_policy="dots",
+                          logits_dtype="float32", ce_chunk=0)
+    b, s, steps = 2, 4096, 5
+    mesh = make_mesh(MeshSpec(**MESHES[name]), devices=devices)
+    name = name if len(set(devices)) == 1 else f"{name} on {len(devices)} cards"
+    init_fn, step_fn = make_train_step(
+        cfg, mesh, optimizer=default_optimizer(
+            learning_rate=3e-4, warmup_steps=2, total_steps=100))
+    t0 = time.monotonic()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    sync_cards()
+    shard_gb = sorted({sum(p.numel() * p.element_size()
+                           for p in blk.parameters()) / 1e9
+                       for blk in state.params.blocks})
+    print(f"train mesh {name} [{card}]: {mesh.shape} on "
+          f"{[str(d) for d in mesh.devices]}, "
+          f"{cfg.n_layers} layers, drawn and sharded in "
+          f"{time.monotonic() - t0:.1f} s; (fsdp, tensor) blocks of "
+          f"{shard_gb} GB each")
+    loop = TrainLoop(state, step_fn, train_batch(cfg, b, s))
+    del state
+    for _ in range(2):
+        loop.step()
+    reset_train_counts(fa)
+    for d in set(mesh.devices):
+        torch.cuda.reset_peak_memory_stats(d)
+    for _ in range(steps):
+        loop.step()
+    launches = train_counts(fa)
+    peak_gb = max(torch.cuda.max_memory_allocated(d)
+                  for d in set(mesh.devices)) / 1e9
+    shards = 4 if mesh.shape["context"] == 1 else 0
+    n = shards * cfg.n_layers * steps
+    want = {"flash_attention_fwd": n, "flash_attention_fwd_lse": n,
+            "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+    per_step = "/".join(str(launches[k] // steps) for k in (
+        "flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq"))
+    k = MESH_PARITY_STEPS
+    loss_rel = max(abs(a - w) / abs(w) for a, w in
+                   zip(loop.losses[:k], single["losses"][:k]))
+    norm_rel = max(abs(a - w) / abs(w) for a, w in
+                   zip(loop.norms[:k], single["norms"][:k]))
+    ok = (all(np.isfinite(loop.losses)) and all(np.isfinite(loop.norms))
+          and loss_rel <= TRAIN_LOSS_REL_TOL
+          and norm_rel <= TRAIN_GNORM_REL_TOL and launches == want)
+    print(f"train mesh {name} [{card}] losses "
+          f"{['%.5f' % x for x in loop.losses]} (single device "
+          f"{['%.5f' % x for x in single['losses'][:k]]}), grad norms "
+          f"{['%.4f' % x for x in loop.norms]} (single "
+          f"{['%.4f' % x for x in single['norms'][:k]]}); steps 1-{k} worst "
+          f"rel loss {loss_rel:.2e} (tol {TRAIN_LOSS_REL_TOL}), grad norm "
+          f"{norm_rel:.2e} (tol {TRAIN_GNORM_REL_TOL}); launches over the "
+          f"{steps} timed steps {launches}, K1 (with lse)/K2/K3 per step "
+          f"{per_step} (want {n // steps} each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"mesh {name}'s train step disagrees with the "
+                         "single-device step or its launch counts")
+    step_s = float(np.median(loop.walls[2:]))
+    tok_s = b * s / step_s
+    traced = trace_train(loop, f"mesh {name}", card)
+    print(f"train step mesh {name} [{card}]: host wall median "
+          f"{step_s * 1e3:.1f} ms (steps "
+          f"{', '.join('%.1f' % (w * 1e3) for w in loop.walls[2:7])} ms), "
+          f"{tok_s:.1f} tok/s, peak memory {peak_gb:.2f} GB (the fullest "
+          f"card); single-device "
+          f"\"dots\" in this run: {single['step_ms']:.1f} ms, "
+          f"{single['tok_s']:.1f} tok/s, {single['peak_gb']:.2f} GB, busy "
+          f"{single['busy_ms']:.1f} ms, idle {single['idle']}")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_s * 1e3, "tok_s": tok_s,
+            "peak_gb": peak_gb, "busy_ms": traced["busy_ms"],
+            "idle": traced["idle"], "kinds_ms": traced["kinds_ms"],
+            "ops": traced["ops"], "loss_rel": loss_rel,
+            "norm_rel": norm_rel}
+
+
+def run_mesh(fa, card: str, single: dict) -> dict:
+    """mesh_step over mesh A and mesh B, beside run_train's "dots" run
+    (``single``), and a table of them; where four cards are visible,
+    mesh A also with each shard on its own card ("A4": every collective a
+    copy between cards)."""
+    runs = {name: mesh_step(fa, card, name, single) for name in MESHES}
+    if torch.cuda.device_count() >= 4:
+        runs["A4"] = mesh_step(fa, card, "A", single,
+                               devices=[f"cuda:{i}" for i in range(4)])
+    print(f"train meshes [{card}] (step ms, tok/s, peak GB, device busy ms, "
+          f"idle share traced, ops a step, K1/K2/K3 a step): single dots: "
+          f"{single['step_ms']:.1f}, {single['tok_s']:.1f}, "
+          f"{single['peak_gb']:.2f}, {single['busy_ms']:.1f}, "
+          f"{single['idle']}, {single['ops']}, 8/8/8; " + "; ".join(
+              f"mesh {n} {MESHES[n[0]]}: {r['step_ms']:.1f}, "
+              f"{r['tok_s']:.1f}, "
+              f"{r['peak_gb']:.2f}, {r['busy_ms']:.1f}, {r['idle']}, "
+              f"{r['ops']}, "
+              + "/".join(str(r["launches"][k] // 5) for k in (
+                  "flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"))
+              for n, r in runs.items()))
     return runs
 
 
@@ -3099,8 +3312,10 @@ def main() -> int:
                 "dag_pd": rpd["dag"]["decode"]["paged_attention"]}
 
     tk = check_train_kernels(fa, gen)
+    tk_shard = check_train_kernels(fa, gen, 32 // TP, 8 // TP, " tp-shard")
     check_train_parity(fa, card)
     train = run_train(fa, card)
+    meshes = run_mesh(fa, card, train["dots"])
     gc.collect()
     torch.cuda.empty_cache()
     trainer = run_trainer(card)
@@ -3110,11 +3325,17 @@ def main() -> int:
                for name, key in (("K1", "flash_attention_fwd_lse"),
                                  ("K2", "flash_attention_bwd_dkv"),
                                  ("K3", "flash_attention_bwd_dq"))}
-    for i, name in enumerate(("K1", "K2", "K3")):
+    for i, (name, key) in enumerate((("K1", "flash_attention_fwd_lse"),
+                                     ("K2", "flash_attention_bwd_dkv"),
+                                     ("K3", "flash_attention_bwd_dq"))):
+        for m, r in meshes.items():
+            train_k[name][f"train_mesh_{m}"] = r["launches"][key]
         train_k[name]["train_trainer"] = trainer["launches"][i]
     full_ms = train["full"]["per_launch_ms"]
 
     bwd_tol = {"row_rel_l2": BWD_ROW_REL_TOL}
+    shard_at = (f"b=1 s=4096 h={32 // TP} kvh={8 // TP} d=128 bf16 causal "
+                "(mesh A's shard)")
     sdpa_note = ("SDPA's backward computes dQ, dK and dV in one call: "
                  "compare it with K2 ms + K3 ms")
     kernels = [
@@ -3131,7 +3352,9 @@ def main() -> int:
              serving=dict(at="s=512 causal, no lse", **k1),
              serving_tp_shard=dict(
                  at=f"s=512 causal, no lse, {32 // TP} q / {8 // TP} kv "
-                    "heads", **tp["k1_shard"]), **tk["fwd"]),
+                    "heads", **tp["k1_shard"]),
+             train_tp_shard=dict(at=shard_at + ", with lse",
+                                 **tk_shard["fwd"]), **tk["fwd"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              tensor_cores=sass["flash_attention_bwd_dkv"],
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3141,6 +3364,7 @@ def main() -> int:
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
              tolerance=bwd_tol, card=card, library_note=sdpa_note,
              train_per_launch_ms=full_ms.get("K2"),
+             train_tp_shard=dict(at=shard_at, **tk_shard["dkv"]),
              bitwise_twice=True, **tk["dkv"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              tensor_cores=sass["flash_attention_bwd_dq"],
@@ -3151,6 +3375,7 @@ def main() -> int:
              at="b=1 s=4096 h=32 kvh=8 d=128 bf16 causal",
              tolerance=bwd_tol, card=card, library_note=sdpa_note,
              train_per_launch_ms=full_ms.get("K3"),
+             train_tp_shard=dict(at=shard_at, **tk_shard["dq"]),
              bitwise_twice=True, **tk["dq"]),
         dict(name="paged_attention", route="cuda",
              tensor_cores=sass["paged_attention"],

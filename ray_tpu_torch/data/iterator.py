@@ -69,44 +69,61 @@ class DataIterator:
         with prefetch>=1 the NEXT batch's copy is issued before the
         current one is yielded, so the host->device copy overlaps
         downstream compute, and the consumer's current stream waits on a
-        batch's copy when the batch is yielded. ``sharding=`` (the
-        reference's mesh placement) waits for the port's training meshes
-        (ROADMAP Queue 1 item 12)."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "iter_device_batches(sharding=): placing batches on a "
-                "mesh is not ported to ray_tpu_torch yet (ROADMAP Queue "
-                "1 item 12)")
+        batch's copy when the batch is yielded.
+
+        ``sharding=`` a ``parallel.mesh.DeviceMesh`` (the reference's mesh
+        placement) yields each batch already split for the mesh's train
+        step: per column, the list of every mesh shard's block on the
+        shard's device (``models.llama.shard_batch``: rows over (data,
+        fsdp), the sequence over context), one copy per distinct block
+        and device, each copy on its device's copy stream as above."""
         import torch
 
         from ray_tpu_torch._device import resolve_device
-        dev = resolve_device(device)
-        cuda = dev.type == "cuda"
-        copy_stream = torch.cuda.Stream(dev) if cuda else None
+        if sharding is not None:
+            from ray_tpu_torch.models.llama import MeshAxes, shard_batch
+            from ray_tpu_torch.parallel.mesh import DeviceMesh
+            if not isinstance(sharding, DeviceMesh):
+                raise TypeError("sharding= takes a DeviceMesh "
+                                "(parallel.mesh.make_mesh), not "
+                                f"{type(sharding).__name__}")
+            if device is not None:
+                raise ValueError("pass either a device or a sharding")
+            devs = sharding.devices
+        else:
+            devs = (resolve_device(device),)
+        streams = {d: torch.cuda.Stream(d) for d in devs
+                   if d.type == "cuda"}
+
+        def copy(x, dev):
+            if dev.type != "cuda":
+                return x.to(dev)
+            with torch.cuda.stream(streams[dev]):
+                return x.contiguous().pin_memory().to(dev, non_blocking=True)
 
         def put(b):
-            if not cuda:
-                return {k: torch.from_numpy(np.ascontiguousarray(v))
-                        .to(dev) for k, v in b.items()}, None
-            out = {}
-            with torch.cuda.stream(copy_stream):
-                for k, v in b.items():
-                    host = torch.from_numpy(
-                        np.ascontiguousarray(v)).pin_memory()
-                    out[k] = host.to(dev, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(copy_stream)
+            host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in b.items()}
+            out = ({k: copy(v, devs[0]) for k, v in host.items()}
+                   if sharding is None
+                   else shard_batch(host, sharding, MeshAxes(), move=copy))
+            done = {}
+            for dev, stream in streams.items():
+                done[dev] = torch.cuda.Event()
+                done[dev].record(stream)
             return out, done
 
         def ready(item):
             out, done = item
-            if done is not None:
+            for dev, event in done.items():
                 consumer = torch.cuda.current_stream(dev)
-                consumer.wait_event(done)
-                for t in out.values():
-                    # allocated on the copy stream, used on the
-                    # consumer's: the allocator must wait for both
-                    t.record_stream(consumer)
+                consumer.wait_event(event)
+                for col in out.values():
+                    for t in (col if isinstance(col, list) else [col]):
+                        if t.device == dev:
+                            # allocated on the copy stream, used on the
+                            # consumer's: the allocator must wait for both
+                            t.record_stream(consumer)
             return out
 
         it = self.iter_batches(batch_size=batch_size, drop_last=drop_last)

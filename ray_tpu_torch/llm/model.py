@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch.models.llama import (Llama, LlamaConfig, _rmsnorm, _rope,
-                                        _rope_tables, swiglu)
+                                        _rope_tables, _spec_of, swiglu)
 
 
 def bucket_for(buckets, n: int) -> int:
@@ -137,14 +137,6 @@ class ShardedLlama(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.mesh.devices[0]
-
-
-def _spec_of(specs: dict, name: str) -> tuple:
-    """The spec of a parameter by its ``named_parameters`` name."""
-    path = name.split(".")
-    if path[0] == "layers":
-        return specs["layers"][path[2]]
-    return specs[path[0]]
 
 
 @torch.no_grad()

@@ -223,10 +223,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _build.kernel("flash_attention_fwd")
     q, scale = _folded(q, scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if with_lse else None,
-             b, sq, sk, h, kvh, d, offset, int(bool(causal)),
-             float(scale), _DTYPES[q.dtype], stream)
+    with torch.cuda.device(q.device):   # the launch is the current device's
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None,
+                 b, sq, sk, h, kvh, d, offset, int(bool(causal)),
+                 float(scale), _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     if with_lse:
@@ -343,10 +344,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
     fn = _build.kernel("flash_attention_bwd_dkv")
     q, scale = _folded(q, scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             *dims, int(bool(causal)), float(scale), _DTYPES[q.dtype],
-             stream)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), *dims, int(bool(causal)), float(scale),
+                 _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -370,9 +372,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *,
     if q.dtype == torch.bfloat16:
         q = fold_scale(q, scale)   # the kernel applies scale to dQ' only
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
-             int(bool(causal)), float(scale), _DTYPES[q.dtype], stream)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+                 int(bool(causal)), float(scale), _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq

@@ -211,12 +211,13 @@ def paged_attention(q, k_pool, v_pool, tables, lengths,
         part = torch.empty(b * kvh * nsplit * g * (hd + 2),
                            dtype=torch.float32, device=q.device)
         counters = _counters(q.device, stream, b * kvh)
-    err = fn(qk.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tables.data_ptr(), lengths.data_ptr(),
-             part.data_ptr() if part is not None else None,
-             counters.data_ptr() if counters is not None else None,
-             out.data_ptr(), b, kvh, g, hd, bs, w, span, _DTYPES[qk.dtype],
-             _DTYPES[k_pool.dtype], stream)
+    with torch.cuda.device(q.device):   # the launch is the current device's
+        err = fn(qk.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 tables.data_ptr(), lengths.data_ptr(),
+                 part.data_ptr() if part is not None else None,
+                 counters.data_ptr() if counters is not None else None,
+                 out.data_ptr(), b, kvh, g, hd, bs, w, span,
+                 _DTYPES[qk.dtype], _DTYPES[k_pool.dtype], stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -24,31 +24,24 @@ other on its current stream.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
-
-def _device(d) -> torch.device:
-    dev = torch.device(d)
-    if dev.type == "cuda" and dev.index is None:
-        # the name tensors report, so shards compare equal to them
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+from ray_tpu_torch.parallel.mesh import DeviceMesh
 
 
 class TensorMesh:
     """``devices`` in shard order (repeats allowed), one axis named
-    ``axis``. ``shape[axis]`` is the tensor-parallel size, as
-    ``mesh.shape[axis]`` reads on a JAX mesh."""
+    ``axis``: the one-axis ``parallel.mesh.DeviceMesh``, whose
+    collectives these are. ``shape[axis]`` is the tensor-parallel size,
+    as ``mesh.shape[axis]`` reads on a JAX mesh."""
 
     def __init__(self, devices: Sequence, axis: str = "tensor"):
-        if not devices:
-            raise ValueError("a mesh needs at least one device")
-        self.devices: Tuple[torch.device, ...] = tuple(
-            _device(d) for d in devices)
+        self._mesh = DeviceMesh(list(devices), (axis,))
+        self.devices: Tuple[torch.device, ...] = self._mesh.devices
         self.axis = axis
-        self.shape = {axis: len(self.devices)}
+        self.shape = self._mesh.shape
 
     @property
     def size(self) -> int:
@@ -58,29 +51,14 @@ class TensorMesh:
         return (f"TensorMesh({[str(d) for d in self.devices]}, "
                 f"axis={self.axis!r})")
 
-    def _collect(self, parts: Sequence[torch.Tensor],
-                 combine: Callable[[List[torch.Tensor]], torch.Tensor]
-                 ) -> List[torch.Tensor]:
-        if len(parts) != self.size:
-            raise ValueError(f"{len(parts)} parts for a mesh of "
-                             f"{self.size} shards")
-        dst = self.devices[0]
-        out = combine([p.to(dst) for p in parts])
-        return [out.to(d) for d in self.devices]
-
     def all_reduce(self, parts: Sequence[torch.Tensor]
                    ) -> List[torch.Tensor]:
         """The sum of the shards' partials, added in shard order, on
         every shard's device."""
-        def add(ps):
-            total = ps[0]
-            for p in ps[1:]:
-                total = total + p
-            return total
-        return self._collect(parts, add)
+        return self._mesh.all_reduce(parts, self.axis)
 
     def all_gather(self, parts: Sequence[torch.Tensor],
                    dim: int) -> List[torch.Tensor]:
         """The shards' parts concatenated along ``dim`` in shard order,
         on every shard's device."""
-        return self._collect(parts, lambda ps: torch.cat(ps, dim))
+        return self._mesh.all_gather(parts, self.axis, dim)

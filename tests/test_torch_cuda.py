@@ -704,6 +704,16 @@ def test_bf16_kernels_at_the_training_shape(dev):
     _check_bf16_fwd_dkv(q, k, v, do)
 
 
+@pytest.mark.parametrize("s,causal", [(4096, True), (1000, True),
+                                      (1000, False)])
+def test_bf16_kernels_at_the_tensor_shard_shape(dev, s, causal):
+    """K1 with lse, K2 and K3 at one tensor shard's heads under a mesh
+    with tensor 2 (16 query, 4 kv heads, d 128) and one fsdp shard's
+    batch row: the sharded train step's shape."""
+    q, k, v, do = _bf16_inputs(dev, 11, 1, s, s, 16, 4, 128)
+    _check_bf16_fwd_dkv(q, k, v, do, causal=causal)
+
+
 def test_dtype_picks_the_kernel(dev):
     """A bf16 CUDA tensor runs the wgmma kernels, an f32 one the FMA
     kernels, as the profiler names them."""
@@ -960,6 +970,112 @@ def test_remat_policies_agree_on_card(dev):
         assert runs[policy][0] == runs["full"][0]
         for a, b in zip(runs[policy][1], runs["full"][1]):
             assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+MESH_A = dict(fsdp=2, tensor=2, context=1)
+MESH_B = dict(fsdp=1, tensor=2, context=2)
+
+
+def _mesh_run(dev, kw, devices=("cuda:0",) * 4):
+    """3 steps of a 2-layer bf16 Llama (head_dim 128) under "dots" over
+    the mesh ``kw`` (None: the single-device step) from seed 0's weights
+    on one batch of 2 x 256 tokens: ((loss, grad norm) per step, (K1 with
+    lse, K2, K3) launches per step)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import (MeshSpec, default_optimizer,
+                                        make_mesh, make_train_step)
+    cfg = llama.tiny(vocab_size=256, dim=512, n_layers=2, n_heads=4,
+                     n_kv_heads=2, ffn_dim=512, dtype="bfloat16",
+                     remat_policy="dots")
+    toks = np.random.default_rng(0).integers(0, 256, (2, 257))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    mesh = None if kw is None else make_mesh(MeshSpec(**kw), devices=devices)
+    init_fn, step_fn = make_train_step(
+        cfg, mesh, device=dev if mesh is None else None,
+        optimizer=default_optimizer(1e-3, warmup_steps=1, total_steps=10))
+    state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    hist, launches = [], []
+    for _ in range(3):
+        before = (fa.flash_attention_fwd.lse_launches,
+                  fa.flash_attention_bwd_dkv.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        state, m = step_fn(state, batch)
+        hist.append((m["loss"].item(), m["grad_norm"].item()))
+        launches.append((fa.flash_attention_fwd.lse_launches - before[0],
+                         fa.flash_attention_bwd_dkv.launches - before[1],
+                         fa.flash_attention_bwd_dq.launches - before[2]))
+    return np.array(hist), launches
+
+
+def test_mesh_train_step_on_card_matches_single_device(dev):
+    """Mesh A (fsdp 2, tensor 2) with all four shards on the card against
+    the single-device step from the same weights on the same batch: 3
+    steps' losses and grad norms within chip_smoke.py's
+    TRAIN_LOSS_REL_TOL/TRAIN_GNORM_REL_TOL (bf16 partial sums over the
+    tensor shards round apart from one GEMM), and K1 (with lse), K2 and
+    K3 once per shard and layer under "dots"; over mesh B (tensor 2,
+    context 2) the ring runs instead, with no kernel launch."""
+    single, launches = _mesh_run(dev, None)
+    assert launches == [(2, 2, 2)] * 3
+    for kw, want in ((MESH_A, (8, 8, 8)), (MESH_B, (0, 0, 0))):
+        hist, launches = _mesh_run(dev, kw)
+        assert launches == [want] * 3, (kw, launches)
+        np.testing.assert_allclose(hist[:, 0], single[:, 0], rtol=2e-3)
+        np.testing.assert_allclose(hist[:, 1], single[:, 1], rtol=2e-2)
+
+
+def _cards(n: int) -> list:
+    """The first n cards, or a skip where fewer are visible: these tests
+    put each shard on its own card (the one-card machine runs the
+    stand-in meshes above)."""
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices (shards on distinct cards)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("kw", [MESH_A, MESH_B], ids=["mesh_a", "mesh_b"])
+def test_mesh_over_distinct_cards_matches_one_card(dev, kw):
+    """The same meshes with each shard on its own card: every collective
+    is a copy between cards and each kernel launches with its shard's card
+    current. The launch counts are the one-card run's; the losses and
+    grad norms are held to the single-device step at the one-card mesh's
+    bars: the autograd engine runs each card's backward on its own thread,
+    so a bf16 block's gradient sums its users' contributions in the order
+    the threads finish (1e-4 apart from the one-card run, one bf16
+    rounding), not in one fixed order."""
+    cards = _cards(4)
+    single, _ = _mesh_run(dev, None)
+    _, launches_one = _mesh_run(dev, kw)
+    many, launches_many = _mesh_run(dev, kw, devices=cards)
+    assert launches_many == launches_one
+    np.testing.assert_allclose(many[:, 0], single[:, 0], rtol=2e-3)
+    np.testing.assert_allclose(many[:, 1], single[:, 1], rtol=2e-2)
+
+
+@pytest.mark.parametrize("mode", ["paged", "spec"])
+def test_tiny_tp2_engine_over_two_cards_matches_one_card(dev, mode):
+    """Tensor-parallel serving with each shard on its own card: the
+    greedy streams and K1/K4 launch counts of the same engine with both
+    shards on one card."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.tp import TensorMesh
+    cards = _cards(2)
+    cfg = llama.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                     n_kv_heads=2, ffn_dim=512, dtype="float32")
+    model = llama.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, dev)
+    rng = np.random.default_rng(2)
+    pat = [int(t) for t in rng.integers(1, 255, 12)]
+    reqs = [((pat * 6)[:60], 24), ([int(t) for t in
+                                    rng.integers(1, 255, 70)], 12)]
+    runs = []
+    for mesh in (TensorMesh(("cuda:0",) * 2), TensorMesh(cards)):
+        before = (fa.flash_attention_fwd.launches,
+                  pa.paged_attention.launches)
+        streams = _tiny_streams(model, dev, mode, reqs, mesh=mesh)
+        runs.append((streams, fa.flash_attention_fwd.launches - before[0],
+                     pa.paged_attention.launches - before[1]))
+    assert runs[1] == runs[0]
 
 
 def test_train_state_checkpoint_round_trip_on_card(dev, tmp_path):

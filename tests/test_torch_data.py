@@ -61,9 +61,9 @@ def test_iter_device_batches_gives_iter_batches_rows(batch_size, drop_last,
 
 def test_iter_device_batches_defaults_to_the_card(monkeypatch):
     """``device=None`` is the CUDA device: with none it raises instead of
-    yielding CPU tensors; ``sharding=`` raises naming Queue 1 item 12."""
+    yielding CPU tensors; ``sharding=`` takes a ``DeviceMesh`` only."""
     ds = td.range(8)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         next(ds.iter_device_batches(batch_size=4, sharding=object()))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA|no.*available"):

@@ -30,6 +30,7 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.models.llama", "ray_tpu_torch.ops.attention",
                 "ray_tpu_torch.ops.flash_attention",
                 "ray_tpu_torch.ops.paged_attention",
+                "ray_tpu_torch.ops.ring_attention",
                 "ray_tpu_torch.llm.model", "ray_tpu_torch.llm.kvcache",
                 "ray_tpu_torch.llm.engine", "ray_tpu_torch.llm.spec",
                 "ray_tpu_torch.llm.pd", "ray_tpu_torch.parallel",
@@ -129,6 +130,35 @@ def test_tp2_engine_leaves_jax_and_ray_tpu_out():
         "    await eng.stop()\n"
         "    return out['tokens']\n"
         "assert len(asyncio.run(go())) == 4\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_sharded_train_step_leaves_jax_and_ray_tpu_out():
+    """In a fresh process, ``parallel.mesh`` over a (fsdp 2, tensor 2,
+    context 2) mesh of CPU stand-ins takes a train step (the ring over
+    the context axis, the fsdp gathers, the tensor reductions) and a
+    batch from ``iter_device_batches(sharding=mesh)``: jax, ml_dtypes and
+    every ray_tpu module stay out of ``sys.modules``."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from ray_tpu_torch import data\n"
+        "from ray_tpu_torch.models import llama\n"
+        "from ray_tpu_torch.parallel import MeshSpec, make_mesh, mesh\n"
+        "cfg = llama.tiny(dtype='float32', n_layers=1)\n"
+        "m = make_mesh(MeshSpec(fsdp=2, tensor=2, context=2),\n"
+        "              devices=('cpu',) * 8)\n"
+        "init_fn, step_fn = mesh.make_train_step(cfg, m)\n"
+        "state = init_fn(torch.Generator().manual_seed(0))\n"
+        "t = np.arange(4 * 17).reshape(4, 17) % cfg.vocab_size\n"
+        "ds = data.from_numpy({'tokens': t[:, :-1], 'targets': t[:, 1:]})\n"
+        "b = next(ds.iter_device_batches(batch_size=4, sharding=m))\n"
+        "state, out = step_fn(state, b)\n"
+        "assert torch.isfinite(out['loss'])\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -242,7 +242,7 @@ def test_trainable_models_and_rejected_options():
     with pytest.raises(ValueError, match="must divide seq len 60"):
         tllama.loss_fn(model, batch, tllama.tiny(dtype="float32",
                                                  ce_chunk=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmesh.make_train_step(tcfg, mesh=object())
     init_fn, _ = tmesh.make_train_step(tcfg, device="cpu")
     with pytest.raises(ValueError, match="trainable"):

@@ -109,6 +109,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      steps in this process, its launches, checkpoint bytes, save and
      restore seconds and goodput anatomy printed, and no jax or ray_tpu
      in the worker;
+     then data-parallel training through the gradient ring
+     (``run_dp``): init(), a TorchTrainer of two workers sharing the
+     card, each training the same 2-layer model from the same seed on
+     its half of the batch (1 x 4096 tokens), 3 steps in each of three
+     modes: allreduce_gradients and the replicated AdamW (A),
+     ShardedOptimizer (ZeRO-1) over ShardAdamW at the f32 wire (B), and
+     with the int8 gradient reduce-scatter and the bf16 parameter
+     allgather (C); A's and B's losses and grad norms held to one
+     process's steps on the whole batch, the ranks' parameters bitwise
+     equal, K1/K2/K3 launched 2/2/2 a step on each rank, C's int8
+     reduce-scatter within the ring's bound, B's optimizer shard half
+     the replicated moments, no nvcc, jax or ray_tpu in either worker;
+     step walls, the ring's seconds, wire bytes, peak HBM and host RSS
+     per worker;
   10. ``iter_device_batches`` at the training shape (``run_device_batches``):
      32 rows of 4096 tokens and targets in batches of 2 copied to the card
      with prefetch 1, each bitwise its host rows, the 8-layer model's loss
@@ -3131,6 +3145,363 @@ def run_trainer(card: str) -> dict:
             "restore_s": hist_[-1]["restore_s"], "goodput": anatomy}
 
 
+# --- data-parallel training through the gradient ring and ZeRO-1 ---------
+#
+# Two TorchTrainer workers share the one card (no use_gpu: it would pin
+# one card each), each training trainer_run's model (Llama-3-8B widths,
+# 2 layers, bf16, "dots", f32 logits; 1.49 B parameters) from the same
+# seed on its half of trainer_run's batch (1 x 4096 tokens). Three modes
+# of DP_STEPS steps: (A) train.allreduce_gradients(mean) and the
+# replicated AdamW; (B) ShardedOptimizer over ShardAdamW, f32 wire; (C)
+# the same with the int8 gradient reduce-scatter and the bf16 parameter
+# allgather. The gradients and parameters cross the host ring (numpy over
+# shm) between the two worker processes. A and B: each step's loss (the
+# ranks' mean) and grad norm held to one process's step on the whole
+# 2 x 4096 batch at the mesh tolerances (TRAIN_LOSS_REL_TOL,
+# TRAIN_GNORM_REL_TOL: f32 gradient sums in another order, and ZeRO's
+# f32 moments against the replicated AdamW's bf16 ones); A, B and C: the
+# ranks' parameters bitwise equal after the steps (a fingerprint of every
+# parameter's bits); C: the int8 reduce-scatter of step 1's gradients
+# within the ring's documented bound of the f32 one (dag/ring.py:
+# elementwise (N * max block scale) / 2 of the sum, the
+# allreduce_quant_error gauge); B: the optim_shard_bytes gauge half of
+# the replicated moments' bytes at the f32 wire.
+DP_STEPS = 3
+DP_MODES = {"A": "allreduce", "B": "zero", "C": "zero_int8_bf16"}
+
+
+def dp_run():
+    """(cfg, opt, state) of the data-parallel phase: trainer_run's model
+    and optimizer, on torch.device("cuda") explicitly."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import default_optimizer, make_train_step
+    cfg = llama.llama3_8b(n_layers=2, dtype="bfloat16", remat_policy="dots",
+                          logits_dtype="float32", ce_chunk=0)
+    opt = default_optimizer(learning_rate=3e-4, warmup_steps=2,
+                            total_steps=100)
+    init_fn, _ = make_train_step(cfg, device=torch.device("cuda"),
+                                 optimizer=opt)
+    return cfg, opt, init_fn(torch.Generator(device="cuda").manual_seed(0))
+
+
+def dp_batch(cfg, step: int) -> dict:
+    """trainer_run's batch of ``step``: 2 x 4096 tokens."""
+    toks = np.random.default_rng(100 + step).integers(
+        0, cfg.vocab_size, (2, 4097))
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def param_fingerprint(params) -> list:
+    """Per parameter, two int64 sums of its bits (plain and position-
+    weighted), computed on the card in chunks: equal parameters give
+    equal fingerprints, and one differing element changes them."""
+    out = []
+    for p in params:
+        bits = p.detach().reshape(-1).view(torch.int16)
+        s0 = s1 = 0
+        for a in range(0, bits.numel(), 1 << 26):
+            b = bits[a:a + (1 << 26)].to(torch.int64)
+            w = torch.arange(a, a + b.numel(), device=b.device) % 65521 + 1
+            s0 += int(b.sum())
+            s1 += int((b * w).sum())
+        out.append([s0, s1])
+    return out
+
+
+def dp_fn(config):
+    """The data-parallel phase's train_fn, in each of the two workers:
+    DP_STEPS steps in each of config["modes"], from the same seed, on
+    this rank's half of each batch; writes what it saw to
+    config["out"]/rank<r>.json (the controller keeps only rank 0's
+    reports). The host staging of the ring (dag/ring.py stage_flat and
+    stage_leaf off the card, tensor_like back onto it) is timed by
+    wrapping them here."""
+    import threading
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.dag import ring as ring_mod
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import ShardAdamW, mesh
+    from ray_tpu_torch.train.zero import ShardedOptimizer
+    from ray_tpu_torch.util import events
+
+    stage_s = {"d2h": 0.0, "h2d": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stage_s[key] += time.monotonic() - t0
+        return wrapper
+    ring_mod.stage_flat = timed(ring_mod.stage_flat, "d2h")
+    ring_mod.stage_leaf = timed(ring_mod.stage_leaf, "d2h")
+    ring_mod.tensor_like = timed(ring_mod.tensor_like, "h2d")
+
+    def rss():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    peak = {"rss": 0}
+    done = threading.Event()
+
+    def sample():        # the host RSS peak of each mode, every 0.1 s
+        while not done.wait(0.1):
+            peak["rss"] = max(peak["rss"], rss())
+    threading.Thread(target=sample, daemon=True).start()
+
+    dev = torch.device("cuda")
+    ctx = train.get_context()
+    rank = ctx.get_world_rank()
+    kerns = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+             fa.flash_attention_bwd_dq)
+    out = {"rank": rank, "modes": {}}
+    for mode in config["modes"]:
+        cfg, opt, state = dp_run()
+        params = list(state.params.parameters())
+        n_params = sum(p.numel() for p in params)
+        so = None
+        if mode != "A":
+            so = ShardedOptimizer(
+                ShardAdamW(opt, device=dev),
+                **({"grad_quantize": "int8", "param_wire_dtype": "bfloat16"}
+                   if mode == "C" else {}))
+            zstate = so.init([p.detach() for p in params])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        peak["rss"] = rss()
+        rec = {"loss": [], "grad_norm": [], "wall_s": [], "launches": [],
+               "allreduce_s": 0.0, "rs_s": 0.0, "ag_s": 0.0, "d2h_s": 0.0,
+               "h2d_s": 0.0, "wire_bytes": 0.0, "n_params": n_params,
+               "shard_bytes": metric("optim_shard_bytes") if so else None}
+        for step in range(1, DP_STEPS + 1):
+            b = dp_batch(cfg, step)
+            mine = {k: torch.as_tensor(v[rank:rank + 1], device=dev)
+                    for k, v in b.items()}
+            fa.flash_attention_fwd.lse_launches = 0
+            for f in kerns[1:]:
+                f.launches = 0
+            def counters():
+                return (hist("allreduce_round_s")[1],
+                        hist("reduce_scatter_round_s")[1],
+                        hist("allgather_round_s")[1],
+                        metric("allreduce_bytes_total"), dict(stage_s))
+            before = counters()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for p in params:
+                p.grad = None
+            loss = llama.loss_fn(state.params, mine, cfg)
+            loss.backward()
+            grads = [p.grad for p in params]
+            if mode == "C" and step == 1:
+                # the codec's bound at the real shape, on this step's
+                # gradients: int8 against f32 over the same ring
+                torch.cuda.synchronize()
+                fwd_bwd = time.monotonic() - t0
+                ring = ctx.gradient_sync_ring()
+                host = ring_mod.stage_flat(grads)[0]
+                exact = ring.reduce_scatter(host, op="mean")
+                quant = ring.reduce_scatter(host, op="mean",
+                                            quantize="int8")
+                del host
+                rec["int8_err"] = float(np.abs(quant - exact).max())
+                rec["int8_bound"] = float(
+                    ring_mod.last_quant_error("int8"))
+                del exact, quant
+                torch.cuda.synchronize()
+                # the check's rounds, staging and time are not the step's
+                before = counters()
+                t0 = time.monotonic() - fwd_bwd
+            if so is None:
+                grads = train.allreduce_gradients(grads, op="mean")
+                gnorm = mesh.global_norm(grads)
+                opt.update(state.opt_state, params, grads, gnorm)
+                gnorm = gnorm.item()
+            else:
+                new, zstate = so.update(grads, zstate,
+                                        [p.detach() for p in params])
+                with torch.no_grad():
+                    for p, q in zip(params, new):
+                        p.copy_(q)
+                del new
+                gnorm = so.grad_norm
+            del grads
+            torch.cuda.synchronize()
+            rec["wall_s"].append(time.monotonic() - t0)
+            rec["loss"].append(loss.item())
+            rec["grad_norm"].append(gnorm)
+            rec["launches"].append([fa.flash_attention_fwd.lse_launches,
+                                    kerns[1].launches, kerns[2].launches])
+            rec["allreduce_s"] += hist("allreduce_round_s")[1] - before[0]
+            rec["rs_s"] += hist("reduce_scatter_round_s")[1] - before[1]
+            rec["ag_s"] += hist("allgather_round_s")[1] - before[2]
+            rec["wire_bytes"] += metric("allreduce_bytes_total") - before[3]
+            rec["d2h_s"] += stage_s["d2h"] - before[4]["d2h"]
+            rec["h2d_s"] += stage_s["h2d"] - before[4]["h2d"]
+        rec["fingerprint"] = param_fingerprint(params)
+        rec["peak_hbm"] = torch.cuda.max_memory_allocated()
+        rec["rss_peak"] = peak["rss"]
+        out["modes"][mode] = rec
+        del state, params, so, loss
+        if mode != "A":
+            del zstate
+        gc.collect()
+        torch.cuda.empty_cache()
+    done.set()
+    out["foreign"] = foreign_modules()
+    out["compiles"] = [e.get("fn") for e in events.dump()
+                       if e.get("name") == "compile"]
+    with open(os.path.join(config["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    train.report({"done": True})
+
+
+def run_dp(card: str) -> dict:
+    """The data-parallel phase (see DP_MODES above): one process's
+    DP_STEPS steps on the whole batch in this process first (then
+    freed), then init() and TorchTrainer(ScalingConfig(num_workers=2,
+    resources_per_worker={"CPU": 1})) running dp_fn in two workers on the
+    card. Checks the losses and grad norms (A, B), the ranks' parameters
+    bitwise equal (A, B, C), K1/K2/K3 launched n_layers times a step on
+    each rank, the int8 bound (C), the shard gauge (B), no nvcc and no
+    jax or ray_tpu in either worker; prints per mode the step walls, the
+    ring's seconds (reduce-scatter, allgather, fused allreduce, host
+    staging each way), wire bytes per rank per step, peak HBM and host
+    RSS per worker."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import mesh
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    cfg, opt, state = dp_run()
+    params = list(state.params.parameters())
+    want = []
+    for step in range(1, DP_STEPS + 1):
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in dp_batch(cfg, step).items()}
+        for p in params:
+            p.grad = None
+        loss = llama.loss_fn(state.params, b, cfg)
+        loss.backward()
+        grads = [p.grad for p in params]
+        gnorm = mesh.global_norm(grads)
+        opt.update(state.opt_state, params, grads, gnorm)
+        want.append((loss.item(), gnorm.item()))
+    moment_bytes = 2 * 4 * sum(p.numel() for p in params)   # f32 wire
+    del state, params, grads, loss, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    page = os.sysconf("SC_PAGE_SIZE")
+    print(f"dp host [{card}]: RAM free "
+          f"{os.sysconf('SC_AVPHYS_PAGES') * page / 2**30:.1f} of "
+          f"{os.sysconf('SC_PHYS_PAGES') * page / 2**30:.1f} GiB; /dev/shm "
+          f"(total, free) {shm_size()} bytes")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        t0 = time.monotonic()
+        res = TorchTrainer(
+            dp_fn, train_loop_config={"modes": list(DP_MODES),
+                                      "out": root},
+            scaling_config=ScalingConfig(num_workers=2,
+                                         resources_per_worker={"CPU": 1}),
+            run_config=RunConfig(name="chip-smoke-dp",
+                                 storage_path=os.path.join(root, "ckpt"))
+        ).fit()
+        fit_s = time.monotonic() - t0
+        if res.error is not None:
+            raise SystemExit(f"the data-parallel trainer failed: "
+                             f"{res.error}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    bad = []
+    for mode, what in DP_MODES.items():
+        a, b = ranks[0]["modes"][mode], ranks[1]["modes"][mode]
+        losses = [(x + y) / 2 for x, y in zip(a["loss"], b["loss"])]
+        rel = max(abs(g - w[0]) / abs(w[0]) for g, w in zip(losses, want))
+        rel_n = max(abs(g - w[1]) / abs(w[1])
+                    for g, w in zip(a["grad_norm"], want))
+        same = a["fingerprint"] == b["fingerprint"]
+        same_n = a["grad_norm"] == b["grad_norm"]
+        print(f"dp {mode} ({what}) [{card}]: 2 workers on the card, "
+              f"llama3_8b widths at {cfg.n_layers} layers, 1 x 4096 "
+              f"tokens each; losses {losses} vs one process's "
+              f"{[w[0] for w in want]} (max rel {rel:.2e}, tol "
+              f"{TRAIN_LOSS_REL_TOL}), grad norms {a['grad_norm']} vs "
+              f"{[w[1] for w in want]} (max rel {rel_n:.2e}, tol "
+              f"{TRAIN_GNORM_REL_TOL}); ranks' grad norms equal {same_n}, "
+              f"parameters bitwise equal {same}; launches K1/K2/K3 per "
+              f"step {a['launches']} and {b['launches']}")
+        for r, rec in enumerate((a, b)):
+            steps = len(rec["wall_s"])
+            print(f"dp {mode} rank {r} [{card}]: step walls "
+                  f"{['%.3f' % w for w in rec['wall_s']]} s; ring per step "
+                  f"(s): reduce-scatter {rec['rs_s'] / steps:.3f}, "
+                  f"allgather {rec['ag_s'] / steps:.3f}, allreduce "
+                  f"(fused) {rec['allreduce_s'] / steps:.3f}, staging "
+                  f"device->host {rec['d2h_s'] / steps:.3f}, host->device "
+                  f"{rec['h2d_s'] / steps:.3f}; wire bytes per step "
+                  f"{rec['wire_bytes'] / steps:.0f}; peak HBM "
+                  f"{rec['peak_hbm'] / 2**30:.2f} GiB; peak host RSS "
+                  f"{rec['rss_peak'] / 2**30:.2f} GiB")
+        if mode in ("A", "B") and (rel > TRAIN_LOSS_REL_TOL
+                                   or rel_n > TRAIN_GNORM_REL_TOL):
+            bad.append(f"{mode}: losses or grad norms off one process's")
+        if not (same and same_n):
+            bad.append(f"{mode}: the ranks' parameters or norms differ")
+        if not all(np.isfinite(a["loss"] + b["loss"] + a["grad_norm"])):
+            bad.append(f"{mode}: non-finite loss or grad norm")
+        for rec in (a, b):
+            if rec["launches"] != [[cfg.n_layers] * 3] * DP_STEPS:
+                bad.append(f"{mode}: launches {rec['launches']}")
+        if mode == "B":
+            for rec in (a, b):
+                if abs(rec["shard_bytes"] - moment_bytes / 2) > 16:
+                    bad.append(f"B: optim_shard_bytes {rec['shard_bytes']}"
+                               f" is not half of {moment_bytes}")
+            print(f"dp B shard [{card}]: optim_shard_bytes "
+                  f"{[rec['shard_bytes'] for rec in (a, b)]} against the "
+                  f"replicated moments' {moment_bytes} bytes at the f32 "
+                  f"wire")
+        if mode == "C":
+            for r, rec in enumerate((a, b)):
+                print(f"dp C int8 [{card}] rank {r}: step 1's gradient "
+                      f"reduce-scatter, int8 against f32: max abs err "
+                      f"{rec['int8_err']:.3e}, the ring's bound "
+                      f"{rec['int8_bound']:.3e}")
+                if not rec["int8_err"] <= rec["int8_bound"]:
+                    bad.append(f"C: int8 error over its bound on rank {r}")
+    for r in ranks:
+        if r["foreign"] or r["compiles"]:
+            bad.append(f"rank {r['rank']}: modules {r['foreign']}, nvcc "
+                       f"builds {r['compiles']}")
+    print(f"dp [{card}]: fit {fit_s:.1f} s for {len(DP_MODES)} modes x "
+          f"{DP_STEPS} steps; workers' jax/ray_tpu modules "
+          f"{[r['foreign'] for r in ranks]}, nvcc builds "
+          f"{[r['compiles'] for r in ranks]}")
+    if bad:
+        raise SystemExit("the data-parallel phase failed: " + "; ".join(bad))
+    launches = {name: [sum(sum(s[i] for s in ranks[r]["modes"][m]["launches"])
+                           for r in range(2) for m in ms)
+                       for i in range(3)]
+                for name, ms in (("train_dp_allreduce", ("A",)),
+                                 ("train_dp_zero", ("B", "C")))}
+    return {"launches": launches}
+
+
 COPY_SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's 1.98 GHz clock
 
 
@@ -3319,6 +3690,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trainer = run_trainer(card)
+    dp = run_dp(card)
     run_device_batches(card)
     train_k = {name: {f"train_{p}": train[p]["launches"][key]
                       for p in TRAIN_POLICIES}
@@ -3331,6 +3703,8 @@ def main() -> int:
         for m, r in meshes.items():
             train_k[name][f"train_mesh_{m}"] = r["launches"][key]
         train_k[name]["train_trainer"] = trainer["launches"][i]
+        for path, counts in dp["launches"].items():
+            train_k[name][path] = counts[i]
     full_ms = train["full"]["per_launch_ms"]
 
     bwd_tol = {"row_rel_l2": BWD_ROW_REL_TOL}

@@ -6,8 +6,8 @@ the reference's ``RAY_CONFIG`` X-macro table (reference:
 src/ray/common/ray_config_def.h) — every tunable has a typed default and
 is overridable from the environment as ``RAY_TPU_<NAME>`` or from the
 ``system_config`` dict handed to :func:`ray_tpu_torch.init`. A field of
-the reference comes here with the port's code that reads it (the ring
-collective, pipeline and forensics knobs have none yet), so no knob is
+the reference comes here with the port's code that reads it (the
+pipeline knobs and the forensics bundle's have none yet), so no knob is
 accepted and then ignored; a ``system_config`` key that names no field
 lands in ``extra``.
 """
@@ -61,11 +61,50 @@ class Config:
     object_spill_dir: str = ""              # "" = <session>/spill
     stream_backpressure_window: int = 64    # unconsumed items per stream
     stream_producer_inflight: int = 8       # unacked pushes per producer
-    # Collective plane: dag allreduce(impl="auto") with a payload hint
-    # picks the star reduce for payloads at or below this; above it the
-    # chunked ring, which the port does not have yet (ROADMAP Queue 1
-    # item 13), so such a group raises at compile().
+    # Collective plane: dag allreduce(impl="auto") picks the star reduce
+    # for payloads at or below this and the chunked ring above it — the
+    # crossover the JAX package measured on shm channels (its
+    # ALLREDUCE_BENCH.json: the star wins under ~4 MB because a ring
+    # round is 3(N-1) sequential hops and hop latency dominates small
+    # frames; above it the root's O(N*S) ingress/egress collapses).
     allreduce_star_max_bytes: int = 4 * 1024 * 1024
+    # Collective auto-tuner (dag/tuner.py): a one-shot in-situ
+    # micro-bench on each tuning-enabled ring (run lazily at the first
+    # collective, cached per ring generation) replaces the static
+    # crossover above — impl (star / flat ring / hierarchical) and
+    # chunk size are picked per payload band from the measured
+    # alpha/beta fit; the static knob stays the fallback for rings
+    # that never probed. The probe costs two tiny fused rounds.
+    collective_tuner: bool = True
+    collective_tuner_probe_bytes: int = 1 << 20   # largest probe round
+    collective_tuner_min_chunk_bytes: int = 64 * 1024
+    # Topology-aware hierarchical collectives (dag/ring.py
+    # HierarchicalReducer): "auto" wires the train gradient sync as a
+    # ring-of-rings (per-node shm intra rings, one TCP ring over node
+    # leaders, intra broadcast) whenever the worker group spans more
+    # than one node with at least one multi-rank node — cross-node
+    # wire traffic drops to ~1/ranks-per-node; "flat" keeps the
+    # one-level ring regardless of topology.
+    collective_hierarchy: str = "auto"
+    # Wire codec auto-selection + error-feedback (train/collective.py,
+    # dag/tuner.py codec band): allreduce_gradients(codec="auto") picks
+    # the cheapest probed codec (int4 < int8 < bf16 < fp32) whose
+    # observed ``allreduce_quant_error`` bound stays at or below this —
+    # a lossy codec whose bound trips backs off to bf16/fp32 on the
+    # next round.
+    collective_codec_error_bound: float = 1e-2
+    # Payloads below this many bytes always ship fp32 under
+    # codec="auto": per-block scale framing plus quant error buy
+    # nothing when the whole gradient fits a few channel slots.
+    collective_codec_min_bytes: int = 64 * 1024
+    # Error-feedback accumulation: each rank carries the quantization
+    # residual (sent-minus-shipped, reconstructed from the local codec
+    # round-trip — no extra wire) into the next round's gradients, the
+    # EF-SGD trick that makes int8/int4 gradient sync convergence-safe
+    # (the JAX package's ZERO_BENCH.json, codec_convergence: int4+EF
+    # within 1e-3 relative of the fp32 trajectory; no-EF int8 is NOT).
+    # With this off, codec="auto" never picks a lossy codec.
+    codec_error_feedback: bool = True
 
     # --- rpc ---
     rpc_connect_timeout_s: float = 10.0
@@ -216,6 +255,20 @@ class Config:
 
     # --- observability ---
     event_buffer_size: int = 65536
+    # Collective tracing (dag/ring.py): span granularity recorded into
+    # the "collective" event category. "off" = no timing at all (hot
+    # path untouched); "round" = one span + recv-wait/straggler
+    # attribution per collective round (default — a round moves MBs,
+    # the extra clock reads are noise); "chunk" = additionally one
+    # span per chunk send / recv-wait / reduce (post-mortem depth;
+    # bounded by the category's event-buffer sub-budget).
+    collective_trace_level: str = "round"
+    # Flight recorder: per-rank ring of the last K rounds' timing
+    # records, dumped to JSON when a collective raises (peer death,
+    # ERROR relay, protocol desync) — the dump path is attached to the
+    # raised exception. 0 disables.
+    collective_flight_rounds: int = 8
+    collective_flight_dir: str = ""         # "" = <tmp>/ray_tpu_flight
     metrics_export_interval_s: float = 5.0
     metrics_port: int = -1                  # -1 off, 0 ephemeral, >0 fixed
     log_dir: str = ""                       # "" = workers inherit stdio
@@ -264,6 +317,29 @@ class Config:
     # per-rank step window the p50s are taken over.
     goodput_straggler_z: float = 6.0
     goodput_straggler_window_steps: int = 32
+    # Hang & desync forensics (util/forensics.py): the bounded
+    # per-rank collective ledger (group/seq/kind/codec/options-sig,
+    # enqueued|in_flight|done|aborted). On by default — recording is
+    # two dict writes per round riding the clock reads the round-level
+    # trace already pays (the JAX package's FORENSICS_BENCH.json: within
+    # noise). Off = no ledger, no watchdog signal, autopsy bundles carry
+    # no ledgers.
+    forensics_ledger: bool = True
+    forensics_ledger_size: int = 256
+    # Controller watchdog: a collective in_flight on any rank past
+    # this deadline (or a persistent straggler signal) triggers the
+    # cross-rank ledger audit — pull every rank's ledger, diff, name
+    # the culprit as a collective_stall/collective_desync event + the
+    # forensics_stall_rank health sentinel + a postmortem bundle.
+    forensics_stall_timeout_s: float = 60.0
+    # Opt-in pre-flight desync guard (train/collective.py): "step"
+    # agrees the options-signature across ranks once per train step,
+    # "round" before every collective — turning a codec/options
+    # desync into a typed, named CollectiveDesyncError instead of a
+    # ring hang. Costs one rendezvous-actor round trip per check, so
+    # it is off by default (a debugging lever, per PERF_JAX.md's
+    # runbook).
+    forensics_verify_level: str = "off"
 
     # --- durable checkpoint plane (train/ckptio.py) ---
     # How long the rank-0 commit coordinator waits for every rank's

@@ -23,11 +23,11 @@ inference across hosts/slices.
 The port's copy of ``ray_tpu/dag/__init__.py``. A stage's CUDA tensors
 are staged to host tensors before they enter a channel, and a stage
 that returns ``TensorRef`` handles (runtime/device_store.py) ships only
-the handles (dag/runtime.py). ``allreduce`` compiles to the star reduce
-only: a group that would resolve to the chunked ring, the hierarchical
-ring or the int8 codec raises ``NotImplementedError`` at ``compile()``,
-before any actor is pinned (the gradient ring, ROADMAP Queue 1 item
-13).
+the handles (dag/runtime.py). ``allreduce`` compiles to the reference's
+three topologies: the star, the chunked ring and the ring-of-rings
+(dag/ring.py), resolved by the reference's rules and tuner
+(dag/tuner.py); a ring reduces numpy on the host, and torch leaves cross
+it as numpy.
 """
 
 from __future__ import annotations
@@ -101,19 +101,34 @@ def allreduce(nodes, op: str = "sum", *, quantize: Optional[str] = None,
     co-located, TCP across nodes. Within one process holding a mesh,
     tensor reductions belong to jit'd psum over ICI, not the DAG).
 
-    The reference compiles groups of more than two participants to a
-    chunked ring reduce-scatter + allgather (dag/ring.py), optionally
-    int8-quantized or as a ring-of-rings across nodes; the port has the
-    star reduce only (rank 0 hosts the reduce, every other participant
-    sends up and receives the result down). The arguments are the
-    reference's and validated alike; ``compile()`` resolves each group
-    as the reference does (``_resolve_impl``) and raises
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 13 for every
-    group that resolves to a ring: an explicit ``impl="ring"`` or
-    ``"hier"``, ``quantize="int8"``, a ``payload_bytes`` hint above
-    ``Config.allreduce_star_max_bytes``, or more than two participants
-    with neither a hint nor ``impl="star"``. ``chunk_bytes`` is the
-    ring's and so unused here.
+    Groups of more than two participants compile to a chunked ring
+    reduce-scatter + allgather (dag/ring.py): per-participant bandwidth
+    is O(S) independent of group size, and segments pipeline around the
+    ring. Two-participant groups keep the star reduce (same traffic,
+    fewer hops). ``quantize="int8"`` ships chunks block-quantized
+    (~26% of the fp32 wire bytes; float32 accumulation, per-round error
+    bound exported as the ``allreduce_quant_error`` gauge).
+    ``chunk_bytes`` tunes the pipeline granularity (default 1 MB,
+    clamped to the channel slot size).
+
+    ``impl`` defaults to "auto": with a ``payload_bytes`` hint (the
+    approximate serialized size of ONE participant's value), the
+    topology is chosen by the in-situ auto-tuner's table when one has
+    been measured (dag/tuner.py), else by the static crossover — star
+    at or below ``Config.allreduce_star_max_bytes`` (default 4 MB: a
+    ring round is 3(N-1) sequential hops, and hop latency beats the
+    root's O(N·S) traffic on small frames — the JAX package's
+    ALLREDUCE_BENCH.json's 1 MB/4p row has the star at 0.8x the ring),
+    ring above it.
+    Without a hint the choice falls back to group size (ring for N>2,
+    hierarchical when the participants additionally span nodes with
+    co-located pairs). Explicit "star"/"ring"/"hier" always win
+    ("hier" degrades to the flat ring when the placement has no
+    two-level topology); ``quantize`` forces a ring family (the star
+    has no wire codec). "hier" compiles the group as a ring-of-rings
+    (per-node shm intra rings + one TCP ring over node leaders +
+    intra broadcast): cross-node wire drops to ~1/ranks-per-node, and
+    codecs apply to the cross-node leg only.
 
     Takes one upstream MethodNode per participant actor; returns one
     AllReduceNode per participant, each carrying the reduced value. The
@@ -149,43 +164,49 @@ def allreduce(nodes, op: str = "sum", *, quantize: Optional[str] = None,
     return out
 
 
-def _resolve_impl(group: dict) -> str:
-    """The topology of one collective group, resolved at compile time
-    by the reference's rules (explicit impl wins; quantize forces a
-    ring; a payload hint compares with Config.allreduce_star_max_bytes;
-    no hint falls back to group size). The port has only the star:
-    every other resolution raises NotImplementedError naming ROADMAP
-    Queue 1 item 13. The reference's in-situ tuner (dag/tuner.py)
-    refines the hinted choice between star and ring; it comes with the
-    ring."""
+def _resolve_impl(group: dict, hier_ok: bool = False) -> str:
+    """Star vs ring vs ring-of-rings for one collective group, resolved
+    at compile time (the topologies wire different channels, so the
+    choice cannot move per-round). Explicit impl wins; quantize forces
+    a ring family; a payload hint consults the in-situ auto-tuner's
+    table when one exists (dag/tuner.py — populated by any
+    tuning-enabled ring's first collective, or a bench run) and falls
+    back to the static benchmarked crossover
+    (Config.allreduce_star_max_bytes) otherwise; no hint falls back to
+    group size. ``hier_ok`` says the participants actually span nodes
+    with co-located pairs — without that the hierarchical topology
+    does not exist and "hier" degrades to the flat ring."""
     impl = group.get("impl")
-
-    def ring(why: str):
-        raise NotImplementedError(
-            f"allreduce: {why} resolves to the chunked ring collective, "
-            "which is not ported to ray_tpu_torch yet (ROADMAP Queue 1 "
-            "item 13: dag/ring.py); the port has impl='star' only")
-    if impl == "star":
-        return "star"
-    if impl in ("ring", "hier"):
-        ring(f"impl={impl!r}")
+    if impl in ("star", "ring"):
+        return impl
+    if impl == "hier":
+        return "hier" if hier_ok else "ring"
     if group["size"] < 2:
         return "star"            # a ring needs two ranks to exist
     if group.get("quantize"):
-        ring(f"quantize={group['quantize']!r}")
+        # a codec needs a ring; the hierarchy additionally confines it
+        # to the cross-node leg
+        if hier_ok:
+            pb = group.get("payload_bytes")
+            from ray_tpu_torch.dag import tuner
+            t = tuner.choose_impl(pb, group["size"], hierarchical=True)
+            if t == "hier":
+                return "hier"
+        return "ring"
     pb = group.get("payload_bytes")
     if pb is not None:
         from ray_tpu_torch.config import get_config
+        from ray_tpu_torch.dag import tuner
+        tuned = tuner.choose_impl(pb, group["size"],
+                                  hierarchical=hier_ok)
+        if tuned is not None:
+            return tuned
         thr = getattr(get_config(), "allreduce_star_max_bytes",
                       4 * 1024 * 1024)
-        if pb <= thr:
-            return "star"
-        ring(f"payload_bytes={pb} (above allreduce_star_max_bytes="
-             f"{thr})")
-    if group["size"] > 2:
-        ring(f"a group of {group['size']} participants with no "
-             "payload_bytes hint")
-    return "star"
+        return "star" if pb <= thr else "ring"
+    if hier_ok and group["size"] > 2:
+        return "hier"
+    return "ring" if group["size"] > 2 else "star"
 
 
 class DagFuture:
@@ -224,8 +245,6 @@ class CompiledDag:
         seen = set()
         for m in self._sink_members:
             self._topo(m, seen)
-        for g in self._groups:       # raises before any actor is touched
-            _resolve_impl(g)
         self._validate()
         self._channels: List[ShmRingChannel] = []
         # edge channels: producer node -> list of (consumer, arg position)
@@ -389,11 +408,45 @@ class CompiledDag:
                     self._templates[i].append(("chan", None))
                 else:
                     self._templates[i].append(("const", dumps_oob(a)))
-        # collective wiring: the star (every group resolved to it in
-        # __init__). Rank 0 hosts the reduce; every other participant
-        # sends up and receives the result down.
+        # collective wiring. Ring (N>2, and every quantized group): one
+        # directed edge rank r -> rank (r+1)%N; chunked reduce-scatter +
+        # allgather makes per-participant traffic O(S) independent of N
+        # (dag/ring.py). Star (N<=2 fallback): rank 0 hosts the reduce,
+        # every other participant sends up / receives the result down.
         for g in self._groups:
             idxs = [idx[id(m.parent)] for m in g["members"]]
+            # the hierarchical topology exists only when the members
+            # span >1 cluster node AND some node hosts >=2 of them
+            # (otherwise there is no intra ring to save bytes with)
+            plc = [self._node_placement[i] for i in idxs]
+            by_node: Dict[str, list] = {}
+            for r, p in enumerate(plc):
+                by_node.setdefault(p, []).append(r)
+            hier_ok = len(by_node) > 1 and \
+                max(len(v) for v in by_node.values()) > 1
+            impl = _resolve_impl(g, hier_ok=hier_ok)
+            if impl == "hier":
+                self._build_hier_group(g, idxs, by_node)
+                continue
+            if impl == "ring":
+                n = g["size"]
+                edges = [self._new_edge(idxs[r], idxs[(r + 1) % n])
+                         for r in range(n)]
+                for r, i in enumerate(idxs):
+                    self._coll_spec[i] = {
+                        "role": "ring", "rank": r, "size": n,
+                        "op": g["op"],
+                        # distinct trace lane per collective group —
+                        # to_chrome keys flow edges by (group, cid),
+                        # so two rings sharing a label would get
+                        # cross-wired arrows
+                        "group": g["id"][:12],
+                        "timeout_s": self._coll_timeout,
+                        "quantize": g.get("quantize"),
+                        "chunk_bytes": g.get("chunk_bytes"),
+                        "to_next": edges[r],
+                        "from_prev": edges[(r - 1) % n]}
+                continue
             root = idxs[0]
             root_spec = {"role": "root", "op": g["op"], "size": g["size"],
                          "timeout_s": self._coll_timeout,
@@ -414,6 +467,35 @@ class CompiledDag:
             si = idx[id(m.parent)] if isinstance(m, AllReduceNode) \
                 else idx[id(m)]
             self._out_chans[si].append(self._new_edge(si, None))
+
+    def _build_hier_group(self, g: dict, idxs: List[int],
+                          by_node: Dict[str, list]) -> None:
+        """Wire one collective group as a ring-of-rings (dag/ring.py
+        HierarchicalReducer): per-node intra rings over shm edges, one
+        cross-node ring over the first member of each node (the
+        elected leader), and the intra broadcast riding the same intra
+        edges. Codec options apply to the inter (TCP) leg only — the
+        wiring puts them in the inter sub-spec and nowhere else."""
+        from ray_tpu_torch.dag.ring import build_hier_specs
+        gid = g["id"][:12]
+        nodes = list(by_node.values())       # member positions per node
+        leaders = [mlist[0] for mlist in nodes]
+        L = len(leaders)
+        specs = build_hier_specs(
+            [len(v) for v in nodes],
+            # intra: co-located members (shm / lazy shm by placement)
+            lambda i, j: self._new_edge(
+                idxs[nodes[i][j]],
+                idxs[nodes[i][(j + 1) % len(nodes[i])]]),
+            # inter: node leaders (cross-node: TCP by placement)
+            lambda i: self._new_edge(idxs[leaders[i]],
+                                     idxs[leaders[(i + 1) % L]]),
+            op=g["op"], timeout_s=self._coll_timeout, group=gid,
+            quantize=g.get("quantize"),
+            chunk_bytes=g.get("chunk_bytes"))
+        flat_positions = [pos for mlist in nodes for pos in mlist]
+        for pos, spec in zip(flat_positions, specs):
+            self._coll_spec[idxs[pos]] = spec
 
     def _start(self):
         from ray_tpu_torch.api import ActorMethod

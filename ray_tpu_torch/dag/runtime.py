@@ -19,9 +19,10 @@ before it enters the channel — the counterpart of the reference's
 experimental/rdt/tensor_transport_manager.py:37). A method that returns
 ``TensorRef`` handles (runtime/device_store.py) opts into the device
 transport instead: only the handles ride the channel. The star reduce
-(``_tree_reduce``) takes torch and numpy leaves alike. The ring and
-hierarchical collectives and ``pipe_exec_loop`` (train/pipeline.py's
-stage loop) wait for ROADMAP Queue 1 item 13.
+(``_tree_reduce``) takes torch and numpy leaves alike; the chunked
+ring and its ring-of-rings (dag/ring.py) reduce numpy, and torch leaves
+cross them as numpy. ``pipe_exec_loop`` (train/pipeline.py's stage
+loop) waits for ROADMAP Queue 1 item 13c.
 """
 
 from __future__ import annotations
@@ -205,41 +206,115 @@ def _tree_reduce(op: str, vals: list):
 
 
 class _Collective:
-    """One participant's view of a dag allreduce group: the star (roles
-    "root"/"leaf"; root ingress+egress O(N*S)). Every data round EVERY
-    participant enters the round (with its value, or with the ERROR
-    frame it would have shipped) — peers must never be left blocking in
-    a reduce because one participant failed. Reads are bounded by
-    `timeout_s` (shm rings carry no peer-death signal): a dead/killed
-    peer surfaces as a terminal stall instead of pinning this actor's
-    executor thread forever. The reference's ring roles ("ring",
-    "hier") and their standalone reduce_scatter/allgather wait for
-    ROADMAP Queue 1 item 13; compile() never wires them here."""
+    """One participant's view of a dag allreduce group. Every data round
+    EVERY participant enters the round (with its value, or with the
+    ERROR frame it would have shipped) — peers must never be left
+    blocking in a reduce because one participant failed. Reads are
+    bounded by `timeout_s` (shm rings carry no peer-death signal): a
+    dead/killed peer surfaces as a terminal stall instead of pinning
+    this actor's executor thread forever.
+
+    Two wire topologies share these semantics: the chunked ring
+    (role "ring", N>2 and all quantized groups — per-participant
+    bandwidth O(S), see dag/ring.py; role "hier", its ring-of-rings)
+    and the star (roles "root"/"leaf", the N<=2 fallback — root
+    ingress+egress O(N*S)). The ring reduces numpy on the host: torch
+    leaves cross it as numpy (``ring.to_host``) and come back as
+    tensors (``ring.from_host``), with the star's dtype policy.
+
+    Ring specs may carry ``trace_level`` ("off"/"round"/"chunk") and
+    ``group`` (a lane label): collective spans + the flight recorder
+    (dag/ring.py _RingTrace) ride through unchanged, and a ring that
+    dies mid-round stitches its flight-dump path into the cause that
+    _ReaderDead ships downstream."""
 
     def __init__(self, spec: dict):
         self.role = spec["role"]
         self.op = spec["op"]
         self.timeout_s = float(spec.get("timeout_s", 600.0))
-        if self.role == "root":
+        self._ring = None
+        if self.role == "ring":
+            from ray_tpu_torch.dag.ring import RingReducer
+            self._ring = RingReducer.from_spec(spec)
+        elif self.role == "hier":
+            # ring-of-rings: same collective surface as the flat ring
+            # (round / reduce_scatter / allgather), so every path
+            # below treats it identically
+            from ray_tpu_torch.dag.ring import HierarchicalReducer
+            self._ring = HierarchicalReducer.from_spec(spec)
+        elif self.role == "root":
             self.up = [attach_channel(s, "consumer") for s in spec["up"]]
             self.down = [attach_channel(s, "producer")
                          for s in spec["down"]]
-        elif self.role == "leaf":
+        else:
             self.up = [attach_channel(spec["up"], "producer")]
             self.down = [attach_channel(spec["down"], "consumer")]
-        else:
-            raise NotImplementedError(
-                f"collective role {self.role!r}: the ring collectives "
-                "are not ported to ray_tpu_torch yet (ROADMAP Queue 1 "
-                "item 13)")
 
     def channels(self) -> list:
+        if self._ring is not None:
+            return self._ring.channels()
         return self.up + self.down
+
+    def _require_ring(self, what: str):
+        if self._ring is None:
+            raise RuntimeError(
+                f"{what} needs a ring collective group (role "
+                f"{self.role!r} is the N<=2 star topology — compile "
+                f"the group with impl='ring' or grow it past 2 "
+                f"participants)")
+        return self._ring
+
+    def reduce_scatter(self, value, *, op: Optional[str] = None,
+                       quantize=None):
+        """Standalone reduce-scatter over the group's ring: returns
+        this rank's owned flat shard of the elementwise reduction (see
+        dag/ring.py RingReducer.reduce_scatter — the ZeRO-1 gradient
+        sync). Raises the group's agreed error; a dead neighbor
+        surfaces as _ReaderDead like any other collective stall."""
+        from ray_tpu_torch.dag.ring import RingPeerDead, _UNSET, to_host
+        ring = self._require_ring("reduce_scatter")
+        try:
+            return ring.reduce_scatter(
+                to_host(value)[0], op=op,
+                quantize=_UNSET if quantize is None else quantize)
+        except RingPeerDead as e:
+            raise _ReaderDead(e.cause)
+
+    def allgather(self, shard, *, wire_dtype=None,
+                  total_hint: Optional[int] = None,
+                  rebuild: bool = True):
+        """Standalone allgather over the group's ring: every rank
+        contributes its owned flat shard, every rank receives the
+        reassembled value (the cached reduce_scatter pytree layout when
+        one matches — pin the match with ``total_hint``, or skip the
+        cache entirely with ``rebuild=False`` — else the flat vector).
+        ``wire_dtype="bfloat16"`` halves the wire bytes (see
+        RingReducer.allgather)."""
+        from ray_tpu_torch.dag.ring import RingPeerDead, _UNSET, to_host
+        ring = self._require_ring("allgather")
+        try:
+            return ring.allgather(
+                to_host(shard)[0],
+                wire_dtype=_UNSET if wire_dtype is None else wire_dtype,
+                total_hint=total_hint, rebuild=rebuild)
+        except RingPeerDead as e:
+            raise _ReaderDead(e.cause)
 
     def round(self, kind: int, value, err_frame: Optional[bytes]):
         """Returns (DATA, reduced_frame) or (ERROR, frame). The reduced
         value travels onward as the already-encoded frame — participants
         forward it downstream without a second serialize/deserialize."""
+        if self._ring is not None:
+            from ray_tpu_torch.dag.ring import (RingPeerDead, from_host,
+                                                to_host)
+            host, like = to_host(value) if kind == DATA else (value, None)
+            try:
+                k, out = self._ring.round(kind, host, err_frame)
+            except RingPeerDead as e:
+                raise _ReaderDead(e.cause)
+            if k == ERROR:
+                return (ERROR, out)
+            return (DATA, serialize(from_host(out, like)))
         try:
             if self.role == "leaf":
                 if kind == DATA:
@@ -505,7 +580,7 @@ def exec_loop(instance, spec: dict) -> dict:
 #
 # The reference's pipeline-stage loop (pipe_exec_loop, driven by
 # train/pipeline.py) ships its activations and gradients through these;
-# the loop itself waits for ROADMAP Queue 1 item 13, the helpers are the
+# the loop itself waits for ROADMAP Queue 1 item 13c, the helpers are the
 # device transport's and ported with it.
 
 class _UnwalkableTree(TypeError):

@@ -26,13 +26,16 @@ adamw(warmup_cosine_decay))`` written out, over the parameters (every
 logical element once: the blocks partition each tensor). The step
 updates the model and the optimizer's moments in place (JAX returns new
 arrays; here that would double the memory of every parameter).
+``ShardAdamW`` is the same optimizer in optax's shape over one flat
+shard, for the ZeRO-1 ``train.ShardedOptimizer`` of data-parallel
+worker groups.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -327,6 +330,77 @@ def default_optimizer(learning_rate: float = 3e-4,
     return AdamW(learning_rate=learning_rate, weight_decay=weight_decay,
                  warmup_steps=warmup_steps, total_steps=total_steps,
                  grad_clip=grad_clip)
+
+
+class ShardAdamWState(NamedTuple):
+    """The state of ``ShardAdamW`` over one flat shard: f32 moments (on
+    the optimizer's device; numpy after a checkpoint restore, moved back
+    at the next update) and the updates applied so far."""
+    mu: Any
+    nu: Any
+    count: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardAdamW:
+    """``AdamW`` in optax's shape, for ``train/zero.py``
+    ``ShardedOptimizer``: ``init(flat_shard)`` and ``update(g, state,
+    shard) -> (updates, state)`` over one flat f32 shard of the
+    parameter space, computed on ``device`` (None: the CUDA card), with
+    ``adamw``'s schedule, decay and clip, step for step as
+    ``AdamW.update`` applies them to whole tensors (the moments here are
+    f32: the shard's dtype). The clip needs the norm of the WHOLE
+    gradient, which no shard holds: ``clip_by_global_norm`` tells
+    ``ShardedOptimizer`` to sum the ranks' ``sq_norm`` over its ring and
+    pass the norm as ``update(..., grad_norm=)``. Host arrays in give
+    host arrays out; the moments stay on ``device`` and are updated in
+    place (a shard of a 1.5 B-parameter model holds 3 GB of each)."""
+    adamw: AdamW = AdamW()
+    device: Any = None
+
+    @property
+    def clip_by_global_norm(self) -> float:
+        return self.adamw.grad_clip
+
+    def _put(self, x) -> torch.Tensor:
+        dev = resolve_device(self.device)
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return torch.as_tensor(x).to(dev, torch.float32)
+
+    def init(self, flat_shard) -> ShardAdamWState:
+        n = int(np.asarray(flat_shard).size) \
+            if not isinstance(flat_shard, torch.Tensor) \
+            else flat_shard.numel()
+        dev = resolve_device(self.device)
+        return ShardAdamWState(torch.zeros(n, device=dev),
+                               torch.zeros(n, device=dev), 0)
+
+    def sq_norm(self, g) -> float:
+        """This shard's squared L2 norm, for the global clip."""
+        return float(torch.linalg.vector_norm(self._put(g))) ** 2
+
+    @torch.no_grad()
+    def update(self, g, state: ShardAdamWState, shard,
+               grad_norm: Optional[float] = None):
+        host = isinstance(g, np.ndarray)
+        opt = self.adamw
+        gt, pt = self._put(g), self._put(shard)
+        mu, nu = self._put(state.mu), self._put(state.nu)
+        count = int(state.count)
+        lr = opt.schedule(count)
+        count += 1
+        bc1 = 1.0 - B1 ** count
+        bc2 = 1.0 - B2 ** count
+        if grad_norm is not None and grad_norm >= opt.grad_clip:
+            gt.mul_(opt.grad_clip / grad_norm)
+        mu.mul_(B1).add_(gt, alpha=1.0 - B1)
+        nu.mul_(B2).addcmul_(gt, gt, value=1.0 - B2)
+        upd = (mu / bc1) / ((nu / bc2).sqrt() + EPS)
+        upd.add_(pt, alpha=opt.weight_decay)
+        upd.mul_(-lr)
+        return (upd.cpu().numpy() if host else upd), \
+            ShardAdamWState(mu, nu, count)
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:

@@ -588,7 +588,7 @@ class WorkerExecutor:
                     "__pipe_exec_loop__: the pipeline-stage loop "
                     "(dag/runtime.py pipe_exec_loop, train/pipeline.py) "
                     "is not ported to ray_tpu_torch yet (ROADMAP Queue 1 "
-                    "item 13)")
+                    "item 13c)")
             else:
                 fn = getattr(hosted.instance, method)
             if hosted.groups:

@@ -5,33 +5,39 @@ has: the Train-v2 analog (reference: python/ray/train/v2/ — TrainController
 at v2/_internal/execution/controller/controller.py:105, WorkerGroup at
 worker_group/worker_group.py:113), with ``TorchTrainer`` driving
 ``ray_tpu_torch.parallel.make_train_step`` in each worker, the durable
-async checkpoint plane (``ckptio``) and the goodput ledger. The
-collective plane (``allreduce_gradients``, ZeRO, pipelines) waits for
-ROADMAP.md's Queue 1 item 13, boosting for item 17.
+async checkpoint plane (``ckptio``), the goodput ledger, and the
+host-plane collectives over the controller-wired gradient ring
+(``allreduce_gradients``, ``reduce_scatter_gradients``,
+``allgather_params``, ZeRO-1's ``ShardedOptimizer``). Pipelines wait for
+ROADMAP.md's Queue 1 item 13c, boosting for item 17.
 """
 
 from ray_tpu_torch.train.api import (Checkpoint, CheckpointConfig,
                                      FailureConfig, Result, RunConfig,
-                                     ScalingConfig, allreduce_gradients,
-                                     await_regroup,
+                                     ScalingConfig, await_regroup,
                                      ensure_torch_distributed, get_context,
                                      get_dataset_shard, report)
 from ray_tpu_torch.train.ckptio import (AsyncCheckpointer, CkptError,
                                         preempted,
                                         restore as restore_checkpoint)
+from ray_tpu_torch.train.collective import (PeerLostError,
+                                            allgather_params,
+                                            allreduce_gradients,
+                                            reduce_scatter_gradients)
 from ray_tpu_torch.train.reshard import ReshardError
 from ray_tpu_torch.train.trainer import (SklearnTrainer, TorchTrainer,
                                          get_controller)
+from ray_tpu_torch.train.zero import ShardedOptimizer
 
 __all__ = [
     "AsyncCheckpointer",
     "Checkpoint", "CheckpointConfig", "CkptError",
-    "FailureConfig",
+    "FailureConfig", "PeerLostError",
     "Result", "ReshardError",
-    "RunConfig", "ScalingConfig", "SklearnTrainer",
-    "allreduce_gradients", "await_regroup",
+    "RunConfig", "ScalingConfig", "ShardedOptimizer", "SklearnTrainer",
+    "allgather_params", "allreduce_gradients", "await_regroup",
     "ensure_torch_distributed",
     "get_context", "get_dataset_shard", "preempted",
-    "report", "restore_checkpoint",
+    "reduce_scatter_gradients", "report", "restore_checkpoint",
     "TorchTrainer", "get_controller",
 ]

@@ -3,8 +3,10 @@
 The port's copy of ``ray_tpu/train/api.py``: ``ScalingConfig`` gains
 ``use_gpu`` and bootstraps ``torch.distributed`` (``torch_distributed``,
 ``ensure_torch_distributed``) where the JAX package bootstraps
-jax.distributed; the gradient ring, peer mirrors and in-place reshape
-wait for ROADMAP.md's Queue 1 item 13, and their entry points say so.
+jax.distributed. The controller-wired gradient-sync ring
+(``gradient_sync_ring``, dag/ring.py) is the reference's; the peer
+mirrors and the in-place elastic reshape wait for ROADMAP.md's Queue 1
+item 13b, and their entry points say so.
 
 Reference surface: ScalingConfig (train/v2/api/config.py:31), RunConfig/
 FailureConfig/CheckpointConfig (v2/api/config.py), ray.train.report
@@ -195,7 +197,8 @@ class TrainContext:
                  node_rank: int, resume_checkpoint: Optional[Checkpoint],
                  dataset_shards: Optional[Dict[str, Any]] = None,
                  storage_path: Optional[str] = None,
-                 group_id: str = ""):
+                 group_id: str = "",
+                 grad_sync: Optional[dict] = None):
         self.rank = rank
         self.world_size = world_size
         self.local_rank = local_rank
@@ -210,16 +213,23 @@ class TrainContext:
         self._seq = 0
         self._dataset_shards = dataset_shards or {}
         self._storage_path = storage_path
-        # Train-step tag for collective tracing and the goodput
-        # ledger's step rows. The reference bumps it once per completed
-        # gradient sync; the port has no ring yet (ROADMAP.md, Queue 1
-        # item 13), so every step is tagged 0.
+        # Controller-built ring channel spec for host-plane gradient
+        # sync (train.allreduce_gradients): rank r -> rank (r+1)%N over
+        # shm (same node) / TCP (cross node). Attached lazily — groups
+        # that never allreduce host gradients pay nothing.
+        self._grad_sync = grad_sync
+        self._grad_ring = None
+        # Train-step tag for collective tracing: bumped once per
+        # completed gradient sync (an allreduce, or the allgather half
+        # closing a reduce-scatter/allgather pair), stamped onto the
+        # ring's spans so timeline lanes and straggler rows say WHICH
+        # step a slow round belongs to.
         self.collective_step = 0
 
     def mirror_shard(self, blob: dict) -> bool:
-        """Peer mirrors of ZeRO shards come with the sharded optimizer
-        (ROADMAP.md, Queue 1 item 13)."""
-        raise NotImplementedError(_UNPORTED_RING)
+        """Peer mirrors of ZeRO shards come with the elastic reshape
+        (ROADMAP.md, Queue 1 item 13b)."""
+        raise NotImplementedError(_UNPORTED_ELASTIC)
 
     # -- user API --
     def get_world_size(self) -> int:
@@ -238,26 +248,58 @@ class TrainContext:
         return self._resume
 
     def gradient_sync_ring(self):
-        """The chunked ring for host-plane gradient allreduce
-        (``ray_tpu/dag/ring.py`` RingReducer) is not ported yet: the
-        controller wires none (ROADMAP.md, Queue 1 item 13)."""
-        raise NotImplementedError(_UNPORTED_RING)
+        """The lazily-attached chunked ring for host-plane gradient
+        allreduce across the group (dag/ring.py RingReducer, or its
+        ring-of-rings HierarchicalReducer); raises when the controller
+        didn't wire one (world_size == 1 groups short-circuit in
+        allreduce_gradients before reaching here)."""
+        if self._grad_ring is None:
+            if self._grad_sync is None:
+                raise RuntimeError(
+                    "host-plane gradient sync is not wired for this "
+                    "worker group (controller predates it, or "
+                    "world_size == 1)")
+            from ray_tpu_torch.dag.ring import (HierarchicalReducer,
+                                                RingReducer)
+            cls = HierarchicalReducer \
+                if self._grad_sync.get("role") == "hier" else RingReducer
+            self._grad_ring = cls.from_spec(self._grad_sync)
+        return self._grad_ring
+
+    def close_gradient_sync(self) -> None:
+        """Release the ring's channels (worker teardown; shm segments
+        must not outlive the group incarnation that named them)."""
+        ring, self._grad_ring = self._grad_ring, None
+        if ring is not None:
+            ring.close()
 
     def shard_bounds(self, total: int,
                      rank: Optional[int] = None) -> Tuple[int, int]:
         """The (lo, hi) slice of a flat length-``total`` parameter
         space owned by ``rank`` (default: this worker) under the
-        contiguous N-way split that ``train/reshard.py`` plans and a
-        sharded checkpoint saves. The reference follows the ring
-        spec's ownership rotation; with no ring wired (ROADMAP.md,
-        Queue 1 item 13) ownership is the identity, and world_size ==
-        1 owns everything."""
+        collective plane's contiguous N-way split — exactly the shard
+        ``reduce_scatter_gradients`` returns and ``allgather_params``
+        expects, and the slice a ZeRO-1 ``ShardedOptimizer`` keeps
+        moments for. Ownership follows the controller's shard map in
+        the ring spec (the ``own`` rotation, identity by default);
+        world_size == 1 owns everything."""
         n = self.world_size
         r = self.rank if rank is None else int(rank)
         if not 0 <= r < n:
             raise ValueError(f"rank {r} out of range for {n} workers")
-        from ray_tpu_torch.train.reshard import shard_bounds
-        return shard_bounds(total, n, r)
+        if n == 1:
+            return 0, total
+        gs = self._grad_sync or {}
+        if gs.get("role") == "hier":
+            # two-level topology: ownership follows the NESTED split
+            # (inter split by node, intra split of the node segment —
+            # dag/ring.py hier_seg_bounds), which is what the wired
+            # HierarchicalReducer's reduce-scatter actually hands out
+            from ray_tpu_torch.dag.ring import hier_seg_bounds
+            return hier_seg_bounds(total, gs["nodes"], r)
+        own_self = gs.get("own", self.rank)
+        seg = (r + (own_self - self.rank)) % n
+        return total * seg // n, total * (seg + 1) // n
 
     def get_dataset_shard(self, name: str = "train"):
         shard = self._dataset_shards.get(name)
@@ -438,18 +480,10 @@ def get_dataset_shard(name: str = "train"):
 
 def await_regroup(timeout_s: Optional[float] = None) -> dict:
     """The elastic recovery entry point (block until the controller
-    re-forms the group around a lost peer) needs the in-place reshape,
-    which comes with the gradient ring (ROADMAP.md, Queue 1 item 13):
-    until then every worker loss restarts the group from its latest
-    checkpoint."""
-    raise NotImplementedError(_UNPORTED_RING)
-
-
-def allreduce_gradients(grads, op: str = "mean", **kw):
-    """Host-plane gradient allreduce over the controller-wired ring
-    (``ray_tpu/train/collective.py``): not ported yet (ROADMAP.md,
-    Queue 1 item 13)."""
-    raise NotImplementedError(_UNPORTED_RING)
+    re-forms the group around a lost peer) needs the in-place reshape
+    (ROADMAP.md, Queue 1 item 13b): until then every worker loss
+    restarts the group from its latest checkpoint."""
+    raise NotImplementedError(_UNPORTED_ELASTIC)
 
 
 def torch_distributed_initialized() -> bool:
@@ -490,7 +524,7 @@ def ensure_torch_distributed() -> bool:
     return True
 
 
-_UNPORTED_RING = (
-    "the host-plane gradient ring (allreduce_gradients, ZeRO peer "
-    "mirrors, the in-place elastic reshape) is not ported yet "
-    "(ROADMAP.md, Queue 1 item 13)")
+_UNPORTED_ELASTIC = (
+    "the in-place elastic reshape (await_regroup, ZeRO peer mirrors, "
+    "rewire) is not ported to ray_tpu_torch yet (ROADMAP.md, Queue 1 "
+    "item 13b)")

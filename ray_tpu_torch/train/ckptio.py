@@ -2,10 +2,10 @@
 
 The port's copy of ``ray_tpu/train/ckptio.py``, on numpy pytrees as the
 JAX package's: a torch train state crosses through
-``parallel/mesh.state_to_numpy``/``state_from_numpy``. The two helpers
-it takes from ``train/zero.py`` (``_wire_of``, ``_slice_leaves``) are
-copied here; a ``ShardedOptimizer`` (``opt=``) waits for ROADMAP.md's
-Queue 1 item 13 and raises.
+``parallel/mesh.state_to_numpy``/``state_from_numpy``, and torch leaves
+handed to ``save`` (a ``ShardedOptimizer``'s state on the card) are
+staged to the host as the train plane stages them (dag/ring.py
+``to_host``).
 
 The train plane's answer to whole-pod preemption — the failure mode
 PR 6's in-memory peer mirrors cannot survive (a correlated loss wipes
@@ -336,53 +336,17 @@ def _storage(path_or_uri: str):
     return _st.get_storage(path_or_uri)
 
 
-def _wire_of(leaves: list) -> np.dtype:
-    """The flat parameter space's dtype (``ShardedOptimizer._wire_of``
-    of ``ray_tpu/train/zero.py``: the ring's wire dtype for a mean):
-    integers widen to float64, floats narrower than 32 bits to
-    float32, any other float keeps its dtype."""
-    if not leaves:
-        return np.dtype(np.float32)
-    rt = np.result_type(*[l.dtype for l in leaves])
-    if rt.kind in "iub":
-        return np.dtype(np.float64)
-    if rt.kind in "cf":
-        return np.dtype(np.float32) if rt.kind == "f" and \
-            rt.itemsize < 4 else rt
-    try:                          # ml_dtypes floats
-        bits = np.finfo(rt).bits
-    except ValueError:
-        raise TypeError(f"no flat parameter space of dtype {rt}")
-    return np.dtype(np.float32) if bits <= 32 else np.dtype(np.float64)
-
-
-def _slice_leaves(leaves: list, wire: np.dtype, lo: int,
-                  hi: int) -> np.ndarray:
-    """The [lo, hi) slice of the flat wire-dtype vector WITHOUT
-    materializing the whole flat space — the sharded update only ever
-    touches this rank's owned slice, and a full O(S) copy per step is
-    exactly the redundancy ZeRO exists to remove."""
-    out = np.empty(max(0, hi - lo), wire)
-    off = pos = 0
-    for l in leaves:
-        a, b = max(lo, off), min(hi, off + l.size)
-        if a < b:
-            seg = np.asarray(l).reshape(-1)[a - off:b - off]
-            out[pos:pos + (b - a)] = seg.astype(wire, copy=False)
-            pos += b - a
-        off += l.size
-    return out
-
-
 def _snapshot_arrays(params, state, lo: int, hi: int) -> Tuple[dict, int]:
     """The host-copied payload arrays for one rank's shard: the owned
     ``[lo, hi)`` slice of the flat parameter space, each shard-local
     elementwise optimizer leaf, and the replicated non-elementwise
     leaves (optax counters) verbatim. Returns (arrays, total)."""
-    from ray_tpu_torch.dag.ring import _flatten
+    from ray_tpu_torch.dag.ring import _flatten, to_host
+    from ray_tpu_torch.train.zero import ShardedOptimizer, _slice_leaves
+    params, state = to_host(params)[0], to_host(state)[0]
     leaves, _, _ = _flatten(params)
     total = int(sum(l.size for l in leaves))
-    wire = _wire_of(leaves)
+    wire = ShardedOptimizer._wire_of(leaves)
     arrays: Dict[str, np.ndarray] = {
         "param_seg": _slice_leaves(leaves, wire, lo, hi)}
     n_elem = n_other = 0
@@ -812,6 +776,7 @@ def restore(params_template, state_template=None, *,
     explicit ``bounds`` outside a train_fn. ``checkpoint`` is a
     directory path / storage URI or a ``train.Checkpoint``."""
     from ray_tpu_torch.dag.ring import _flatten, rebuild_from_layout
+    from ray_tpu_torch.train.zero import ShardedOptimizer
     t0 = time.monotonic()
     if verify is None:
         from ray_tpu_torch.config import get_config
@@ -829,7 +794,7 @@ def restore(params_template, state_template=None, *,
             f"(has {sorted(man.get('spaces', {}))})")
     total = int(sp["total"])
     leaves, rebuild, _ = _flatten(params_template)
-    wire = _wire_of(leaves)
+    wire = ShardedOptimizer._wire_of(leaves)
     if int(sum(l.size for l in leaves)) != total:
         raise CkptError(
             f"parameter template has {sum(l.size for l in leaves)} "
@@ -953,11 +918,12 @@ class AsyncCheckpointer:
         else:
             self._attempt = None
         if group is None and ctx is not None:
-            # the reference reads a hierarchical ring's role and node
-            # counts off the ring spec; with no ring wired (ROADMAP.md,
-            # Queue 1 item 13) every group is flat
+            gs = getattr(ctx, "_grad_sync", None) or {}
             group = {"group_id": getattr(ctx, "group_id", ""),
-                     "world": self.world, "kind": "flat"}
+                     "world": self.world,
+                     "kind": gs.get("role") or "flat"}
+            if gs.get("nodes"):
+                group["nodes"] = list(gs["nodes"])
         self.group = dict(group or {"world": self.world,
                                     "kind": "flat"})
         from ray_tpu_torch.config import get_config
@@ -993,11 +959,17 @@ class AsyncCheckpointer:
                 gid and gid != self.group.get("group_id")):
             self.rank, self.world = r, w
             self.coordinator = r == 0
-            self.group = {"group_id": gid, "world": w, "kind": "flat"}
+            gs = getattr(ctx, "_grad_sync", None) or {}
+            self.group = {"group_id": gid, "world": w,
+                          "kind": gs.get("role") or "flat"}
+            if gs.get("nodes"):
+                self.group["nodes"] = list(gs["nodes"])
         if gid:
             self._attempt = gid
 
-    def _bounds_of(self, total: int) -> Tuple[int, int]:
+    def _bounds_of(self, total: int, opt=None) -> Tuple[int, int]:
+        if opt is not None:
+            return opt.shard_bounds(total)
         ctx = _try_context()
         if ctx is not None:
             return ctx.shard_bounds(total)
@@ -1022,10 +994,6 @@ class AsyncCheckpointer:
         wedged storage backend."""
         if self._closed:
             raise RuntimeError("AsyncCheckpointer is closed")
-        if opt is not None:
-            raise NotImplementedError(
-                "saving a ShardedOptimizer's shard (opt=) waits for the "
-                "port's ZeRO optimizer (ROADMAP.md, Queue 1 item 13)")
         if self._last_error is not None:
             err, self._last_error = self._last_error, None
             raise CkptError(
@@ -1039,9 +1007,14 @@ class AsyncCheckpointer:
         self._watched = None
         t0 = time.monotonic()
         self._refresh_topology()
+        total_probe = None
+        if opt is not None:
+            total_probe = getattr(opt, "_total", None)
         from ray_tpu_torch.dag.ring import _flatten
-        leaves, _, _ = _flatten(params)
-        lo, hi = self._bounds_of(int(sum(l.size for l in leaves)))
+        if total_probe is None:
+            leaves, _, _ = _flatten(params)
+            total_probe = int(sum(l.size for l in leaves))
+        lo, hi = self._bounds_of(int(total_probe), opt)
         deadline = None if timeout_s is None \
             else time.monotonic() + max(0.0, float(timeout_s))
         # backpressure: at most ckpt_stage_buffers snapshots may be

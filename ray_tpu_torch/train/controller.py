@@ -3,10 +3,12 @@
 The port's copy of ``ray_tpu/train/controller.py``: the bootstrap sets
 torchrun's env and joins torch.distributed (``_bootstrap_distributed``);
 restart-from-checkpoint, elastic grow, preemption recovery and the
-goodput straggler detector are the JAX package's. The gradient ring,
-peer mirrors and the in-place N-1 reshape wait for ROADMAP.md's Queue 1
-item 13 (every worker loss takes the restart path), and the forensics
-audit and its stall watchdog for item 17.
+goodput straggler detector are the JAX package's, and so is the
+gradient-sync ring spec each worker's TrainContext attaches
+(``_grad_sync_specs``: a flat ring, or a ring-of-rings across nodes).
+The peer mirrors and the in-place N-1 reshape wait for ROADMAP.md's
+Queue 1 item 13b (every worker loss takes the restart path), and the
+forensics audit and its stall watchdog for item 17.
 
 Reference: v2/_internal/execution/controller/controller.py:105
 (TrainController.run), worker_group/worker_group.py:113 (create on a
@@ -32,6 +34,13 @@ from ray_tpu_torch.train.api import (Checkpoint, FailureConfig, Result, RunConfi
 from ray_tpu_torch.train.checkpoint import CheckpointManager
 from ray_tpu_torch.train.worker import TrainWorker
 from ray_tpu_torch.util import events
+
+# Ring timeout of the controller-wired gradient-sync ring: how long a
+# rank waits on its ring neighbour (attach or round) before the peer is
+# declared lost. The reference's ScalingConfig.sync_timeout_s default;
+# the knob itself comes with the elastic reshape (ROADMAP.md, Queue 1
+# item 13b).
+_SYNC_TIMEOUT_S = 300.0
 
 
 def train_metrics() -> dict:
@@ -343,6 +352,112 @@ class TrainController:
                 metrics)
         self.ckpt_manager.pointer_target = resolved
 
+    def _grad_sync_specs(self, group_id: str):
+        """Ring channel specs for host-plane gradient sync
+        (train.allreduce_gradients — the dag collective plane's chunked
+        ring, dag/ring.py): one directed edge rank r -> rank (r+1)%N.
+        Ranks are already topology-sorted (_create_group), so adjacent
+        ranks are co-located whenever possible: same-node pairs get a
+        lazily-created shm ring (consumer creates at attach), only
+        genuinely cross-node pairs pay TCP (endpoint negotiated via the
+        control KV). Workers attach lazily on their first allreduce.
+
+        Each spec also carries the incarnation's SHARD MAP: ``own`` is
+        the contiguous segment of the flat parameter space this rank
+        owns after a reduce-scatter (the ZeRO-1 optimizer-state shard
+        — train/zero.py), identity rotation rank->segment today.
+        TrainContext.shard_bounds and the ring validate against it, so
+        a restarted/resized incarnation re-derives a consistent
+        ownership split from its own spec instead of assuming one.
+
+        When the group spans more than one node AND some node hosts
+        two or more ranks (and Config.collective_hierarchy allows it),
+        the specs describe a TWO-LEVEL topology instead — per-node shm
+        intra rings, one TCP ring over the node leaders, intra
+        broadcast (dag/ring.py HierarchicalReducer): cross-node wire
+        traffic drops to ~1/ranks-per-node, and wire codecs apply on
+        the cross-node leg only."""
+        n = len(self._workers)
+        if n < 2:
+            return [None] * n
+        from ray_tpu_torch.config import get_config
+        from ray_tpu_torch.dag.channel import new_tcp_spec
+        cfg = get_config()
+        # 4 MB slots (the dag compiler's default): chunk frames are
+        # clamped to the slot, and header/error frames (layout sig
+        # scales with leaf count) need headroom beyond one chunk
+        nslots, slot_bytes = 4, 4 << 20
+        tune = bool(getattr(cfg, "collective_tuner", True))
+        groups = self._node_groups()
+        hier = self._wants_hier(groups)
+        if hier:
+            return self._hier_sync_specs(group_id, groups, nslots,
+                                         slot_bytes, tune)
+        edges = []
+        for r in range(n):
+            if self._infos[r]["node_id"] == \
+                    self._infos[(r + 1) % n]["node_id"]:
+                edges.append({"name": f"rtgs-{group_id[:12]}-{r}",
+                              "nslots": nslots,
+                              "slot_bytes": slot_bytes, "lazy": True})
+            else:
+                edges.append(new_tcp_spec(nslots, slot_bytes))
+        return [{"rank": r, "size": n, "op": "mean",
+                 "timeout_s": _SYNC_TIMEOUT_S,
+                 "own": r, "tune": tune,
+                 # collective spans/flight dumps tag this group id, so
+                 # timeline lanes and post-mortems name the incarnation
+                 "group": group_id[:12],
+                 "to_next": edges[r], "from_prev": edges[(r - 1) % n]}
+                for r in range(n)]
+
+    def _node_groups(self) -> List[list]:
+        """Contiguous per-node rank grouping [(node_id, [ranks])...]
+        of the CURRENT worker list (ranks are topology-sorted, so
+        same-node ranks are adjacent)."""
+        groups: List[list] = []
+        for r in range(len(self._workers)):
+            nid = self._infos[r]["node_id"]
+            if groups and groups[-1][0] == nid:
+                groups[-1][1].append(r)
+            else:
+                groups.append([nid, [r]])
+        return groups
+
+    def _wants_hier(self, groups: List[list]) -> bool:
+        """True when _grad_sync_specs would wire the two-level
+        topology for this grouping — the ONE condition, shared with
+        the reshape path so the recorded old split can't drift from
+        the specs that were actually wired."""
+        from ray_tpu_torch.config import get_config
+        return getattr(get_config(), "collective_hierarchy",
+                       "auto") != "flat" \
+            and len(self._workers) >= 2 and len(groups) > 1 \
+            and max(len(g[1]) for g in groups) > 1
+
+    def _hier_sync_specs(self, group_id: str, groups: List[list],
+                         nslots: int, slot_bytes: int,
+                         tune: bool) -> List[dict]:
+        """Ring-of-rings channel specs via the shared builder
+        (dag/ring.py build_hier_specs): one lazy-shm intra ring per
+        node (consumer creates at attach, names unique per incarnation
+        + node + position), one TCP ring over the first rank of each
+        node (the elected leader — leaders are on distinct nodes by
+        construction, so every inter edge genuinely crosses nodes).
+        The tuner flag rides the INTER sub-ring: that leg owns the
+        cross-node wire the auto-tuner exists to optimize."""
+        from ray_tpu_torch.dag.channel import new_tcp_spec
+        from ray_tpu_torch.dag.ring import build_hier_specs
+        gid = group_id[:12]
+        return build_hier_specs(
+            [len(ranks) for _, ranks in groups],
+            lambda i, j: {"name": f"rtgi-{gid}-{i}-{j}",
+                          "nslots": nslots,
+                          "slot_bytes": slot_bytes, "lazy": True},
+            lambda i: new_tcp_spec(nslots, slot_bytes),
+            op="mean", timeout_s=_SYNC_TIMEOUT_S,
+            group=gid, tune=tune)
+
     def _start_train(self):
         self._recover_latest_checkpoint()
         shards = self._split_datasets(len(self._workers))
@@ -359,14 +474,15 @@ class TrainController:
         self._straggler_last = -1
         self._straggler_since = None   # wall-clock start of the
         #                                current straggler episode
-        # no gradient-sync ring spec and no peer-mirror target: both
-        # wait for the gradient ring (ROADMAP.md, Queue 1 item 13)
+        # the gradient-sync ring spec per rank; no peer-mirror target
+        # (the elastic reshape: ROADMAP.md, Queue 1 item 13b)
+        sync = self._grad_sync_specs(group_id)
         refs = []
         for i, w in enumerate(self._workers):
             refs.append(w.start_train_fn.remote(
                 self.train_fn_payload, self.train_loop_config,
                 self.ckpt_manager.latest, shards[i],
-                self.run_config.storage_path, group_id))
+                self.run_config.storage_path, group_id, sync[i]))
         ray_tpu_torch.get(refs, timeout=120)
 
     def _split_datasets(self, n: int) -> List[Optional[dict]]:
@@ -667,9 +783,9 @@ class TrainController:
                                    for i, _ in dead)
                 # worker loss: the restart-from-checkpoint path in run()
                 # (the in-place N-1 reshape of the reference needs the
-                # gradient ring and peer mirrors: ROADMAP.md, Queue 1
-                # item 13; its postmortem audit of the survivors waits
-                # for the forensics plane, item 17)
+                # peer mirrors: ROADMAP.md, Queue 1 item 13b; its
+                # postmortem audit of the survivors waits for the
+                # forensics plane, item 17)
                 if preempt_only:
                     raise _PreemptRestart(dead[0][1])
                 raise dead[0][1]

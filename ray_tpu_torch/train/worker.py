@@ -2,10 +2,11 @@
 
 The port's copy of ``ray_tpu/train/worker.py``: the group joins a
 torch.distributed world (``init_torch_distributed``) where the JAX
-package's joins jax.distributed; the peer-mirror store and the in-place
-rewire wait for the gradient ring (ROADMAP.md, Queue 1 item 13) and the
-forensics ledger for item 17. Like every runtime worker, it imports no
-device package until the train_fn does.
+package's joins jax.distributed, and hands its TrainContext the
+controller's gradient-sync ring spec; the peer-mirror store and the
+in-place rewire wait for the elastic reshape (ROADMAP.md, Queue 1 item
+13b) and the forensics dump for item 17. Like every runtime worker, it
+imports no device package until the train_fn does.
 
 Reference: v2/_internal/execution/worker_group/worker.py + thread_runner.py
 — the train_fn runs on a thread inside the actor so the actor stays
@@ -127,7 +128,8 @@ class TrainWorker:
                        resume_checkpoint: Optional[Checkpoint],
                        dataset_shards: Optional[dict] = None,
                        storage_path: Optional[str] = None,
-                       group_id: str = "") -> bool:
+                       group_id: str = "",
+                       grad_sync: Optional[dict] = None) -> bool:
         fn = cloudpickle.loads(fn_payload)
         self._group_id = group_id
         self.ctx = TrainContext(
@@ -136,12 +138,15 @@ class TrainWorker:
             resume_checkpoint=resume_checkpoint,
             dataset_shards=dataset_shards,
             storage_path=storage_path,
-            group_id=group_id)
+            group_id=group_id,
+            grad_sync=grad_sync)
 
         def run():
             set_context(self.ctx)
-            from ray_tpu_torch.util import goodput
+            from ray_tpu_torch.util import forensics, goodput
             goodput.set_rank(self.rank)
+            forensics.set_rank(self.rank)
+            forensics.set_meta(group_id=group_id)
             try:
                 if train_loop_config is not None:
                     self._result = fn(train_loop_config)
@@ -150,6 +155,12 @@ class TrainWorker:
             except BaseException as e:  # noqa: BLE001
                 self._error = "".join(traceback.format_exception(e))
             finally:
+                # gradient-sync ring channels must not outlive the
+                # train_fn — a restarted incarnation wires fresh ones
+                try:
+                    self.ctx.close_gradient_sync()
+                except Exception:
+                    pass
                 self._done.set()
 
         self._thread = threading.Thread(target=run, daemon=True)
@@ -187,16 +198,16 @@ class TrainWorker:
 
     def store_mirror(self, group_id: str, from_rank: int, step: int,
                      blob: dict) -> bool:
-        """Peer mirrors of ZeRO shards come with the sharded optimizer
-        (ROADMAP.md, Queue 1 item 13)."""
-        from ray_tpu_torch.train.api import _UNPORTED_RING
-        raise NotImplementedError(_UNPORTED_RING)
+        """Peer mirrors of ZeRO shards come with the elastic reshape
+        (ROADMAP.md, Queue 1 item 13b)."""
+        from ray_tpu_torch.train.api import _UNPORTED_ELASTIC
+        raise NotImplementedError(_UNPORTED_ELASTIC)
 
     def rewire(self, payload: dict) -> bool:
-        """The in-place elastic reshape needs the gradient ring
-        (ROADMAP.md, Queue 1 item 13)."""
-        from ray_tpu_torch.train.api import _UNPORTED_RING
-        raise NotImplementedError(_UNPORTED_RING)
+        """The in-place elastic reshape (ROADMAP.md, Queue 1 item
+        13b)."""
+        from ray_tpu_torch.train.api import _UNPORTED_ELASTIC
+        raise NotImplementedError(_UNPORTED_ELASTIC)
 
     def join(self) -> Dict[str, Any]:
         self._done.wait()

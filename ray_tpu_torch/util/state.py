@@ -5,10 +5,11 @@ python/ray/util/state/api.py list_tasks + ``ray summary tasks``): a thin
 typed view over the control service's timeline RPC, usable from any
 initialized driver/worker. The port's copy of ``ray_tpu/util/state.py``
 cut to the task rows, which read the runtime's always-on task events
-(``util/tracing.record_exec``), and the actor rows (the serve plane's
-tests read replicas' states from them); the node, collective, pipeline,
-goodput, trace, device, health, job and placement-group views come with
-the CLI that renders them (ROADMAP Queue 1 item 17).
+(``util/tracing.record_exec``), the actor rows (the serve plane's
+tests read replicas' states from them) and the collective rows (the
+ring's round spans, dag/ring.py); the node, pipeline, goodput, trace,
+device, health, job and placement-group views come with the CLI that
+renders them (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -65,6 +66,81 @@ def tasks_from_events(events, limit: int = 200,
         })
     rows.sort(key=lambda x: -(x["start_time"] or 0))
     return rows[:limit]
+
+
+def collectives_from_events(events, limit: int = 50) -> List[dict]:
+    """Timeline "collective" round spans -> summary rows, newest
+    first. The ONE place the collective round-span shape is
+    interpreted — `ray-tpu collectives` and the dashboard /tasks page
+    both render these rows (chunk-level spans are a chrome-trace
+    concern and are skipped here)."""
+    rows = []
+    for e in events:
+        if e.get("cat") != "collective" or e.get("name") != "round":
+            continue
+        rows.append({
+            "kind": e.get("kind", "?"),
+            "op": e.get("op"),
+            # hierarchy level of the sub-ring that recorded the span
+            # (intra/inter/bcast; None for a flat ring) — keeps the
+            # table and straggler reads from cross-wiring the levels
+            "level": e.get("level"),
+            "group": e.get("group"),
+            "cid": e.get("cid"),
+            "rank": e.get("rank"),
+            "size": e.get("size"),
+            "step": e.get("step"),
+            "node_id": str(e.get("node", ""))[:16] or None,
+            "pid": e.get("pid"),
+            "start_time": e.get("ts"),
+            "duration_s": e.get("dur", 0.0),
+            "bytes": e.get("bytes", 0),
+            "codec": e.get("codec"),
+            "recv_wait_s": e.get("recv_wait_s", 0.0),
+            "straggler": e.get("straggler"),
+            "error": e.get("error", False),
+        })
+    rows.sort(key=lambda x: -(x["start_time"] or 0))
+    return rows[:limit]
+
+
+def summarize_collectives(rows: List[dict]) -> List[dict]:
+    """Aggregate collective rows per (kind, op, codec): round count,
+    mean/max round time, bytes per round, and the modal straggler rank
+    (the one to go look at first)."""
+    agg: dict = {}
+    for r in rows:
+        lv = r.get("level")
+        a = agg.setdefault((r["kind"], r["op"], r["codec"], lv), {
+            "kind": r["kind"], "op": r["op"], "codec": r["codec"],
+            "level": lv,
+            "rounds": 0, "total_s": 0.0, "max_s": 0.0, "bytes": 0,
+            "errors": 0, "stragglers": {}})
+        a["rounds"] += 1
+        a["total_s"] += r["duration_s"] or 0.0
+        a["max_s"] = max(a["max_s"], r["duration_s"] or 0.0)
+        a["bytes"] = max(a["bytes"], r["bytes"] or 0)
+        if r["error"]:
+            a["errors"] += 1
+        s = r.get("straggler")
+        if s is not None:
+            a["stragglers"][s] = a["stragglers"].get(s, 0) + 1
+    out = []
+    for a in agg.values():
+        strag = a.pop("stragglers")
+        a["mean_s"] = a["total_s"] / max(1, a["rounds"])
+        a["top_straggler"] = (max(strag, key=lambda k: strag[k])
+                              if strag else None)
+        out.append(a)
+    out.sort(key=lambda x: -x["rounds"])
+    return out
+
+
+def list_collectives(limit: int = 50) -> List[dict]:
+    """Recent collective rounds, newest first, off the cluster
+    timeline (`ray-tpu collectives` from Python)."""
+    r = _call("collect_timeline")
+    return collectives_from_events(r.get("events", []), limit)
 
 
 def list_tasks(limit: int = 200,

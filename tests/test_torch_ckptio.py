@@ -8,10 +8,10 @@ optimizer states are optax's, which the port's checkpoint plane takes
 as any numpy pytree. Left out, each for the ROADMAP.md Queue 1 item it
 waits for:
 
-- test_zero_optimizer_mirrors_shard_on_preemption: item 13
-  (``ShardedOptimizer`` and its peer mirrors);
+- test_zero_optimizer_mirrors_shard_on_preemption: item 13b
+  (``ShardedOptimizer``'s peer mirrors);
 - test_pipeline_stage_snapshot_restore_roundtrip,
-  test_pipeline_stage_snapshot_seg_only: item 13 (pipeline stages).
+  test_pipeline_stage_snapshot_seg_only: item 13c (pipeline stages).
 """
 
 import os
@@ -28,11 +28,11 @@ from ray_tpu_torch.train import ckptio
 
 SKIP = {
     "test_zero_optimizer_mirrors_shard_on_preemption":
-        "Queue 1 item 13: ShardedOptimizer",
+        "Queue 1 item 13b: ShardedOptimizer's peer mirrors",
     "test_pipeline_stage_snapshot_restore_roundtrip":
-        "Queue 1 item 13: pipeline stages",
+        "Queue 1 item 13c: pipeline stages",
     "test_pipeline_stage_snapshot_seg_only":
-        "Queue 1 item 13: pipeline stages",
+        "Queue 1 item 13c: pipeline stages",
 }
 
 adopt(ported("test_zz_ckptio"), globals(), skip=SKIP)
@@ -100,9 +100,42 @@ def test_state_from_numpy_refuses_another_model():
 
 
 def test_sharded_optimizer_waits_for_item_13(tmp_path):
+    """``save(opt=ShardedOptimizer)`` (raising until item 13 was ported)
+    writes the ZeRO shard: a one-worker ShardedOptimizer over the port's
+    ShardAdamW, its moments torch tensors, saved with ``opt=``, restores
+    into a fresh ``opt.init`` template with the parameters and moments
+    equal, and the next update from the restored state equals the next
+    update from the live one."""
+    from ray_tpu_torch.parallel import ShardAdamW
+    from ray_tpu_torch.train.zero import ShardedOptimizer
+    rng = np.random.default_rng(3)
+    params = {"w": torch.tensor(rng.standard_normal((4, 5)),
+                                dtype=torch.float32),
+              "b": torch.tensor(rng.standard_normal(7),
+                                dtype=torch.bfloat16)}
+    grads = {k: torch.ones_like(v) for k, v in params.items()}
+    opt = ShardedOptimizer(ShardAdamW(mesh.default_optimizer(
+        1e-2, warmup_steps=1, total_steps=10), device="cpu"))
+    state = opt.init(params)
+    for _ in range(2):
+        params, state = opt.update(grads, state, params)
     ck = ckptio.AsyncCheckpointer(str(tmp_path), rank=0, world=1)
     try:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ck.save(1, {"w": np.zeros(3, np.float32)}, opt=object())
+        assert ck.save(2, params, state, opt, block=True)
     finally:
         ck.close()
+    path = os.path.join(str(tmp_path), ckptio.ckpt_dirname(2))
+    got_p, got_s, step = ckptio.restore(
+        {k: np.zeros(tuple(v.shape), np.float32) for k, v in params.items()},
+        state_template=opt.init(params), checkpoint=path, rank=0, world=1)
+    assert step == 2 and int(got_s.count) == state.count == 2
+    for k, v in params.items():
+        assert np.array_equal(got_p[k], v.float().numpy())
+    assert np.array_equal(np.asarray(got_s.mu), state.mu.numpy())
+    assert np.array_equal(np.asarray(got_s.nu), state.nu.numpy())
+    back = {k: torch.from_numpy(got_p[k]).to(v.dtype)
+            for k, v in params.items()}
+    live, _ = opt.update(grads, state, params)
+    again, _ = opt.update(grads, got_s, back)
+    for k in params:
+        assert torch.equal(live[k], again[k])

@@ -26,6 +26,7 @@ both pool dtypes: f32 math on the same values, summed in another order.
 """
 
 import asyncio
+import os
 
 import numpy as np
 import pytest
@@ -1331,3 +1332,105 @@ def test_iter_device_batches_consumer_waits_for_copy(dev, monkeypatch):
     monkeypatch.undo()
     torch.cuda.synchronize()
     assert [int(s) for s in sums] == want and len(keep) == len(want)
+
+
+def _zero_cfg(llama):
+    """_card_train's model: 2 bf16 layers at head_dim 128 (the wgmma
+    kernels take head_dim 64 or 128)."""
+    return llama.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, ffn_dim=512, dtype="bfloat16",
+                      remat_policy="dots")
+
+
+def _zero_card_fn(config):
+    """Two use_gpu workers, each on its own card: a tiny bf16 Llama from
+    the same seed, its half of each batch, ZeRO-1 (ShardedOptimizer over
+    ShardAdamW on the worker's card); rank 0 reports the ranks' mean loss,
+    the global grad norm and whether both ranks hold the same norm and
+    bitwise the same parameters (read through the ring)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import ShardAdamW, mesh
+    from ray_tpu_torch.train.zero import ShardedOptimizer
+    dev = torch.device("cuda")
+    cfg = _zero_cfg(llama)
+    opt = mesh.default_optimizer(1e-2, warmup_steps=1, total_steps=10)
+    init_fn, _ = mesh.make_train_step(cfg, device=dev, optimizer=opt)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    params = list(state.params.parameters())
+    so = ShardedOptimizer(ShardAdamW(opt, device=dev))
+    zstate = so.init([p.detach() for p in params])
+    rank = train.get_context().get_world_rank()
+    for step, batch in enumerate(config["batches"]):
+        mine = {k: torch.as_tensor(v[2 * rank:2 * rank + 2], device=dev)
+                for k, v in batch.items()}
+        for p in params:
+            p.grad = None
+        loss = llama.loss_fn(state.params, mine, cfg)
+        loss.backward()
+        new, zstate = so.update([p.grad for p in params], zstate,
+                                [p.detach() for p in params])
+        with torch.no_grad():
+            for p, q in zip(params, new):
+                p.copy_(q)
+        flat = torch.cat([p.detach().float().reshape(-1) for p in params])
+        seen = np.array([loss.item(), so.grad_norm], np.float64)
+        hi = train.allreduce_gradients([seen, flat], op="max")
+        lo = train.allreduce_gradients([seen, flat], op="min")
+        train.report({"step": step, "grad_norm": so.grad_norm,
+                      "loss": float(train.allreduce_gradients(
+                          seen, op="mean")[0]),
+                      "same": bool(hi[0][1] == lo[0][1]
+                                   and torch.equal(hi[1], lo[1])),
+                      "card": str(torch.cuda.get_device_name(0)),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def test_zero_trainer_over_two_cards_matches_one_process(dev):
+    """ZeRO-1 (mode B of chip_smoke.py's run_dp) through
+    TorchTrainer(num_workers=2, use_gpu=True), one card per worker: each
+    step's loss (the ranks' mean) and grad norm within the mesh bars of
+    one process's steps on the whole batch on card 0, and the ranks'
+    parameters bitwise equal."""
+    import sys
+
+    import cloudpickle
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import mesh
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+    _cards(2)
+    cloudpickle.register_pickle_by_value(sys.modules[__name__])
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(3):
+        toks = rng.integers(0, 256, (4, 129))
+        batches.append({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    cfg = _zero_cfg(llama)
+    init_fn, step_fn = mesh.make_train_step(
+        cfg, device=dev, optimizer=mesh.default_optimizer(
+            1e-2, warmup_steps=1, total_steps=10))
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    want = []
+    for b in batches:
+        state, m = step_fn(state, b)
+        want.append((m["loss"].item(), m["grad_norm"].item()))
+    ray_tpu_torch.init(num_cpus=4, resources={
+        "GPU": float(torch.cuda.device_count())})
+    try:
+        res = TorchTrainer(
+            _zero_card_fn, train_loop_config={"batches": batches},
+            scaling_config=ScalingConfig(num_workers=2,
+                                         use_gpu=True)).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert res.error is None, res.error
+    rows = res.metrics_history
+    assert [r["step"] for r in rows] == [0, 1, 2]
+    assert all(r["same"] for r in rows)
+    assert rows[0]["visible"] is not None and "," not in rows[0]["visible"]
+    np.testing.assert_allclose([r["loss"] for r in rows],
+                               [w[0] for w in want], rtol=2e-3)
+    np.testing.assert_allclose([r["grad_norm"] for r in rows],
+                               [w[1] for w in want], rtol=2e-2)

@@ -10,14 +10,12 @@ every ``ray_tpu`` name rewritten to ``ray_tpu_torch``. Left out:
   arrays; each is written anew below on torch tensors
   (test_torch_tensors_staged_through_dag,
   test_torch_tensor_ref_rides_dag_channels,
-  test_stage_to_host_matches_jax_staging);
-- test_dag_allreduce_sum (three participants, no hint: the ring),
-  test_dag_allreduce_ring_smoke_two_participants,
-  test_dag_allreduce_ring_error_reaches_all_and_stream_continues and
-  test_dag_allreduce_int8_quantized: ROADMAP Queue 1 item 13 (the
-  chunked ring and its codecs). ``compile()`` raises for them
-  (test_ring_resolutions_raise_before_any_actor_is_pinned), and the
-  star's three-way sum runs below with ``impl="star"``.
+  test_stage_to_host_matches_jax_staging).
+
+Every resolution of a group to the chunked ring or the ring-of-rings
+compiles and reduces (test_ring_resolutions_raise_before_any_actor_is_pinned,
+which raised until the ring was ported), held to the JAX package's
+reduce of the same values.
 """
 
 import collections
@@ -35,14 +33,6 @@ SKIP = {
         "builds jax arrays: test_torch_tensor_ref_rides_dag_channels",
     "test_stage_to_host_stages_jax_leaves_inside_pytrees":
         "builds jax arrays: test_stage_to_host_matches_jax_staging",
-    "test_dag_allreduce_sum":
-        "Queue 1 item 13: three participants resolve to the ring",
-    "test_dag_allreduce_ring_smoke_two_participants":
-        "Queue 1 item 13: the chunked ring",
-    "test_dag_allreduce_ring_error_reaches_all_and_stream_continues":
-        "Queue 1 item 13: the chunked ring",
-    "test_dag_allreduce_int8_quantized":
-        "Queue 1 item 13: the ring's int8 codec",
 }
 
 adopt(ported("test_dag"), globals(), skip=SKIP)
@@ -294,27 +284,89 @@ def test_star_allreduce_three_participants_on_torch_leaves(cluster):
 @pytest.mark.parametrize("kw,n", [
     ({}, 3),                                   # no hint, N > 2: the ring
     ({"impl": "ring"}, 2),
-    ({"impl": "hier"}, 2),
+    ({"impl": "hier"}, 2),                     # one node: the flat ring
     ({"quantize": "int8"}, 2),
     ({"payload_bytes": 8 * 1024 * 1024}, 2),   # above the star's limit
 ])
 def test_ring_resolutions_raise_before_any_actor_is_pinned(cluster, kw, n):
-    """Every group that resolves to a ring raises NotImplementedError
-    naming Queue 1 item 13 from compile(), before a loop is pinned: the
-    actors still answer plain calls."""
+    """Every group that resolves to a ring (each raised
+    NotImplementedError from compile() until the ring was ported) now
+    compiles to it and reduces: two rounds of a mean over a dict of a
+    float32 vector, a bf16 tensor and an int, on every participant equal
+    to the JAX package's reduce of the same values (dag/runtime.py
+    ``_tree_reduce``; the int8 codec within its documented bound of it),
+    the tensor back as a bf16 tensor; afterwards the actors answer plain
+    calls again."""
+    from ray_tpu.dag.ring import _flatten
+    from ray_tpu.dag.runtime import _tree_reduce as jax_reduce
+    from ray_tpu_torch.dag import _resolve_impl
 
     @ray_tpu_torch.remote
     class S:
-        def f(self, x):
-            return x
+        def __init__(self, seed):
+            self.seed = seed
 
-    ss = [S.remote() for _ in range(n)]
+        def f(self, x):
+            import numpy as np
+            import torch
+            rng = np.random.default_rng(self.seed + int(x))
+            w = rng.standard_normal(3000).astype(np.float32)
+            t = rng.integers(-64, 64, 40).astype(np.float32)
+            return {"w": w, "t": torch.from_numpy(t).to(torch.bfloat16),
+                    "n": self.seed + int(x)}
+
+    def value(seed, x):
+        rng = np.random.default_rng(seed + x)
+        w = rng.standard_normal(3000).astype(np.float32)
+        t = rng.integers(-64, 64, 40).astype(np.float32)
+        return {"w": w, "t": t, "n": seed + x}
+
+    assert _resolve_impl({"size": n, "op": "mean", **kw}) == "ring"
+    ss = [S.remote(10 * i) for i in range(n)]
     with InputNode() as inp:
-        out = MultiOutputNode(allreduce([s.f.bind(inp) for s in ss], **kw))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        compile(out)
-    assert ray_tpu_torch.get([s.f.remote(5) for s in ss],
-                             timeout=30) == [5] * n
+        out = MultiOutputNode(allreduce([s.f.bind(inp) for s in ss],
+                                        op="mean", **kw))
+    cd = compile(out)
+    try:
+        for x in (1, 2):
+            vals = cd.execute(x).get(timeout=60)
+            want = jax_reduce("mean", [value(10 * i, x) for i in range(n)])
+            assert len(vals) == n
+            for v in vals:
+                assert v["t"].dtype == torch.bfloat16
+                for key in ("w", "t"):
+                    assert np.array_equal(np.asarray(v[key].float())
+                                          if key == "t" else v[key],
+                                          np.asarray(vals[0][key].float())
+                                          if key == "t" else vals[0][key])
+                assert v["n"] == want["n"]
+            got_w = vals[0]["w"]
+            if kw.get("quantize") == "int8":
+                # a partial sum's block scale is at most the ranks' summed
+                # max|value|/127 and each element rounds by half a scale
+                # per hop (dag/ring.py): the mean's error stays below
+                # that summed max/127
+                bound = sum(max(np.abs(l).max() for l in _flatten(
+                    [value(10 * i, x)["w"], value(10 * i, x)["t"]])[0])
+                    for i in range(n)) / 127
+                assert np.abs(got_w - want["w"]).max() <= bound
+                assert np.abs(vals[0]["t"].float().numpy()
+                              - want["t"]).max() <= bound + 0.5
+            else:
+                np.testing.assert_allclose(got_w, want["w"], rtol=1e-6,
+                                           atol=1e-6)
+                assert np.array_equal(
+                    vals[0]["t"].float().numpy(),
+                    torch.from_numpy(want["t"]).to(torch.bfloat16)
+                    .float().numpy())
+    finally:
+        cd.teardown()
+    try:
+        assert ray_tpu_torch.get([s.f.remote(5) for s in ss],
+                                 timeout=30)[0]["n"] == 5
+    finally:
+        for s in ss:     # the module's cluster budgets a CPU per actor
+            ray_tpu_torch.kill(s)
 
 
 def test_star_resolutions_follow_the_reference():

@@ -62,6 +62,7 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.util.health", "ray_tpu_torch.util.state",
                 "ray_tpu_torch.util.timeseries", "ray_tpu_torch.util.tpu",
                 "ray_tpu_torch.dag", "ray_tpu_torch.dag.ring",
+                "ray_tpu_torch.dag.tuner",
                 "ray_tpu_torch.dag.channel", "ray_tpu_torch.dag.runtime",
                 "ray_tpu_torch._native", "ray_tpu_torch.data",
                 "ray_tpu_torch.data.block", "ray_tpu_torch.data.dataset",
@@ -73,6 +74,8 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.util.multiprocessing",
                 "ray_tpu_torch.train", "ray_tpu_torch.train.api",
                 "ray_tpu_torch.train.checkpoint",
+                "ray_tpu_torch.train.collective",
+                "ray_tpu_torch.train.zero",
                 "ray_tpu_torch.train.ckptio",
                 "ray_tpu_torch.train.controller",
                 "ray_tpu_torch.train.reshard",
@@ -161,6 +164,55 @@ def test_sharded_train_step_leaves_jax_and_ray_tpu_out():
         "assert torch.isfinite(out['loss'])\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_ring_round_and_zero_step_leave_jax_optax_and_ray_tpu_out():
+    """In a fresh process, one allreduce round of the chunked ring over
+    three ranks (shm channels, one thread each) and one ZeRO-1 step of
+    ``train.ShardedOptimizer`` over ``parallel.ShardAdamW`` on two
+    ranks, with bf16 torch parameters and gradients and the bf16
+    parameter wire: jax, ml_dtypes, optax and every ray_tpu module stay
+    out of ``sys.modules``."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from concurrent.futures import ThreadPoolExecutor\n"
+        "from ray_tpu_torch.dag.channel import ShmRingChannel\n"
+        "from ray_tpu_torch.dag.ring import RingReducer\n"
+        "from ray_tpu_torch.parallel import ShardAdamW, default_optimizer\n"
+        "from ray_tpu_torch.train.zero import ShardedOptimizer\n"
+        "def ring(n):\n"
+        "    chs = [ShmRingChannel(create=True, nslots=4,\n"
+        "                          slot_bytes=1 << 16) for _ in range(n)]\n"
+        "    return chs, [RingReducer(chs[r], ShmRingChannel.attach(\n"
+        "        chs[(r - 1) % n].spec()), rank=r, size=n, op='mean',\n"
+        "        timeout_s=30) for r in range(n)]\n"
+        "def run(reds, fn):\n"
+        "    with ThreadPoolExecutor(len(reds)) as ex:\n"
+        "        return list(ex.map(fn, reds))\n"
+        "chs, reds = ring(3)\n"
+        "out = run(reds, lambda r: r.reduce(np.full(5000, r.rank,\n"
+        "                                           np.float32)))\n"
+        "assert all(np.all(o == 1.0) for o in out)\n"
+        "opt = default_optimizer(1e-2, warmup_steps=1, total_steps=10)\n"
+        "p = {'w': torch.ones(300, 7, dtype=torch.bfloat16)}\n"
+        "def step(r):\n"
+        "    so = ShardedOptimizer(ShardAdamW(opt, device='cpu'), group=r,\n"
+        "                          param_wire_dtype='bfloat16')\n"
+        "    st = so.init(p)\n"
+        "    g = {'w': torch.full((300, 7), r.rank + 1.0,\n"
+        "                         dtype=torch.bfloat16)}\n"
+        "    return so.update(g, st, p)[0]['w']\n"
+        "chs2, reds2 = ring(2)\n"
+        "a, b = run(reds2, step)\n"
+        "assert a.dtype == torch.bfloat16 and torch.equal(a, b)\n"
+        "for c in chs + chs2:\n"
+        "    c.close(); c.unlink()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'optax', 'ray_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

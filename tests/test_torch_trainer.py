@@ -220,10 +220,10 @@ def test_card_of_follows_the_node_visible_list(monkeypatch):
 
 def test_unported_elastic_reshape_raises():
     """The in-place reshape's entry point and knobs wait for the
-    gradient ring (ROADMAP.md, Queue 1 item 13): await_regroup raises
+    elastic reshape (ROADMAP.md, Queue 1 item 13b): await_regroup raises
     rather than blocking on a rewire nothing sends, and ScalingConfig
     takes no elastic_reshard/sync_timeout_s to ignore."""
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         train.await_regroup(timeout_s=1)
     for knob in ("elastic_reshard", "sync_timeout_s"):
         with pytest.raises(TypeError):

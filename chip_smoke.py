@@ -123,6 +123,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the replicated moments, no nvcc, jax or ray_tpu in either worker;
      step walls, the ring's seconds, wire bytes, peak HBM and host RSS
      per worker;
+     then the in-place elastic reshape (``run_elastic``): init(), an
+     elastic TorchTrainer (num_workers=(1, 2)) of two workers on the
+     card training the same model with ZeRO-1 and a peer mirror of each
+     rank's shard every step; rank 1 SIGKILLs itself at step 2 after its
+     backward, rank 0 catches PeerLostError, await_regroup()s,
+     reshard()s its moments with the mirror to world 1, retries step 2
+     on the whole batch and runs step 3: every step reported once at
+     worlds [2, 1, 1], generation 1, one reshard and no lost step, the
+     reshard's staleness 0, losses and grad norms held to run_dp's
+     one-process trajectory, the moments after the reshard bitwise the
+     old shard and the victim's, K1/K2/K3 8 times each in the survivor,
+     no nvcc, jax or ray_tpu in either worker; recovery seconds, the
+     reshard round, each mirror's bytes and seconds, step walls, peak HBM
+     and host RSS per worker;
   10. ``iter_device_batches`` at the training shape (``run_device_batches``):
      32 rows of 4096 tokens and targets in batches of 2 copied to the card
      with prefetch 1, each bitwise its host rows, the 8-layer model's loss
@@ -3362,25 +3376,13 @@ def dp_fn(config):
     train.report({"done": True})
 
 
-def run_dp(card: str) -> dict:
-    """The data-parallel phase (see DP_MODES above): one process's
-    DP_STEPS steps on the whole batch in this process first (then
-    freed), then init() and TorchTrainer(ScalingConfig(num_workers=2,
-    resources_per_worker={"CPU": 1})) running dp_fn in two workers on the
-    card. Checks the losses and grad norms (A, B), the ranks' parameters
-    bitwise equal (A, B, C), K1/K2/K3 launched n_layers times a step on
-    each rank, the int8 bound (C), the shard gauge (B), no nvcc and no
-    jax or ray_tpu in either worker; prints per mode the step walls, the
-    ring's seconds (reduce-scatter, allgather, fused allreduce, host
-    staging each way), wire bytes per rank per step, peak HBM and host
-    RSS per worker."""
-    import shutil
-    import tempfile
-
-    import ray_tpu_torch
+def dp_trajectory():
+    """``(want, moment_bytes, cfg)``: one process's DP_STEPS steps of
+    dp_run's model on the whole of each dp_batch, [(loss, grad norm)];
+    the replicated moments' bytes at the f32 wire; the model's config.
+    The model is freed before it returns."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import mesh
-    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
     cfg, opt, state = dp_run()
     params = list(state.params.parameters())
     want = []
@@ -3399,6 +3401,27 @@ def run_dp(card: str) -> dict:
     del state, params, grads, loss, b
     gc.collect()
     torch.cuda.empty_cache()
+    return want, moment_bytes, cfg
+
+
+def run_dp(card: str) -> dict:
+    """The data-parallel phase (see DP_MODES above): one process's
+    DP_STEPS steps on the whole batch in this process first (then
+    freed), then init() and TorchTrainer(ScalingConfig(num_workers=2,
+    resources_per_worker={"CPU": 1})) running dp_fn in two workers on the
+    card. Checks the losses and grad norms (A, B), the ranks' parameters
+    bitwise equal (A, B, C), K1/K2/K3 launched n_layers times a step on
+    each rank, the int8 bound (C), the shard gauge (B), no nvcc and no
+    jax or ray_tpu in either worker; prints per mode the step walls, the
+    ring's seconds (reduce-scatter, allgather, fused allreduce, host
+    staging each way), wire bytes per rank per step, peak HBM and host
+    RSS per worker."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    want, moment_bytes, cfg = dp_trajectory()
     page = os.sysconf("SC_PAGE_SIZE")
     print(f"dp host [{card}]: RAM free "
           f"{os.sysconf('SC_AVPHYS_PAGES') * page / 2**30:.1f} of "
@@ -3499,7 +3522,316 @@ def run_dp(card: str) -> dict:
                        for i in range(3)]
                 for name, ms in (("train_dp_allreduce", ("A",)),
                                  ("train_dp_zero", ("B", "C")))}
-    return {"launches": launches}
+    return {"launches": launches, "want": want}
+
+
+# --- the in-place elastic reshape: a ZeRO-1 group losing a worker ----------
+#
+# run_dp's model, optimizer and batches in two TorchTrainer workers on the
+# card, an elastic group (num_workers=(1, 2)) whose ShardedOptimizer
+# mirrors each rank's ShardAdamW shard to its ring successor after init
+# and after every step (mirror_interval_steps=1: two f32 moments of the
+# half shard, 5.95 GB, staged once into shared memory). At step 2 rank 1
+# dies (SIGKILL after its backward, before the reduce-scatter, once its
+# step-1 mirror has landed); rank 0, blocked in the reduce-scatter, gets
+# PeerLostError when the controller's rewire aborts the ring,
+# await_regroup()s, reshard()s its moments with rank 1's mirror to the
+# whole space on the card, retries step 2 on the whole batch and runs
+# step 3. Held to run_dp's one-process trajectory at mode B's bars.
+ELASTIC_STEPS = 3
+ELASTIC_DIE_AT = 2
+# mode B of run_dp measured 9.5e-06 (loss) and 3.5e-06 (grad norm) from
+# one process on the H100 (PERF.md §5): f32 sums in another order. A
+# moment segment lost or restored from a stale mirror moves the loss of
+# the next steps by far more (Adam's first steps move every weight by
+# ~lr).
+ELASTIC_LOSS_REL_TOL = 1e-4
+ELASTIC_GNORM_REL_TOL = 1e-3
+
+
+def elastic_fn(config):
+    """Each worker of the elastic phase: ELASTIC_STEPS steps on this
+    rank's slice of dp_batch at the current world size, ZeRO-1 with a
+    peer mirror every step. Rank 1 of the first incarnation writes what
+    it saw to config["out"]/victim.json and config["marker"] (the wall
+    time) and SIGKILLs itself at ELASTIC_DIE_AT; the survivor writes
+    config["out"]/survivor.json at the end."""
+    import signal
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import ShardAdamW
+    from ray_tpu_torch.train.zero import ShardedOptimizer
+    from ray_tpu_torch.util import events
+
+    def rss():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    peak = {"rss": rss()}
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.1):
+            peak["rss"] = max(peak["rss"], rss())
+    threading.Thread(target=sample, daemon=True).start()
+
+    mirrors = []            # per posted mirror: step, bytes, seconds
+    snapshot = ShardedOptimizer._snapshot
+
+    def timed_snapshot(self, state):
+        t0 = time.monotonic()
+        blob = snapshot(self, state)
+        mirrors.append({"step": blob["step"],
+                        "bytes": blob["leaves"].nbytes,
+                        "stage_s": time.monotonic() - t0})
+        return blob
+    ShardedOptimizer._snapshot = timed_snapshot
+
+    ctx = train.get_context()
+
+    def landed():
+        t0 = time.monotonic()
+        ok = ctx.wait_mirror(timeout_s=600)
+        mirrors[-1].update(landed=ok, land_wait_s=time.monotonic() - t0)
+
+    dev = torch.device("cuda")
+    cfg, opt, state = dp_run()
+    params = list(state.params.parameters())
+    so = ShardedOptimizer(ShardAdamW(opt, device=dev),
+                          mirror_interval_steps=1)
+    zstate = so.init([p.detach() for p in params])
+    landed()
+    fa.flash_attention_fwd.lse_launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"steps": [], "mirrors": mirrors}
+
+    def counts():
+        return [fa.flash_attention_fwd.lse_launches,
+                fa.flash_attention_bwd_dkv.launches,
+                fa.flash_attention_bwd_dq.launches]
+
+    def finish(name):
+        done.set()
+        rec.update(launches=counts(), rank=ctx.get_world_rank(),
+                   peak_hbm=torch.cuda.max_memory_allocated(),
+                   rss_peak=peak["rss"], foreign=foreign_modules(),
+                   compiles=[e.get("fn") for e in events.dump()
+                             if e.get("name") == "compile"])
+        with open(os.path.join(config["out"], name), "w") as f:
+            json.dump(rec, f)
+
+    rec["n_layers"] = cfg.n_layers
+    step = 1
+    while step <= ELASTIC_STEPS:
+        world, rank = ctx.get_world_size(), ctx.get_world_rank()
+        rows = 2 // world
+        mine = {k: torch.as_tensor(v[rank * rows:(rank + 1) * rows],
+                                   device=dev)
+                for k, v in dp_batch(cfg, step).items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for p in params:
+            p.grad = None
+        loss = llama.loss_fn(state.params, mine, cfg)
+        loss.backward()
+        if step == ELASTIC_DIE_AT and rank == 1 and ctx.generation == 0:
+            rec["moments_fp"] = param_fingerprint([zstate.mu, zstate.nu])
+            finish("victim.json")
+            with open(config["marker"], "w") as f:
+                f.write(repr(time.time()))
+            os.kill(os.getpid(), signal.SIGKILL)
+        try:
+            new, zstate = so.update([p.grad for p in params], zstate,
+                                    [p.detach() for p in params])
+        except train.PeerLostError as e:
+            rec["lost_at"] = time.time()
+            rec["lost_error"] = str(e)[:200]
+            old_fp = param_fingerprint([zstate.mu, zstate.nu])
+            cut = zstate.mu.numel()
+            rec["regroup"] = train.await_regroup(timeout_s=300)
+            t_r = time.monotonic()
+            zstate = so.reshard(zstate)
+            torch.cuda.synchronize()
+            rec["reshard_wall_s"] = time.monotonic() - t_r
+            rec["reshard_round_s"] = hist("train_reshard_round_s")[1]
+            rec["reshard_event"] = [
+                {k: e_[k] for k in ("dur", "size", "mirrors",
+                                    "staleness_steps")}
+                for e_ in events.dump() if e_.get("name") == "reshard"]
+            rec["moments"] = {
+                "dtype": str(zstate.mu.dtype),
+                "device": str(zstate.mu.device), "count": zstate.count,
+                "numel": zstate.mu.numel(), "cut": cut,
+                "own_equal": param_fingerprint(
+                    [zstate.mu[:cut], zstate.nu[:cut]]) == old_fp,
+                "mirror_fp": param_fingerprint(
+                    [zstate.mu[cut:], zstate.nu[cut:]])}
+            continue                # retry the step on the whole batch
+        with torch.no_grad():
+            for p, q in zip(params, new):
+                p.copy_(q)
+        del new
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if world > 1:
+            landed()
+        rec["steps"].append({"step": step, "world": world,
+                             "loss": loss.item(), "grad_norm": so.grad_norm,
+                             "wall_s": wall})
+        train.report({"step": step, "world": world,
+                      "generation": ctx.generation})
+        rec["steps"][-1]["reported_at"] = time.time()
+        step += 1
+    status = ray_tpu_torch.get(
+        train.get_controller(config["run"]).status.remote(), timeout=60)
+    rec["restarts"] = status["restarts"]
+    rec["lost_steps"] = status["lost_steps"]
+    finish("survivor.json")
+
+
+def run_elastic(card: str, want: list) -> dict:
+    """The elastic phase (see the comment block above): init() and
+    TorchTrainer(ScalingConfig(num_workers=(1, 2), resources_per_worker=
+    {"CPU": 1}, sync_timeout_s=60, elastic_grow_interval_s=0)) running
+    elastic_fn in two workers on the card; ``want`` is run_dp's
+    one-process trajectory (loss, grad norm) of dp_batch's 3 steps.
+    Checks every step reported once, worlds [2, 1, 1], generation 1, one
+    reshard restart and no lost step, the reshard's staleness 0, losses
+    and grad norms at ELASTIC_*_REL_TOL, the survivor's moments right
+    after the reshard bitwise its old shard and then the victim's, K1/K2/
+    K3 8 times each in the survivor, and no nvcc, jax or ray_tpu in
+    either worker; prints recovery seconds, the reshard round, each
+    mirror's bytes and seconds, step walls, peak HBM and host RSS per
+    worker and the phase's wall."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.train import (FailureConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer)
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    marker = os.path.join(root, "victim_died_at")
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        res = TorchTrainer(
+            elastic_fn, train_loop_config={
+                "out": root, "marker": marker, "run": "chip-smoke-elastic"},
+            scaling_config=ScalingConfig(
+                num_workers=(1, 2), resources_per_worker={"CPU": 1},
+                sync_timeout_s=60.0, elastic_grow_interval_s=0.0),
+            run_config=RunConfig(
+                name="chip-smoke-elastic",
+                storage_path=os.path.join(root, "ckpt"),
+                failure_config=FailureConfig(max_failures=1))).fit()
+        if res.error is not None:
+            raise SystemExit(f"the elastic trainer failed: {res.error}")
+        with open(os.path.join(root, "survivor.json")) as f:
+            surv = json.load(f)
+        with open(os.path.join(root, "victim.json")) as f:
+            vict = json.load(f)
+        with open(marker) as f:
+            died_at = float(f.read())
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.monotonic() - t_phase
+    hist_ = [m for m in res.metrics_history if "step" in m]
+    steps = surv["steps"]
+    losses = [(steps[0]["loss"] + vict["steps"][0]["loss"]) / 2] + \
+        [s["loss"] for s in steps[1:]]
+    norms = [s["grad_norm"] for s in steps]
+    rel = max(abs(g - w[0]) / abs(w[0]) for g, w in zip(losses, want))
+    rel_n = max(abs(g - w[1]) / abs(w[1]) for g, w in zip(norms, want))
+    after = [s for s in steps if s["world"] == 1]
+    recovery_s = after[0]["reported_at"] - died_at
+    ev = surv["reshard_event"]
+    mo = surv["moments"]
+    bad = []
+    if [m["step"] for m in hist_] != list(range(1, ELASTIC_STEPS + 1)):
+        bad.append(f"steps reported {[m['step'] for m in hist_]}")
+    if [m["world"] for m in hist_] != [2, 1, 1]:
+        bad.append(f"worlds {[m['world'] for m in hist_]}")
+    if hist_ and hist_[-1]["generation"] != 1:
+        bad.append(f"generation {hist_[-1]['generation']}")
+    if surv["restarts"] != {"reshard": 1.0} or surv["lost_steps"] != 0:
+        bad.append(f"recoveries {surv['restarts']}, lost steps "
+                   f"{surv['lost_steps']}")
+    if len(ev) != 1 or ev[0]["staleness_steps"] != 0 \
+            or ev[0]["mirrors"] != 1 or ev[0]["size"] != 1:
+        bad.append(f"reshard events {ev}")
+    if not (rel <= ELASTIC_LOSS_REL_TOL and rel_n <= ELASTIC_GNORM_REL_TOL):
+        bad.append(f"losses {losses} or grad norms {norms} off one "
+                   f"process's {want}")
+    if not all(np.isfinite(losses + norms)):
+        bad.append("non-finite loss or grad norm")
+    if not (mo["own_equal"] and mo["mirror_fp"] == vict["moments_fp"]
+            and mo["dtype"] == "torch.float32"
+            and mo["device"].startswith("cuda") and mo["count"] == 1):
+        bad.append(f"the resharded moments are not the old shard and the "
+                   f"mirror: {mo}")
+    # the survivor's forward-backward passes: steps 1 and 2 at world 2,
+    # step 2's retry and step 3 at world 1; the victim's: steps 1 and 2
+    layers = surv["n_layers"]
+    if surv["launches"] != [4 * layers] * 3 \
+            or vict["launches"] != [2 * layers] * 3:
+        bad.append(f"launches K1/K2/K3: survivor {surv['launches']}, "
+                   f"victim {vict['launches']}")
+    for r in (surv, vict):
+        if r["foreign"] or r["compiles"]:
+            bad.append(f"rank {r['rank']}: modules {r['foreign']}, nvcc "
+                       f"builds {r['compiles']}")
+    if not all(m.get("landed") for m in surv["mirrors"] + vict["mirrors"]):
+        bad.append("a mirror did not land")
+    print(f"elastic [{card}]: 2 workers on the card, llama3_8b widths at "
+          f"{layers} layers, ZeRO-1 with a peer mirror a step; "
+          f"rank 1 SIGKILLed at step {ELASTIC_DIE_AT} after its backward; "
+          f"steps {[m['step'] for m in hist_]} at worlds "
+          f"{[m['world'] for m in hist_]}, generation "
+          f"{hist_[-1]['generation'] if hist_ else None}; recoveries "
+          f"{surv['restarts']}, lost steps {surv['lost_steps']}; losses "
+          f"{losses} vs one process's {[w[0] for w in want]} (max rel "
+          f"{rel:.2e}, tol {ELASTIC_LOSS_REL_TOL}), grad norms {norms} vs "
+          f"{[w[1] for w in want]} (max rel {rel_n:.2e}, tol "
+          f"{ELASTIC_GNORM_REL_TOL})")
+    print(f"elastic reshard [{card}]: the survivor's PeerLostError "
+          f"{surv['lost_at'] - died_at:.3f} s after the victim's death "
+          f"({surv['lost_error']!r}); train_reshard_round_s "
+          f"{surv['reshard_round_s']:.3f} s (wall with sync "
+          f"{surv['reshard_wall_s']:.3f} s), event {ev}; moments after it "
+          f"{mo['numel']} {mo['dtype']} on {mo['device']}, count "
+          f"{mo['count']}, [0, {mo['cut']}) bitwise the old shard "
+          f"{mo['own_equal']}, the rest bitwise the victim's live moments "
+          f"{mo['mirror_fp'] == vict['moments_fp']}; recovery (victim's "
+          f"death to the survivor's first report at world 1) "
+          f"{recovery_s:.3f} s")
+    for who, r in (("survivor", surv), ("victim", vict)):
+        for m in r["mirrors"]:
+            print(f"elastic mirror [{card}] {who}: step {m['step']}, "
+                  f"{m['bytes']} bytes, staged in {m['stage_s']:.3f} s, "
+                  f"landed {m.get('land_wait_s', float('nan')):.3f} s after "
+                  f"posting")
+        print(f"elastic {who} [{card}]: step walls "
+              f"{[(s['world'], round(s['wall_s'], 3)) for s in r['steps']]}"
+              f" (world, s); launches K1/K2/K3 {r['launches']}; peak HBM "
+              f"{r['peak_hbm'] / 2**30:.2f} GiB; peak host RSS "
+              f"{r['rss_peak'] / 2**30:.2f} GiB; modules {r['foreign']}, "
+              f"nvcc builds {r['compiles']}")
+    print(f"elastic [{card}]: phase {phase_s:.1f} s")
+    if bad:
+        raise SystemExit("the elastic phase failed: " + "; ".join(bad))
+    return {"launches": {"train_dp_elastic": [
+        surv["launches"][i] + vict["launches"][i] for i in range(3)]}}
 
 
 COPY_SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's 1.98 GHz clock
@@ -3691,6 +4023,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer = run_trainer(card)
     dp = run_dp(card)
+    elastic = run_elastic(card, dp["want"])
     run_device_batches(card)
     train_k = {name: {f"train_{p}": train[p]["launches"][key]
                       for p in TRAIN_POLICIES}
@@ -3703,7 +4036,8 @@ def main() -> int:
         for m, r in meshes.items():
             train_k[name][f"train_mesh_{m}"] = r["launches"][key]
         train_k[name]["train_trainer"] = trainer["launches"][i]
-        for path, counts in dp["launches"].items():
+        for path, counts in dict(dp["launches"],
+                                 **elastic["launches"]).items():
             train_k[name][path] = counts[i]
     full_ms = train["full"]["per_launch_ms"]
 

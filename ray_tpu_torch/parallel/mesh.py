@@ -353,8 +353,11 @@ class ShardAdamW:
     gradient, which no shard holds: ``clip_by_global_norm`` tells
     ``ShardedOptimizer`` to sum the ranks' ``sq_norm`` over its ring and
     pass the norm as ``update(..., grad_norm=)``. Host arrays in give
-    host arrays out; the moments stay on ``device`` and are updated in
-    place (a shard of a 1.5 B-parameter model holds 3 GB of each)."""
+    host arrays out; the moments stay on ``device`` (a shard of a 1.5
+    B-parameter model holds 3 GB of each), and an update returns new
+    moment tensors, as optax's does, leaving the given state as it was
+    (a ZeRO step retried after a lost peer, and the peer mirror of the
+    last completed step, read it)."""
     adamw: AdamW = AdamW()
     device: Any = None
 
@@ -394,9 +397,18 @@ class ShardAdamW:
         bc2 = 1.0 - B2 ** count
         if grad_norm is not None and grad_norm >= opt.grad_clip:
             gt.mul_(opt.grad_clip / grad_norm)
-        mu.mul_(B1).add_(gt, alpha=1.0 - B1)
-        nu.mul_(B2).addcmul_(gt, gt, value=1.0 - B2)
-        upd = (mu / bc1) / ((nu / bc2).sqrt() + EPS)
+        # new moment tensors, the old ones untouched: a step that fails
+        # after this point (a peer lost in the allgather) is retried
+        # from the state it was given, and the last completed step's
+        # state stays whole while the next one runs. gt goes before the
+        # temporaries come, so the card holds no more at once than an
+        # in-place update would.
+        mu = torch.mul(mu, B1).add_(gt, alpha=1.0 - B1)
+        nu = torch.mul(nu, B2).addcmul_(gt, gt, value=1.0 - B2)
+        del gt
+        den = torch.div(nu, bc2).sqrt_().add_(EPS)
+        upd = torch.div(mu, bc1).div_(den)
+        del den
         upd.add_(pt, alpha=opt.weight_decay)
         upd.mul_(-lr)
         return (upd.cpu().numpy() if host else upd), \

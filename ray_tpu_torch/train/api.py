@@ -4,9 +4,9 @@ The port's copy of ``ray_tpu/train/api.py``: ``ScalingConfig`` gains
 ``use_gpu`` and bootstraps ``torch.distributed`` (``torch_distributed``,
 ``ensure_torch_distributed``) where the JAX package bootstraps
 jax.distributed. The controller-wired gradient-sync ring
-(``gradient_sync_ring``, dag/ring.py) is the reference's; the peer
-mirrors and the in-place elastic reshape wait for ROADMAP.md's Queue 1
-item 13b, and their entry points say so.
+(``gradient_sync_ring``, dag/ring.py) and the in-place elastic reshape
+(``await_regroup``, the peer mirrors of ZeRO shards) are the
+reference's.
 
 Reference surface: ScalingConfig (train/v2/api/config.py:31), RunConfig/
 FailureConfig/CheckpointConfig (v2/api/config.py), ray.train.report
@@ -39,6 +39,19 @@ class ScalingConfig:
     # v2/_internal/execution/scaling_policy/elastic.py:29 resize
     # decisions in both directions). 0 disables grow checks.
     elastic_grow_interval_s: float = 5.0
+    # Elastic SHRINK without restart: on worker loss the controller
+    # re-forms the surviving ranks into an N-1 ring (fresh incarnation
+    # id) and the train_fn reshards ZeRO optimizer state over it
+    # (train/reshard.py) instead of the group restarting from the last
+    # disk checkpoint. Requires an elastic num_workers range, survivors
+    # >= min_workers, and no torch.distributed world (a process group
+    # cannot shrink in place — those groups keep the restart path).
+    elastic_reshard: bool = True
+    # Ring timeout for the controller-wired gradient-sync ring. Also
+    # bounds how long a survivor can stay blocked on a dead neighbor
+    # before surfacing PeerLostError when the controller has NOT yet
+    # aborted the ring (the rewire abort usually cuts this to ~0.25 s).
+    sync_timeout_s: float = 300.0
     # Whether the controller runs torch.distributed's
     # init_process_group on every worker before train_fn starts (the
     # counterpart of the JAX package's jax_distributed, reference:
@@ -198,7 +211,8 @@ class TrainContext:
                  dataset_shards: Optional[Dict[str, Any]] = None,
                  storage_path: Optional[str] = None,
                  group_id: str = "",
-                 grad_sync: Optional[dict] = None):
+                 grad_sync: Optional[dict] = None,
+                 mirror_peer: Any = None):
         self.rank = rank
         self.world_size = world_size
         self.local_rank = local_rank
@@ -225,11 +239,163 @@ class TrainContext:
         # ring's spans so timeline lanes and straggler rows say WHICH
         # step a slow round belongs to.
         self.collective_step = 0
+        # --- elastic reshape state (controller-driven; see
+        # await_regroup) ---
+        # generation bumps once per in-place rewire, so stale cached
+        # group objects (optimizer rings) can detect they predate the
+        # current incarnation.
+        self.generation = 0
+        self._regroup_evt = threading.Event()
+        self._rewire_payload: Optional[dict] = None
+        # Ring-successor worker actor handle: the in-memory
+        # peer-checkpoint target this rank mirrors its ZeRO shard to
+        # (train/zero.py mirror_interval_steps). None for world 1.
+        self._mirror_peer = mirror_peer
+        # The last mirror this rank posted: the call's result ref (see
+        # wait_mirror) and the name of its blob's shared-memory segment,
+        # unlinked when a newer mirror replaces it (train/mirror.py).
+        self._mirror_ref = None
+        self._mirror_name: Optional[str] = None
+        # Mirror blobs of LOST ranks this worker must contribute to the
+        # next reshard collective (assigned by the controller's rewire).
+        self._recovered_mirrors: list = []
+        self._lost_info: dict = {}
+        # Pipeline-parallel group id: the controller's reshape gate
+        # reads it off poll() (a pipeline cannot re-form in place
+        # around a lost stage). Nothing sets it until the pipelines
+        # are ported (ROADMAP.md, Queue 1 item 13c).
+        self.pipeline_group: Optional[str] = None
+
+    # -- elastic reshape ---------------------------------------------------
+
+    def apply_rewire(self, payload: dict) -> None:
+        """Called on the WORKER ACTOR thread when the controller
+        re-forms the group around a lost worker: stash the new identity
+        and wake await_regroup(). The in-flight collective (if any) is
+        aborted so a survivor blocked on the dead neighbor surfaces
+        PeerLostError in ~0.25 s instead of the full ring timeout."""
+        self._rewire_payload = payload
+        ring = self._grad_ring
+        if ring is not None:
+            try:
+                ring.abort()
+            except Exception:   # noqa: BLE001 — wake-up is best-effort
+                pass
+        self._regroup_evt.set()
+
+    def await_regroup(self, timeout_s: Optional[float] = None) -> dict:
+        """Block until the controller has re-formed the group, then
+        swap in the new incarnation: rank, world size, generation id,
+        gradient-sync ring spec, and mirror assignments. The elastic
+        recovery entrypoint for train_fns::
+
+            try:
+                params, state = opt.update(grads, state, params)
+            except train.PeerLostError:
+                info = train.await_regroup(timeout_s=60)
+                state = opt.reshard(state)
+                continue            # retry the interrupted step
+
+        Raises TimeoutError when no rewire arrives in ``timeout_s``
+        (the controller chose a full restart instead — let the error
+        propagate so the restart path takes over)."""
+        # clear BEFORE consuming the payload: a second rewire landing
+        # between read and clear would have its wakeup erased (payload
+        # stashed, event cleared) and the next await_regroup would
+        # block its full timeout despite a pending rewire. The inverse
+        # race — event still set with the payload already consumed —
+        # is a spurious wakeup; loop back to the wait.
+        deadline = None if timeout_s is None \
+            else time.monotonic() + timeout_s
+        while True:
+            left = None if deadline is None \
+                else max(0.0, deadline - time.monotonic())
+            if not self._regroup_evt.wait(left):
+                raise TimeoutError(
+                    "no group rewire arrived within "
+                    f"{timeout_s}s (controller restarting instead?)")
+            self._regroup_evt.clear()
+            payload, self._rewire_payload = self._rewire_payload, None
+            if payload is not None:
+                break
+        # the old ring's channels belong to the dead incarnation
+        self.close_gradient_sync()
+        self.rank = int(payload["rank"])
+        self.world_size = int(payload["world_size"])
+        self.group_id = payload["group_id"]
+        self._grad_sync = payload.get("grad_sync")
+        self._mirror_peer = payload.get("mirror_peer")
+        self._recovered_mirrors = list(payload.get("recovered") or [])
+        self._lost_info = dict(payload.get("lost") or {})
+        self.generation += 1
+        # any error-feedback residual was accumulated against the old
+        # incarnation's wire: drop it here so the next compensated
+        # round starts provably zeroed even if a caller bypasses the
+        # (group_id, generation) rekey (train/collective.ErrorFeedback)
+        self._grad_ef = None
+        return {"rank": self.rank, "world_size": self.world_size,
+                "generation": self.generation,
+                "group_id": self.group_id,
+                "lost": dict(self._lost_info)}
 
     def mirror_shard(self, blob: dict) -> bool:
-        """Peer mirrors of ZeRO shards come with the elastic reshape
-        (ROADMAP.md, Queue 1 item 13b)."""
-        raise NotImplementedError(_UNPORTED_ELASTIC)
+        """Ship one in-memory peer-checkpoint blob to this rank's ring
+        successor, fire-and-forget (an actor call posted off the step
+        path; mirroring is best-effort — a miss only means a fallback
+        to checkpoint restore if THIS rank's segment is lost later).
+        A blob's leaves that live in a shared-memory segment
+        (train/mirror.py) cross as the segment's name; the previous
+        posted segment is unlinked here, since the newest mirror
+        replaces it in the successor's store."""
+        peer = self._mirror_peer
+        if peer is None:
+            return False
+        try:
+            ref = peer.store_mirror.remote(
+                self.group_id, self.rank, int(blob.get("step", 0)), blob)
+        except Exception:   # noqa: BLE001 — best-effort by contract
+            return False
+        from ray_tpu_torch.train import mirror
+        mirror.discard(self._mirror_name)
+        self._mirror_ref = ref
+        self._mirror_name = getattr(blob.get("leaves"), "name", None)
+        return True
+
+    def wait_mirror(self, timeout_s: Optional[float] = None) -> bool:
+        """Block until the last posted mirror has landed in the ring
+        successor's store: True once it did, False when none was
+        posted or the call failed or timed out. A rank about to leave
+        the group on purpose calls this so its newest shard is not
+        lost with it."""
+        ref = self._mirror_ref
+        if ref is None:
+            return False
+        import ray_tpu_torch
+        try:
+            return bool(ray_tpu_torch.get(ref, timeout=timeout_s))
+        except Exception:   # noqa: BLE001 — a failed mirror is a miss
+            return False
+
+    def close_mirror(self) -> None:
+        """Unlink this rank's last posted mirror segment if its
+        successor never took it (train_fn end: the group is done)."""
+        from ray_tpu_torch.train import mirror
+        mirror.discard(self._mirror_name)
+        self._mirror_name = None
+
+    def take_recovered_mirrors(self) -> list:
+        """Mirror blobs of lost ranks assigned to this worker for the
+        next reshard collective (consumed once)."""
+        out, self._recovered_mirrors = self._recovered_mirrors, []
+        return out
+
+    def lost_info(self) -> dict:
+        """The last rewire's lost-rank records ({old_rank: {old_rank,
+        old_size, holder}}): ``holder`` None means no surviving
+        in-memory mirror of that rank's shard exists anywhere — a
+        sharded optimizer must refuse to reshard (the segment would
+        materialize as zeros) and let the restart path recover."""
+        return dict(self._lost_info)
 
     # -- user API --
     def get_world_size(self) -> int:
@@ -263,7 +429,13 @@ class TrainContext:
                                                 RingReducer)
             cls = HierarchicalReducer \
                 if self._grad_sync.get("role") == "hier" else RingReducer
-            self._grad_ring = cls.from_spec(self._grad_sync)
+            # a rewire landing while this thread is still INSIDE the
+            # attach has no ring to abort() — the regroup event is the
+            # only signal that can reach it, so the blocking attach
+            # wait polls it and bails instead of waiting out the sync
+            # timeout against a dead incarnation's specs
+            self._grad_ring = cls.from_spec(
+                self._grad_sync, abort=self._regroup_evt.is_set)
         return self._grad_ring
 
     def close_gradient_sync(self) -> None:
@@ -479,11 +651,10 @@ def get_dataset_shard(name: str = "train"):
 
 
 def await_regroup(timeout_s: Optional[float] = None) -> dict:
-    """The elastic recovery entry point (block until the controller
-    re-forms the group around a lost peer) needs the in-place reshape
-    (ROADMAP.md, Queue 1 item 13b): until then every worker loss
-    restarts the group from its latest checkpoint."""
-    raise NotImplementedError(_UNPORTED_ELASTIC)
+    """Block until the controller re-forms the worker group after a
+    peer loss (elastic reshape), then adopt the new rank/world size —
+    see TrainContext.await_regroup for the recovery loop idiom."""
+    return get_context().await_regroup(timeout_s)
 
 
 def torch_distributed_initialized() -> bool:
@@ -523,8 +694,3 @@ def ensure_torch_distributed() -> bool:
         world_size=int(os.environ["WORLD_SIZE"]))
     return True
 
-
-_UNPORTED_ELASTIC = (
-    "the in-place elastic reshape (await_regroup, ZeRO peer mirrors, "
-    "rewire) is not ported to ray_tpu_torch yet (ROADMAP.md, Queue 1 "
-    "item 13b)")

@@ -5,10 +5,12 @@ torchrun's env and joins torch.distributed (``_bootstrap_distributed``);
 restart-from-checkpoint, elastic grow, preemption recovery and the
 goodput straggler detector are the JAX package's, and so is the
 gradient-sync ring spec each worker's TrainContext attaches
-(``_grad_sync_specs``: a flat ring, or a ring-of-rings across nodes).
-The peer mirrors and the in-place N-1 reshape wait for ROADMAP.md's
-Queue 1 item 13b (every worker loss takes the restart path), and the
-forensics audit and its stall watchdog for item 17.
+(``_grad_sync_specs``: a flat ring, or a ring-of-rings across nodes),
+and so is the in-place N-1 reshape on a worker loss (``_plan_reshape``,
+``_reshape``: the survivors re-form the ring and reshard their ZeRO
+state from the peer mirrors, each rank's ring successor holding its
+mirror). The forensics audit of the survivors and its stall watchdog
+wait for ROADMAP.md's Queue 1 item 17.
 
 Reference: v2/_internal/execution/controller/controller.py:105
 (TrainController.run), worker_group/worker_group.py:113 (create on a
@@ -34,13 +36,6 @@ from ray_tpu_torch.train.api import (Checkpoint, FailureConfig, Result, RunConfi
 from ray_tpu_torch.train.checkpoint import CheckpointManager
 from ray_tpu_torch.train.worker import TrainWorker
 from ray_tpu_torch.util import events
-
-# Ring timeout of the controller-wired gradient-sync ring: how long a
-# rank waits on its ring neighbour (attach or round) before the peer is
-# declared lost. The reference's ScalingConfig.sync_timeout_s default;
-# the knob itself comes with the elastic reshape (ROADMAP.md, Queue 1
-# item 13b).
-_SYNC_TIMEOUT_S = 300.0
 
 
 def train_metrics() -> dict:
@@ -151,7 +146,20 @@ class TrainController:
         # progress in between stops being free (a notice loop on a
         # flapping machine must not restart forever)
         self._preempt_unvalidated = False
+        # True between a reshape and the first report of the reshaped
+        # incarnation: a failure in that window is the SAME incident
+        # (the reshard didn't take — e.g. no mirrors to rebuild from,
+        # or a train_fn with no await_regroup loop), so the follow-up
+        # restart must not consume a second failure-budget unit
+        self._reshape_unvalidated = False
         self._reports_since_ckpt = 0  # the restore path's replay cost
+        # last seen peer-checkpoint inventory per CURRENT rank index
+        # ({mirrored_rank: step}) — the reshape decision reads it
+        self._last_mirrors: Dict[int, Dict[int, int]] = {}
+        # ranks that reported an active pipeline-parallel group on
+        # their last poll — the reshape gate reads it (a pipeline
+        # cannot shrink in place)
+        self._last_pipeline: Dict[int, bool] = {}
 
     # --- scaling policy (reference: scaling_policy/fixed.py, elastic.py) ---
 
@@ -403,7 +411,7 @@ class TrainController:
             else:
                 edges.append(new_tcp_spec(nslots, slot_bytes))
         return [{"rank": r, "size": n, "op": "mean",
-                 "timeout_s": _SYNC_TIMEOUT_S,
+                 "timeout_s": float(self.scaling.sync_timeout_s),
                  "own": r, "tune": tune,
                  # collective spans/flight dumps tag this group id, so
                  # timeline lanes and post-mortems name the incarnation
@@ -455,7 +463,7 @@ class TrainController:
                           "nslots": nslots,
                           "slot_bytes": slot_bytes, "lazy": True},
             lambda i: new_tcp_spec(nslots, slot_bytes),
-            op="mean", timeout_s=_SYNC_TIMEOUT_S,
+            op="mean", timeout_s=float(self.scaling.sync_timeout_s),
             group=gid, tune=tune)
 
     def _start_train(self):
@@ -474,15 +482,21 @@ class TrainController:
         self._straggler_last = -1
         self._straggler_since = None   # wall-clock start of the
         #                                current straggler episode
-        # the gradient-sync ring spec per rank; no peer-mirror target
-        # (the elastic reshape: ROADMAP.md, Queue 1 item 13b)
+        self._last_mirrors = {}
+        self._last_pipeline = {}
         sync = self._grad_sync_specs(group_id)
         refs = []
+        n = len(self._workers)
         for i, w in enumerate(self._workers):
+            # ring successor = the in-memory peer-checkpoint target
+            # (train/zero.py mirror_interval_steps): a lost rank's
+            # shard survives on the next rank over
+            peer = self._workers[(i + 1) % n] if n > 1 else None
             refs.append(w.start_train_fn.remote(
                 self.train_fn_payload, self.train_loop_config,
                 self.ckpt_manager.latest, shards[i],
-                self.run_config.storage_path, group_id, sync[i]))
+                self.run_config.storage_path, group_id, sync[i],
+                peer))
         ray_tpu_torch.get(refs, timeout=120)
 
     def _split_datasets(self, n: int) -> List[Optional[dict]]:
@@ -530,11 +544,18 @@ class TrainController:
     def status(self) -> dict:
         """Live view for external monitors (the controller runs as a
         named actor; see trainer.get_controller)."""
+        restarts = self._m["restarts"]._values
         return {
             "reports": len(self.metrics_history),
             "latest_metrics": (self.metrics_history[-1]
                                if self.metrics_history else {}),
             "num_workers": len(self._workers),
+            # this controller's group recoveries by kind (its process's
+            # train_restarts_total) and the reports the last one lost
+            # (train_lost_steps)
+            "restarts": {dict(k).get("kind", ""): v
+                         for k, v in list(restarts.items())},
+            "lost_steps": self._m["lost_steps"]._values.get((), 0.0),
         }
 
     def run(self) -> Result:
@@ -602,7 +623,13 @@ class TrainController:
                 # RayTpuError covers actor death, worker crash, task errors
                 # AND placement failures (create_pg raising) — all of them
                 # consult the failure policy rather than escaping fit().
-                self._failures += 1
+                if self._reshape_unvalidated:
+                    # the failed reshape already consumed this
+                    # incident's unit — escalating to a restart is the
+                    # same incident, not a new failure
+                    self._reshape_unvalidated = False
+                else:
+                    self._failures += 1
                 self._clean_reports = 0
                 self._teardown_group()
                 if self._failures > max_failures:
@@ -759,6 +786,8 @@ class TrainController:
                         pending.discard(i)
                         continue
                     raise err
+                self._last_mirrors[i] = dict(p.get("mirrors") or {})
+                self._last_pipeline[i] = bool(p.get("pipeline"))
                 if p["done"]:
                     pending.discard(i)
             # proactive preemption recovery: a noticed rank whose
@@ -781,11 +810,18 @@ class TrainController:
                 # without consuming the failure budget
                 preempt_only = all(i in self._preempt_notice
                                    for i, _ in dead)
-                # worker loss: the restart-from-checkpoint path in run()
-                # (the in-place N-1 reshape of the reference needs the
-                # peer mirrors: ROADMAP.md, Queue 1 item 13b; its
-                # postmortem audit of the survivors waits for the
-                # forensics plane, item 17)
+                # worker loss: reshape the surviving ranks in place
+                # when the elastic policy allows it, else fall through
+                # to the restart-from-checkpoint path in run() (the
+                # reference's postmortem audit of the survivors waits
+                # for the forensics plane, ROADMAP.md Queue 1 item 17)
+                plan = self._plan_reshape(dead, pending)
+                if plan is not None:
+                    pending = self._reshape(plan, dead[0][1],
+                                            free=preempt_only)
+                    grow_seen = None
+                    next_grow_check = time.monotonic() + grow_iv
+                    continue
                 if preempt_only:
                     raise _PreemptRestart(dead[0][1])
                 raise dead[0][1]
@@ -803,9 +839,151 @@ class TrainController:
             if pending:
                 time.sleep(poll_s)
 
+    # --- elastic reshape (worker loss without restart) -------------------
+
+    def _plan_reshape(self, dead: List[tuple],
+                      pending: set) -> Optional[dict]:
+        """The in-place N-1 re-form decision AND its inputs, computed
+        once: legal when the group is elastic, enough ranks survive,
+        no torch.distributed world binds the group shape (a process
+        group cannot shrink in place), and — when peer mirroring is
+        active — every lost rank's shard has a surviving in-memory
+        copy (otherwise a reshard would silently zero state; the
+        checkpoint restore is strictly better). Returns None to take
+        the restart path, else the plan _reshape() executes verbatim —
+        the gate validates the exact assignment the executor ships, so
+        the two can't drift."""
+        if not (self.scaling.elastic
+                and getattr(self.scaling, "elastic_reshard", True)):
+            return None
+        if self.scaling.wants_torch_distributed():
+            return None
+        if self.datasets:
+            # dataset shards were streaming_split over the OLD world:
+            # an in-place re-form would silently drop the dead rank's
+            # shard for the rest of the run — the restart path
+            # re-splits over the new size, so it is the correct one
+            return None
+        if any(self._last_pipeline.values()):
+            # pipeline-topology group: each rank hosts a DISTINCT
+            # stage's parameters, so an in-place N-1 re-form would
+            # silently train a model with a stage missing — the
+            # checkpoint restart is the only correct recovery
+            return None
+        dead_ranks = sorted({i for i, _ in dead})
+        survivors = [i for i in range(len(self._workers))
+                     if i not in dead_ranks]
+        if len(survivors) < max(1, self.scaling.min_workers):
+            return None
+        # EVERY survivor must still be mid-train_fn: a rank whose
+        # train_fn already returned would be wired into the new ring
+        # but never call await_regroup/attach, hanging the others'
+        # reshard collective for the full sync timeout
+        if not set(survivors) <= pending:
+            return None
+        from ray_tpu_torch.train import reshard as _rs
+        inventory = {i: self._last_mirrors.get(i, {})
+                     for i in survivors}
+        assign = _rs.assign_recovery(dead_ranks, inventory)
+        if any(inventory.values()) \
+                and any(h is None for h in assign.values()):
+            return None             # a lost shard has no surviving copy
+        return {"dead": dead_ranks, "survivors": survivors,
+                "assign": assign}
+
+    def _reshape(self, plan: dict, cause: BaseException,
+                 free: bool = False):
+        """Re-form the ring around the lost worker(s): survivors keep
+        their processes and live state, adopt new ranks and a fresh
+        incarnation id, and the train_fns reshard ZeRO optimizer
+        shards over the new ring (train/reshard.py) — no placement
+        group, no actor spawn, no checkpoint read. Consumes one unit
+        of the failure budget like a restart would — EXCEPT when
+        ``free`` (every lost rank had advance preemption notice:
+        scheduled capacity loss spends no budget). Raises the cause
+        when the budget is exhausted or a rewire fails (the run() loop
+        then takes the restart path)."""
+        max_failures = self.run_config.failure_config.max_failures
+        if not free and self._failures + 1 > max_failures:
+            raise cause             # run() counts + returns the error
+        t0 = time.monotonic()
+        dead = plan["dead"]
+        survivors = plan["survivors"]
+        assign = plan["assign"]
+        for i in dead:
+            try:
+                ray_tpu_torch.kill(self._workers[i])
+            except Exception:       # noqa: BLE001 — already dead
+                pass
+        old_group = self._group_id
+        old_n = len(self._workers)
+        # record the OLD incarnation's shard split BEFORE filtering:
+        # a hierarchical group owned the nested hier_seg_bounds split,
+        # and the reshard legality check must assess the lost rank's
+        # segment under THAT split, not the flat one
+        old_groups = self._node_groups()
+        old_nodes = [len(g[1]) for g in old_groups] \
+            if self._wants_hier(old_groups) else None
+        # survivors keep their topology order, so adjacent new ranks
+        # stay co-located wherever possible (same rule as create)
+        self._workers = [self._workers[i] for i in survivors]
+        self._infos = [self._infos[i] for i in survivors]
+        self._last_mirrors = {}
+        self._last_pipeline = {}
+        # old rank indices (and their anatomy history) are now invalid
+        self._straggler_det = self._make_straggler_detector()
+        self._straggler_last = -1
+        self._straggler_since = None
+        n = len(self._workers)
+        import uuid
+        gid = uuid.uuid4().hex
+        self._group_id = gid
+        specs = self._grad_sync_specs(gid)
+        lost = {int(d): {"old_rank": int(d), "old_size": old_n,
+                         "old_nodes": old_nodes,
+                         "holder": assign.get(d)} for d in dead}
+        refs = []
+        for j, w in enumerate(self._workers):
+            contribute = [d for d in dead
+                          if assign.get(d) == survivors[j]]
+            refs.append(w.rewire.remote({
+                "rank": j, "world_size": n, "group_id": gid,
+                "old_group_id": old_group,
+                "old_rank": survivors[j], "old_world_size": old_n,
+                "grad_sync": specs[j],
+                "contribute": contribute, "lost": lost,
+                "mirror_peer": (self._workers[(j + 1) % n]
+                                if n > 1 else None)}))
+        # a rewire RPC failing (another death mid-reshape) propagates
+        # as RayTpuError: run() counts it and restarts from checkpoint
+        # — EXCEPT a free (preemption) reshape, whose fallback restart
+        # must stay budget-free too (the capacity loss is still
+        # scheduled, whether or not the in-place re-form worked out)
+        try:
+            oks = ray_tpu_torch.get(refs, timeout=120)
+            if not all(oks):
+                # an assigned mirror went missing (or a survivor never
+                # started a train_fn): the restart path is the safe one
+                raise cause
+        except BaseException:
+            if free:
+                raise _PreemptRestart(cause) from None
+            raise
+        if not free:
+            self._failures += 1
+        self._clean_reports = 0
+        self._reshape_unvalidated = True
+        self._preempt_notice = {}   # old rank indices are now invalid
+        self._record_recovery(
+            "preempt" if free else "reshard", cause, lost=0,
+            dur=time.monotonic() - t0,
+            dead=dead, world=n, old_world=old_n, reshard=True)
+        return set(range(n))
+
     def _handle_report(self, rank: int, rep: dict):
-        # any report proves the incarnation is making progress —
-        # later failures are new incidents
+        # any report proves the (possibly reshaped) incarnation is
+        # making progress — later failures are new incidents
+        self._reshape_unvalidated = False
         self._preempt_unvalidated = False
         # Rank 0's metrics are canonical (SPMD: all ranks see the same
         # reduced values). Checkpoints ARE registered from any rank — a

@@ -3,10 +3,11 @@
 The port's copy of ``ray_tpu/train/worker.py``: the group joins a
 torch.distributed world (``init_torch_distributed``) where the JAX
 package's joins jax.distributed, and hands its TrainContext the
-controller's gradient-sync ring spec; the peer-mirror store and the
-in-place rewire wait for the elastic reshape (ROADMAP.md, Queue 1 item
-13b) and the forensics dump for item 17. Like every runtime worker, it
-imports no device package until the train_fn does.
+controller's gradient-sync ring spec and its ring successor (the peer
+that stores this rank's ZeRO shard mirrors); the peer-mirror store and
+the in-place rewire of the elastic reshape are the reference's, and the
+forensics dump waits for ROADMAP.md's Queue 1 item 17. Like every
+runtime worker, it imports no device package until the train_fn does.
 
 Reference: v2/_internal/execution/worker_group/worker.py + thread_runner.py
 — the train_fn runs on a thread inside the actor so the actor stays
@@ -83,6 +84,15 @@ class TrainWorker:
         self._error: Optional[str] = None
         self._done = threading.Event()
         self._group_id = ""
+        # In-memory peer-checkpoint store: ring predecessors mirror
+        # their ZeRO shard snapshots here ((group_id, from_rank) ->
+        # blob, latest wins) so a lost rank's segment is
+        # reconstructable WITHOUT touching storage (the controller
+        # reads the inventory off poll() and assigns contributions at
+        # rewire time). A blob's leaves are this process's mapping of
+        # the shared-memory segment the predecessor staged them into
+        # (train/mirror.py), so they outlive the predecessor.
+        self._mirrors: dict = {}
 
     def get_address(self) -> Dict[str, Any]:
         return {"host": socket.gethostbyname(socket.gethostname()),
@@ -129,9 +139,11 @@ class TrainWorker:
                        dataset_shards: Optional[dict] = None,
                        storage_path: Optional[str] = None,
                        group_id: str = "",
-                       grad_sync: Optional[dict] = None) -> bool:
+                       grad_sync: Optional[dict] = None,
+                       mirror_peer: Any = None) -> bool:
         fn = cloudpickle.loads(fn_payload)
         self._group_id = group_id
+        self._mirrors.clear()       # a fresh incarnation starts clean
         self.ctx = TrainContext(
             rank=self.rank, world_size=self.world_size,
             local_rank=self.local_rank, node_rank=self.node_rank,
@@ -139,7 +151,8 @@ class TrainWorker:
             dataset_shards=dataset_shards,
             storage_path=storage_path,
             group_id=group_id,
-            grad_sync=grad_sync)
+            grad_sync=grad_sync,
+            mirror_peer=mirror_peer)
 
         def run():
             set_context(self.ctx)
@@ -161,6 +174,7 @@ class TrainWorker:
                     self.ctx.close_gradient_sync()
                 except Exception:
                     pass
+                self.ctx.close_mirror()
                 self._done.set()
 
         self._thread = threading.Thread(target=run, daemon=True)
@@ -169,11 +183,18 @@ class TrainWorker:
 
     def poll(self) -> Dict[str, Any]:
         """Drain new reports + running state (reference:
-        worker_group.py:609 poll_status)."""
+        worker_group.py:609 poll_status). ``mirrors`` is this worker's
+        peer-checkpoint inventory for the CURRENT incarnation
+        ({mirrored_rank: step}) — the controller's reshape decision
+        reads it to know which lost segments have a surviving copy."""
         from ray_tpu_torch.train import ckptio
         reports = self.ctx.drain_reports() if self.ctx else []
+        mirrors = {r: int(blob.get("step", 0))
+                   for (gid, r), blob in list(self._mirrors.items())
+                   if gid == self._group_id}
         return {"done": self._done.is_set(), "error": self._error,
                 "reports": reports, "rank": self.rank,
+                "mirrors": mirrors,
                 # advance preemption notice: this process received
                 # SIGTERM and is inside its grace window
                 # (runtime/worker.py routes the signal through
@@ -184,7 +205,12 @@ class TrainWorker:
                 # rolling step-anatomy summary (util/goodput.py): p50
                 # per category over the window — the controller's
                 # straggler detector compares these across the ring
-                "goodput": _goodput_anatomy()}
+                "goodput": _goodput_anatomy(),
+                # pipeline-topology flag: the controller's reshape gate
+                # must NOT re-form a ring around a lost pipeline stage
+                # (its parameters exist nowhere else — restart instead)
+                "pipeline": bool(self.ctx.pipeline_group)
+                if self.ctx else False}
 
     def forensics_dump(self) -> Dict[str, Any]:
         """The postmortem contribution (collective ledger, stacks,
@@ -198,16 +224,39 @@ class TrainWorker:
 
     def store_mirror(self, group_id: str, from_rank: int, step: int,
                      blob: dict) -> bool:
-        """Peer mirrors of ZeRO shards come with the elastic reshape
-        (ROADMAP.md, Queue 1 item 13b)."""
-        from ray_tpu_torch.train.api import _UNPORTED_ELASTIC
-        raise NotImplementedError(_UNPORTED_ELASTIC)
+        """Accept a ring predecessor's in-memory shard snapshot
+        (latest per (incarnation, rank) wins — there is no history to
+        keep, the newest mirror is strictly the best recovery)."""
+        self._mirrors[(group_id, int(from_rank))] = blob
+        return True
 
     def rewire(self, payload: dict) -> bool:
-        """The in-place elastic reshape (ROADMAP.md, Queue 1 item
-        13b)."""
-        from ray_tpu_torch.train.api import _UNPORTED_ELASTIC
-        raise NotImplementedError(_UNPORTED_ELASTIC)
+        """Adopt a reshaped incarnation IN PLACE: new rank / world
+        size / gradient-sync spec, plus the mirror blobs of lost ranks
+        this worker was assigned to contribute to the reshard
+        collective. Returns False when an assigned mirror is missing
+        (inventory raced a restart) — the controller falls back to a
+        full checkpoint-restore restart."""
+        if self.ctx is None:
+            return False
+        old_gid = payload.get("old_group_id", "")
+        recovered = []
+        for d in payload.get("contribute", ()):
+            blob = self._mirrors.get((old_gid, int(d)))
+            if blob is None:
+                return False
+            recovered.append(blob)
+        payload = dict(payload, recovered=recovered)
+        self.rank = int(payload["rank"])
+        self.world_size = int(payload["world_size"])
+        self._group_id = payload["group_id"]
+        # prune mirror generations nobody can recover from anymore
+        # (older than the incarnation being recovered right now)
+        keep = {old_gid, self._group_id}
+        self._mirrors = {k: v for k, v in self._mirrors.items()
+                         if k[0] in keep}
+        self.ctx.apply_rewire(payload)
+        return True
 
     def join(self) -> Dict[str, Any]:
         self._done.wait()

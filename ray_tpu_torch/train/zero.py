@@ -49,10 +49,14 @@ same ring), so a clipped ZeRO step equals the replicated step; the
 reference hands its wrapped chain only this rank's shard, so a
 ``clip_by_global_norm`` inside it clips by the shard's norm (ROADMAP
 Queue 3, R3). The peer mirrors and the in-place ``reshard`` of the
-elastic reshape wait for ROADMAP Queue 1 item 13b."""
+elastic reshape are the reference's, with torch state leaves (the shard
+AdamW's f32 moments on the card) snapshotted once into a shared-memory
+segment that crosses to the ring successor by name (train/mirror.py),
+and resharded back into f32 tensors on their device."""
 
 from __future__ import annotations
 
+import os
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -71,6 +75,8 @@ def zero_metrics() -> dict:
       optim_shard_bytes     bytes of optimizer state (moments,
                             counters) held by THIS rank —
                             ≈ replicated_bytes / N
+      train_reshard_round_s wall time of one elastic reshard round on
+                            this rank (all per-leaf collectives)
     """
     from ray_tpu_torch.util import metrics as m
     return {
@@ -79,6 +85,12 @@ def zero_metrics() -> dict:
             "Optimizer-state bytes (moments, counters) held by this "
             "rank under ZeRO-1 sharding — about 1/world_size of the "
             "replicated-optimizer footprint"),
+        "reshard_round": m.Histogram(
+            "train_reshard_round_s",
+            "Wall time of one elastic ZeRO reshard on this rank: all "
+            "per-state-leaf reduce-scatter rounds moving optimizer "
+            "shards from the old worker-group split to the new one "
+            "(train/reshard.py)"),
     }
 
 
@@ -184,10 +196,14 @@ class ShardedOptimizer:
         grad_quantize is lossy. The residual is keyed to the ring
         generation: an elastic ``reshard()`` provably zeroes it —
         never reuses a stale one.
-      mirror_interval_steps: the reference's in-memory peer
-        checkpoints of the state shard for the elastic reshard; only 0
-        (off) is ported — a positive interval raises naming ROADMAP
-        Queue 1 item 13b.
+      mirror_interval_steps: every K completed steps, snapshot this
+        rank's state shard and ship it to the ring successor as an
+        in-memory peer checkpoint (TrainContext.mirror_shard — an
+        async actor call off the step path; the snapshot itself, one
+        device-to-host copy into shared memory, is taken on it). When
+        a rank is lost, the elastic reshard (``reshard``) reconstructs
+        its segment from the mirror instead of falling back to a disk
+        checkpoint restore. 0 disables mirroring.
       bucket_bytes: split the gradient sync into leaf buckets of
         about this size and PIPELINE them — the ring starts reducing
         early buckets while later gradients are still being staged to
@@ -235,8 +251,6 @@ class ShardedOptimizer:
                 "mirror_interval_steps: peer checkpoints and the "
                 "elastic reshard assume one contiguous shard — "
                 "bucketed optimizers recover via checkpoint restore")
-        if mirror_interval_steps:
-            raise NotImplementedError(_UNPORTED_ELASTIC)
         self.bucket_bytes = bucket_bytes
         self._g = group
         self._g_resolved = group is not None
@@ -249,6 +263,14 @@ class ShardedOptimizer:
         # the norm of the whole averaged gradient of the last update,
         # where the wrapped transformation clips by it (else None)
         self.grad_norm: Optional[float] = None
+        # last completed step's state (a reference: the update is
+        # functional — ShardAdamW writes new moment tensors, never the
+        # old ones): the preemption hook mirrors it to the ring
+        # successor inside the SIGTERM grace window, so a preempted
+        # rank's shard survives in a peer's memory even when no durable
+        # checkpoint flush makes it out in time
+        self._last_state = None
+        self._preempt_hooked = False
 
     # -- group resolution --------------------------------------------------
 
@@ -373,6 +395,9 @@ class ShardedOptimizer:
         self._bounds = (lo, hi)
         state = self.opt.init(_slice_leaves(leaves, wire, lo, hi))
         self._m["shard_bytes"].set(_tree_bytes(state))
+        # initial peer checkpoint: a rank lost before its first mirror
+        # interval must still be reconstructable
+        self._mirror(state)
         return state
 
     def update(self, grads, state, params):
@@ -501,6 +526,11 @@ class ShardedOptimizer:
         new_params = finish(new_flat)
         self._step += 1
         self._bounds = (lo, hi)
+        self._last_state = new_state
+        self._hook_preempt()
+        if self.mirror_interval_steps and \
+                self._step % self.mirror_interval_steps == 0:
+            self._mirror(new_state)
         return new_params, new_state
 
     def _clip_kwargs(self, g, gshard: np.ndarray) -> dict:
@@ -616,21 +646,231 @@ class ShardedOptimizer:
         self._step += 1
         return new_params, new_state
 
-    # -- elastic reshard ---------------------------------------------------
+    # -- elastic reshard + in-memory peer checkpoints ----------------------
+
+    def _elem_indices(self, leaves: list, shard_len: int) -> list:
+        """Indices of state leaves living in the flat PARAMETER
+        coordinate space — exactly the per-element moments (built from
+        the shard vector by opt.init, so any array leaf of the shard's
+        length is one; a torch leaf is matched by ``numel``). Scalar
+        leaves (step counters) are replicated across ranks and never
+        move."""
+        return [i for i, l in enumerate(leaves)
+                if getattr(l, "ndim", 0) >= 1 and _numel(l) == shard_len]
+
+    @staticmethod
+    def _replace_elem_leaves(state, shard_len: int, new_arrays):
+        """Rebuild ``state`` substituting only the elementwise leaves
+        (same depth-first order as ``_flatten``) and passing every
+        other leaf through UNTOUCHED — an optax counter must keep its
+        exact array type (a round-trip through ``_flatten``'s rebuild
+        would .item() scalars into Python ints and trip optax's int32
+        checks on the next update), and ShardAdamW's ``count`` stays
+        its int."""
+        it = iter(new_arrays)
+
+        def walk(v):
+            if isinstance(v, dict):
+                t = type(v)
+                out = {k: walk(x) for k, x in v.items()}
+                return out if t is dict else t(out)
+            if isinstance(v, tuple) and hasattr(v, "_fields"):
+                return type(v)(*(walk(x) for x in v))
+            if isinstance(v, (list, tuple)):
+                return type(v)(walk(x) for x in v)
+            if getattr(v, "ndim", 0) >= 1 and _numel(v) == shard_len:
+                return next(it)
+            return v
+        return walk(state)
+
+    def _snapshot(self, state) -> dict:
+        """One in-memory peer-checkpoint blob: this rank's elementwise
+        state leaves (copied once into a shared-memory segment — the
+        live state moves on, and a CPU tensor's numpy view would alias
+        it) plus the coordinates needed to re-embed them during a
+        reshard."""
+        from ray_tpu_torch.train import mirror
+        from ray_tpu_torch.train.collective import _raw_leaves
+        lo, hi = self._bounds
+        leaves = _raw_leaves(state)
+        arrays = mirror.stage(
+            [leaves[i] for i in self._elem_indices(leaves, hi - lo)])
+        return {"step": self._step, "bounds": (int(lo), int(hi)),
+                "total": int(self._total), "leaves": arrays}
+
+    def _mirror(self, state) -> None:
+        """Ship a snapshot to the ring successor, best-effort and off
+        the step path (the actor call is posted, not awaited)."""
+        if not self.mirror_interval_steps or self._bounds is None:
+            return
+        ctx = self._ctx()
+        if ctx is None or ctx.get_world_size() == 1:
+            return
+        try:
+            ctx.mirror_shard(self._snapshot(state))
+        except Exception:   # noqa: BLE001 — mirroring is best-effort
+            pass
+
+    # the ONE optimizer instance holding the process's preempt hook:
+    # a worker that hosts several ShardedOptimizers over its lifetime
+    # (re-fit, tuner trials) must not accumulate one hook — and one
+    # pinned full state shard via _last_state — per dead instance
+    _preempt_registered: Optional["ShardedOptimizer"] = None
+
+    def _hook_preempt(self) -> None:
+        """Register the SIGTERM grace-window hook (latest instance
+        wins): a preempted rank mirrors its LAST COMPLETED state shard
+        to the ring successor regardless of the mirror interval
+        cadence — the "at minimum mirror-out its shard" floor of the
+        preemption plane (the durable flush is the ckptio
+        checkpointer's job)."""
+        if self._preempt_hooked or not self.mirror_interval_steps:
+            return
+        from ray_tpu_torch.train import ckptio
+        prev = ShardedOptimizer._preempt_registered
+        if prev is not None and prev is not self:
+            ckptio.remove_preempt_hook(prev._preempt_mirror)
+            prev._preempt_hooked = False
+            prev._last_state = None     # unpin the stale shard
+        ckptio.on_preempt(self._preempt_mirror)
+        ShardedOptimizer._preempt_registered = self
+        self._preempt_hooked = True
+
+    def _preempt_mirror(self, deadline: float) -> None:
+        st = self._last_state
+        if st is None or self._bounds is None:
+            return
+        ctx = self._ctx()
+        if ctx is None or ctx.get_world_size() == 1:
+            return
+        ctx.mirror_shard(self._snapshot(st))
 
     def reshard(self, state):
-        """The in-place redistribution of the state shards after an
-        elastic reshape (``train.await_regroup``) waits for ROADMAP Queue
-        1 item 13b with the peer mirrors it rebuilds lost shards from;
-        a bucketed optimizer refuses it as the reference does."""
+        """Redistribute this optimizer's state to the CURRENT worker
+        group's shard split after an elastic reshape — the in-place
+        alternative to restarting from a disk checkpoint. Call after
+        ``train.await_regroup()`` returns::
+
+            except train.PeerLostError:
+                train.await_regroup(timeout_s=60)
+                state = opt.reshard(state)
+                continue        # retry the interrupted step
+
+        Each elementwise state leaf rides one reduce-scatter over the
+        NEW ring (train/reshard.py): this rank contributes its old
+        shard plus any peer-checkpoint mirrors of LOST ranks the
+        controller assigned to it, and receives its new owned slice
+        (at world 1, the whole space, assembled locally). A torch leaf
+        crosses the host and comes back as a tensor of its dtype on
+        its device. Parameters need no exchange — ZeRO-1 replicates
+        them. Raises ``reshard.ReshardError`` when a lost segment has
+        no surviving copy (fall back to the restart path by letting it
+        propagate)."""
+        import time as _time
+
+        from ray_tpu_torch.dag.ring import stage_leaf, tensor_like
         from ray_tpu_torch.train import reshard as _rs
+        from ray_tpu_torch.train.api import get_context
+        from ray_tpu_torch.train.collective import _raw_leaves, _tensor_like
+        from ray_tpu_torch.util import events
         if self.bucket_bytes:
             raise _rs.ReshardError(
                 "bucketed ShardedOptimizer cannot reshard in place "
                 "(per-bucket shards are not one contiguous segment of "
                 "the flat space) — let this propagate so the "
                 "controller restores from checkpoint")
-        raise NotImplementedError(_UNPORTED_ELASTIC)
+        ctx = get_context()
+        if getattr(self, "_total", None) is None or self._bounds is None:
+            raise RuntimeError("reshard() before init()")
+        t0 = _time.monotonic()
+        total = self._total
+        old_lo, old_hi = self._bounds
+        # re-resolve the collective against the REWIRED context (the
+        # attach is peer-lost-wrapped: another death mid-regroup must
+        # stay catchable by the same recovery loop)
+        self._g = None if ctx.get_world_size() == 1 \
+            else self._wrap_peer_lost(ctx.gradient_sync_ring)
+        self._g_resolved = True
+        self._gen = int(getattr(ctx, "generation", 0))
+        # the quantization residual was accumulated against the OLD
+        # split's wire — drop it now (the _ef_for rekey would catch it
+        # anyway; this makes "provably zeroed, never stale" explicit
+        # even if generation bookkeeping ever regressed)
+        if self._ef is not None:
+            self._ef.invalidate()
+        g = self._g
+        leaves = _raw_leaves(state)
+        elem = self._elem_indices(leaves, old_hi - old_lo)
+        # every lost rank's segment must have a surviving copy SOMEWHERE
+        # (this rank or a peer) — the controller can only see mirror
+        # inventories, so a sharded-but-unmirrored optimizer reaches
+        # here with holder=None and must fail loudly rather than let
+        # the exchange materialize zeros where moments existed
+        lost = ctx.lost_info() if hasattr(ctx, "lost_info") else {}
+        for d, info in sorted(lost.items()):
+            if info.get("holder") is not None:
+                continue
+            osz = int(info.get("old_size") or 1)
+            onodes = info.get("old_nodes")
+            if onodes:
+                # the old incarnation was hierarchical: its shards
+                # followed the NESTED split, not the flat one
+                from ray_tpu_torch.dag.ring import hier_seg_bounds
+                olo, ohi = hier_seg_bounds(
+                    total, onodes, int(info.get("old_rank", d)))
+            else:
+                olo, ohi = _rs.shard_bounds(
+                    total, osz, int(info.get("old_rank", d)))
+            if olo < ohi:
+                raise _rs.ReshardError(
+                    f"lost rank {d}'s optimizer shard [{olo}, {ohi}) "
+                    f"has no surviving in-memory mirror — cannot "
+                    f"reshard in place (set mirror_interval_steps>=1 "
+                    f"to enable peer checkpoints); let this propagate "
+                    f"so the controller restores from checkpoint")
+        mirrors = ctx.take_recovered_mirrors()
+        for mb in mirrors:
+            if mb.get("total") != total or \
+                    len(mb.get("leaves", ())) != len(elem):
+                raise _rs.ReshardError(
+                    f"peer mirror does not match this optimizer "
+                    f"(total {mb.get('total')} vs {total}, "
+                    f"{len(mb.get('leaves', ()))} vs {len(elem)} "
+                    f"elementwise leaves)")
+        staleness = max((self._step - int(mb.get("step", 0))
+                         for mb in mirrors), default=0)
+        new_arrays = []
+        for j, i in enumerate(elem):
+            like = _tensor_like(leaves[i])
+            src = stage_leaf(leaves[i]).reshape(-1)
+            pieces = [(old_lo, old_hi, src)]
+            for mb in mirrors:
+                mlo, mhi = mb["bounds"]
+                pieces.append((int(mlo), int(mhi), mb["leaves"][j]))
+            out = self._wrap_peer_lost(
+                lambda p=pieces, d=src.dtype:
+                _rs.exchange(g, total, p, dtype=d))
+            del src, pieces
+            new_arrays.append(tensor_like(out, like) if like is not None
+                              else out.astype(np.asarray(leaves[i]).dtype,
+                                              copy=False))
+            del out
+        new_state = self._replace_elem_leaves(
+            state, old_hi - old_lo, new_arrays)
+        self._bounds = self.shard_bounds(total)
+        dur = _time.monotonic() - t0
+        self._m["reshard_round"].observe(dur)
+        self._m["shard_bytes"].set(_tree_bytes(new_state))
+        events.record(
+            "train", "reshard", ph="X", ts=_time.time() - dur, dur=dur,
+            rank=ctx.get_world_rank(), size=ctx.get_world_size(),
+            group=ctx.group_id[:12], step=self._step,
+            mirrors=len(mirrors), staleness_steps=int(staleness),
+            pid=os.getpid())
+        # re-mirror promptly so the NEW incarnation starts covered
+        self._last_state = new_state
+        self._mirror(new_state)
+        return new_state
 
     # -- helpers -----------------------------------------------------------
 
@@ -640,8 +880,3 @@ class ShardedOptimizer:
         return _wire_dtype([_np_dtype(l) for l in leaves], "mean") \
             if leaves else np.dtype(np.float32)
 
-
-_UNPORTED_ELASTIC = (
-    "the elastic reshape of a ShardedOptimizer (peer mirrors, "
-    "mirror_interval_steps > 0, reshard()) is not ported to "
-    "ray_tpu_torch yet (ROADMAP Queue 1 item 13b)")

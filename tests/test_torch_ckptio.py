@@ -8,8 +8,6 @@ optimizer states are optax's, which the port's checkpoint plane takes
 as any numpy pytree. Left out, each for the ROADMAP.md Queue 1 item it
 waits for:
 
-- test_zero_optimizer_mirrors_shard_on_preemption: item 13b
-  (``ShardedOptimizer``'s peer mirrors);
 - test_pipeline_stage_snapshot_restore_roundtrip,
   test_pipeline_stage_snapshot_seg_only: item 13c (pipeline stages).
 """
@@ -27,8 +25,6 @@ from ray_tpu_torch.parallel import mesh
 from ray_tpu_torch.train import ckptio
 
 SKIP = {
-    "test_zero_optimizer_mirrors_shard_on_preemption":
-        "Queue 1 item 13b: ShardedOptimizer's peer mirrors",
     "test_pipeline_stage_snapshot_restore_roundtrip":
         "Queue 1 item 13c: pipeline stages",
     "test_pipeline_stage_snapshot_seg_only":

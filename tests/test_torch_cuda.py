@@ -1434,3 +1434,116 @@ def test_zero_trainer_over_two_cards_matches_one_process(dev):
                                [w[0] for w in want], rtol=2e-3)
     np.testing.assert_allclose([r["grad_norm"] for r in rows],
                                [w[1] for w in want], rtol=2e-2)
+
+
+def _elastic_card_fn(config):
+    """Two workers sharing the card: _card_train's model from the same
+    seed, this rank's slice of each batch at the current world size,
+    ZeRO-1 with a peer mirror every step; rank 1 dies after its backward
+    at step 1, once its step-0 mirror has landed, and rank 0 reshards to
+    world 1 and retries the step on the whole batch."""
+    import signal
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import ShardAdamW, mesh
+    from ray_tpu_torch.train.zero import ShardedOptimizer
+    dev = torch.device("cuda")
+    cfg = _zero_cfg(llama)
+    opt = mesh.default_optimizer(1e-2, warmup_steps=1, total_steps=10)
+    init_fn, _ = mesh.make_train_step(cfg, device=dev, optimizer=opt)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    params = list(state.params.parameters())
+    so = ShardedOptimizer(ShardAdamW(opt, device=dev),
+                          mirror_interval_steps=1)
+    zstate = so.init([p.detach() for p in params])
+    ctx = train.get_context()
+    step = 0
+    while step < len(config["batches"]):
+        world, rank = ctx.get_world_size(), ctx.get_world_rank()
+        rows = 4 // world
+        mine = {k: torch.as_tensor(v[rank * rows:(rank + 1) * rows],
+                                   device=dev)
+                for k, v in config["batches"][step].items()}
+        for p in params:
+            p.grad = None
+        loss = llama.loss_fn(state.params, mine, cfg)
+        loss.backward()
+        if step == 1 and rank == 1 and ctx.generation == 0:
+            if not ctx.wait_mirror(timeout_s=60):
+                raise RuntimeError("the step-0 mirror never landed")
+            os.kill(os.getpid(), signal.SIGKILL)
+        try:
+            new, zstate = so.update([p.grad for p in params], zstate,
+                                    [p.detach() for p in params])
+        except train.PeerLostError:
+            train.await_regroup(timeout_s=60)
+            zstate = so.reshard(zstate)
+            continue
+        with torch.no_grad():
+            for p, q in zip(params, new):
+                p.copy_(q)
+        seen = np.array([loss.item()], np.float64)
+        if world > 1:
+            seen = train.allreduce_gradients(seen, op="mean")
+        train.report({"step": step, "loss": float(seen[0]),
+                      "grad_norm": so.grad_norm, "world": world,
+                      "generation": ctx.generation,
+                      "moments_on": str(zstate.mu.device)})
+        step += 1
+
+
+def test_elastic_zero_workers_on_one_card_match_one_process(dev):
+    """The in-place elastic reshape with the moments on the card: two
+    workers share it, rank 1 is SIGKILLed mid-step 1, rank 0 reshards
+    its ShardAdamW moments with rank 1's peer mirror to world 1 and
+    finishes. Each step's loss and grad norm within the ZeRO card bars of
+    one process's steps on the whole batch; worlds [2, 1, 1], generation
+    1, the moments back on the card."""
+    import sys
+
+    import cloudpickle
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import mesh
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchTrainer)
+    cloudpickle.register_pickle_by_value(sys.modules[__name__])
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        toks = rng.integers(0, 256, (4, 129))
+        batches.append({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    cfg = _zero_cfg(llama)
+    init_fn, step_fn = mesh.make_train_step(
+        cfg, device=dev, optimizer=mesh.default_optimizer(
+            1e-2, warmup_steps=1, total_steps=10))
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    want = []
+    for b in batches:
+        state, m = step_fn(state, b)
+        want.append((m["loss"].item(), m["grad_norm"].item()))
+    del state
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        res = TorchTrainer(
+            _elastic_card_fn, train_loop_config={"batches": batches},
+            scaling_config=ScalingConfig(num_workers=(1, 2),
+                                         resources_per_worker={"CPU": 1},
+                                         sync_timeout_s=60.0,
+                                         elastic_grow_interval_s=0.0),
+            run_config=RunConfig(
+                failure_config=FailureConfig(max_failures=1))).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert res.error is None, res.error
+    rows = res.metrics_history
+    assert [r["step"] for r in rows] == [0, 1, 2]
+    assert [r["world"] for r in rows] == [2, 1, 1]
+    assert rows[-1]["generation"] == 1
+    assert all(r["moments_on"].startswith("cuda") for r in rows)
+    np.testing.assert_allclose([r["loss"] for r in rows],
+                               [w[0] for w in want], rtol=2e-3)
+    np.testing.assert_allclose([r["grad_norm"] for r in rows],
+                               [w[1] for w in want], rtol=2e-2)

@@ -78,6 +78,7 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.train.zero",
                 "ray_tpu_torch.train.ckptio",
                 "ray_tpu_torch.train.controller",
+                "ray_tpu_torch.train.mirror",
                 "ray_tpu_torch.train.reshard",
                 "ray_tpu_torch.train.trainer", "ray_tpu_torch.train.worker",
                 "ray_tpu_torch.util.goodput", "ray_tpu_torch.util.storage"]
@@ -211,6 +212,26 @@ def test_ring_round_and_zero_step_leave_jax_optax_and_ray_tpu_out():
         "assert a.dtype == torch.bfloat16 and torch.equal(a, b)\n"
         "for c in chs + chs2:\n"
         "    c.close(); c.unlink()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'optax', 'ray_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_elastic_reshape_leaves_jax_optax_and_ray_tpu_out():
+    """In a fresh process, the 3 -> 2 elastic reshape of
+    ``tests/_torch_reshape.py``: three ranks' ZeRO-1 steps over
+    ``ShardAdamW`` with peer mirrors crossing by pickle through shared
+    memory, ``apply_rewire``, ``await_regroup`` and ``reshard`` over a
+    fresh 2-ring, bitwise data movement: jax, ml_dtypes, optax and every
+    ray_tpu module stay out of ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_reshape as t\n"
+        "t.check_bitwise(*t.reshape_3_to_2(mirror=True))\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ml_dtypes', 'optax', 'ray_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

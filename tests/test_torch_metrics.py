@@ -18,6 +18,7 @@ from ray_tpu_torch.llm import engine as tengine
 from ray_tpu_torch.llm import kvcache as tkv
 from ray_tpu_torch.llm import spec as tspec
 from ray_tpu_torch.serve import fault as tfault
+from ray_tpu_torch.train import zero as tzero
 from ray_tpu_torch.util import devmon as tdevmon
 from ray_tpu_torch.util import metrics as tmetrics
 
@@ -115,7 +116,7 @@ def _lint():
 
 @pytest.mark.parametrize("catalog", [
     tengine.engine_metrics, tkv.kvcache_metrics, tspec.spec_metrics,
-    tfault.fault_metrics, tdevmon.devmon_metrics],
+    tfault.fault_metrics, tdevmon.devmon_metrics, tzero.zero_metrics],
     ids=lambda f: f.__name__)
 def test_port_catalogs_pass_the_metric_lint(clean, catalog):
     """Each catalog registers the JAX package's series under the same
@@ -124,12 +125,14 @@ def test_port_catalogs_pass_the_metric_lint(clean, catalog):
     import ray_tpu.llm.kvcache as jkv
     import ray_tpu.llm.spec as jspec
     import ray_tpu.serve.fault as jfault
+    import ray_tpu.train.zero as jzero
     import ray_tpu.util.devmon as jdevmon
     jax_catalog = {"engine_metrics": jengine.engine_metrics,
                    "kvcache_metrics": jkv.kvcache_metrics,
                    "spec_metrics": jspec.spec_metrics,
                    "fault_metrics": jfault.fault_metrics,
-                   "devmon_metrics": jdevmon.devmon_metrics}[catalog.__name__]
+                   "devmon_metrics": jdevmon.devmon_metrics,
+                   "zero_metrics": jzero.zero_metrics}[catalog.__name__]
     got, want = catalog(), jax_catalog()
     assert _lint().lint({m.name: m for m in got.values()}) == []
 

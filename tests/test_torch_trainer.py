@@ -216,15 +216,3 @@ def test_card_of_follows_the_node_visible_list(monkeypatch):
     assert [_card_of(0), _card_of(1)] == ["4", "6"]
     with pytest.raises(RuntimeError, match="no card of its own"):
         _card_of(2)
-
-
-def test_unported_elastic_reshape_raises():
-    """The in-place reshape's entry point and knobs wait for the
-    elastic reshape (ROADMAP.md, Queue 1 item 13b): await_regroup raises
-    rather than blocking on a rewire nothing sends, and ScalingConfig
-    takes no elastic_reshard/sync_timeout_s to ignore."""
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        train.await_regroup(timeout_s=1)
-    for knob in ("elastic_reshard", "sync_timeout_s"):
-        with pytest.raises(TypeError):
-            ScalingConfig(num_workers=(1, 2), **{knob: 1})

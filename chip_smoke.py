@@ -111,7 +111,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      in the worker;
      then data-parallel training through the gradient ring
      (``run_dp``): init(), a TorchTrainer of two workers sharing the
-     card, each training the same 2-layer model from the same seed on
+     card, each training the same model at 1 layer from the same seed on
      its half of the batch (1 x 4096 tokens), 3 steps in each of three
      modes: allreduce_gradients and the replicated AdamW (A),
      ShardedOptimizer (ZeRO-1) over ShardAdamW at the f32 wire (B), and
@@ -137,6 +137,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      no nvcc, jax or ray_tpu in either worker; recovery seconds, the
      reshard round, each mirror's bytes and seconds, step walls, peak HBM
      and host RSS per worker;
+     then pipeline parallelism (``run_pipeline``): one process's 3 steps
+     of Llama-3-8B's widths at 4 layers first, then init() and two
+     PipelineStageActor stages in their own worker processes on the card
+     (the embedding and layers 0-1; layers 2-3, the head and the loss),
+     train.Pipeline driving 1f1b over 4 microbatches of 1 x 4096 tokens
+     with SGD: run A, 3 steps over the device transport (TensorRef
+     handles) with save_checkpoint after step 2, its losses held to the
+     one process's (step 1 within 1e-4); run B, two new stages from
+     other weights restored from that checkpoint, step 3 over the host
+     transport, bitwise run A's step 3 in loss and both stages'
+     parameters; K1 without lse (F ops), K1 with lse, K2 and K3 (B ops)
+     8 times a step in each stage, every step reported, stage_stats at
+     teardown, both device stores empty after it, no nvcc, jax,
+     ml_dtypes or ray_tpu in either stage; step walls of both
+     transports, each stage's bubble beside bubble_fraction(2, 4), the
+     activations' hop through host memory (GB/s), the save and restore
+     seconds and bytes, peak HBM and host RSS per stage;
   10. ``iter_device_batches`` at the training shape (``run_device_batches``):
      32 rows of 4096 tokens and targets in batches of 2 copied to the card
      with prefetch 1, each bitwise its host rows, the 8-layer model's loss
@@ -158,6 +175,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1762,6 +1780,21 @@ def wait_exited(pids, timeout_s: float) -> None:
             time.sleep(0.2)
 
 
+def wait_card_back(free0: int, what: str, timeout_s: float = 120.0) -> None:
+    """Wait until the card's free memory is back within 1 GiB of
+    ``free0``, taken before ``what`` started its worker processes: a
+    worker's memory leaves the card when its process has exited, which
+    shutdown() does not wait for, and the next phase's workers need
+    it."""
+    deadline = time.monotonic() + timeout_s
+    while torch.cuda.mem_get_info()[0] < free0 - (1 << 30):
+        if time.monotonic() > deadline:
+            raise SystemExit(
+                f"card memory not back after {what}: free "
+                f"{torch.cuda.mem_get_info()[0]} of {free0} before")
+        time.sleep(0.5)
+
+
 # Loaded at every interpreter start of run_serve's cluster (through
 # PYTHONPATH): a thread writes the process's module names to
 # $CHIP_SMOKE_MODULES/<pid>.txt once a second, so the phase can tell
@@ -3075,6 +3108,7 @@ def run_trainer(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    free0 = torch.cuda.mem_get_info()[0]
     ray_tpu_torch.init(num_cpus=4, resources={
         "GPU": float(torch.cuda.device_count())})
     try:
@@ -3101,6 +3135,7 @@ def run_trainer(card: str) -> dict:
     finally:
         ray_tpu_torch.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+    wait_card_back(free0, "the trainer")
     hist_ = res.metrics_history
     got = [(r["loss"], r["grad_norm"]) for r in hist_]
     rel = max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want))
@@ -3162,10 +3197,11 @@ def run_trainer(card: str) -> dict:
 # --- data-parallel training through the gradient ring and ZeRO-1 ---------
 #
 # Two TorchTrainer workers share the one card (no use_gpu: it would pin
-# one card each), each training trainer_run's model (Llama-3-8B widths,
-# 2 layers, bf16, "dots", f32 logits; 1.49 B parameters) from the same
-# seed on its half of trainer_run's batch (1 x 4096 tokens). Three modes
-# of DP_STEPS steps: (A) train.allreduce_gradients(mean) and the
+# one card each), each training trainer_run's model cut to DP_LAYERS
+# (Llama-3-8B widths, 1 layer, bf16, "dots", f32 logits; 1.27 B
+# parameters) from the same seed on its half of trainer_run's batch (1 x
+# 4096 tokens). Three modes
+# of DP_MODE_STEPS steps: (A) train.allreduce_gradients(mean) and the
 # replicated AdamW; (B) ShardedOptimizer over ShardAdamW, f32 wire; (C)
 # the same with the int8 gradient reduce-scatter and the bf16 parameter
 # allgather. The gradients and parameters cross the host ring (numpy over
@@ -3182,14 +3218,23 @@ def run_trainer(card: str) -> dict:
 # the replicated moments' bytes at the f32 wire.
 DP_STEPS = 3
 DP_MODES = {"A": "allreduce", "B": "zero", "C": "zero_int8_bf16"}
+# C takes one step: its checks (the int8 bound on step 1's gradients, the
+# ranks' parameters bitwise equal after the step) need no more, and each
+# of its steps costs about 50 s of the script's time on the host ring.
+DP_MODE_STEPS = {"A": DP_STEPS, "B": DP_STEPS, "C": 1}
+# 2 until the pipeline phase came after it; at 1 the whole script stays
+# inside its time (the ring's time goes with the parameters, most of
+# them the embedding and the head at any depth). run_elastic's model too.
+DP_LAYERS = 1
 
 
 def dp_run():
     """(cfg, opt, state) of the data-parallel phase: trainer_run's model
-    and optimizer, on torch.device("cuda") explicitly."""
+    at DP_LAYERS and its optimizer, on torch.device("cuda") explicitly."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import default_optimizer, make_train_step
-    cfg = llama.llama3_8b(n_layers=2, dtype="bfloat16", remat_policy="dots",
+    cfg = llama.llama3_8b(n_layers=DP_LAYERS, dtype="bfloat16",
+                          remat_policy="dots",
                           logits_dtype="float32", ce_chunk=0)
     opt = default_optimizer(learning_rate=3e-4, warmup_steps=2,
                             total_steps=100)
@@ -3224,7 +3269,7 @@ def param_fingerprint(params) -> list:
 
 def dp_fn(config):
     """The data-parallel phase's train_fn, in each of the two workers:
-    DP_STEPS steps in each of config["modes"], from the same seed, on
+    DP_MODE_STEPS steps in each of config["modes"], from the same seed, on
     this rank's half of each batch; writes what it saw to
     config["out"]/rank<r>.json (the controller keeps only rank 0's
     reports). The host staging of the ring (dag/ring.py stage_flat and
@@ -3293,7 +3338,7 @@ def dp_fn(config):
                "allreduce_s": 0.0, "rs_s": 0.0, "ag_s": 0.0, "d2h_s": 0.0,
                "h2d_s": 0.0, "wire_bytes": 0.0, "n_params": n_params,
                "shard_bytes": metric("optim_shard_bytes") if so else None}
-        for step in range(1, DP_STEPS + 1):
+        for step in range(1, DP_MODE_STEPS[mode] + 1):
             b = dp_batch(cfg, step)
             mine = {k: torch.as_tensor(v[rank:rank + 1], device=dev)
                     for k, v in b.items()}
@@ -3428,6 +3473,7 @@ def run_dp(card: str) -> dict:
           f"{os.sysconf('SC_PHYS_PAGES') * page / 2**30:.1f} GiB; /dev/shm "
           f"(total, free) {shm_size()} bytes")
     root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    free0 = torch.cuda.mem_get_info()[0]
     ray_tpu_torch.init(num_cpus=4)
     try:
         t0 = time.monotonic()
@@ -3450,6 +3496,7 @@ def run_dp(card: str) -> dict:
     finally:
         ray_tpu_torch.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+    wait_card_back(free0, "the data-parallel workers")
     bad = []
     for mode, what in DP_MODES.items():
         a, b = ranks[0]["modes"][mode], ranks[1]["modes"][mode]
@@ -3488,7 +3535,8 @@ def run_dp(card: str) -> dict:
         if not all(np.isfinite(a["loss"] + b["loss"] + a["grad_norm"])):
             bad.append(f"{mode}: non-finite loss or grad norm")
         for rec in (a, b):
-            if rec["launches"] != [[cfg.n_layers] * 3] * DP_STEPS:
+            if rec["launches"] != \
+                    [[cfg.n_layers] * 3] * DP_MODE_STEPS[mode]:
                 bad.append(f"{mode}: launches {rec['launches']}")
         if mode == "B":
             for rec in (a, b):
@@ -3511,8 +3559,8 @@ def run_dp(card: str) -> dict:
         if r["foreign"] or r["compiles"]:
             bad.append(f"rank {r['rank']}: modules {r['foreign']}, nvcc "
                        f"builds {r['compiles']}")
-    print(f"dp [{card}]: fit {fit_s:.1f} s for {len(DP_MODES)} modes x "
-          f"{DP_STEPS} steps; workers' jax/ray_tpu modules "
+    print(f"dp [{card}]: fit {fit_s:.1f} s for modes x steps "
+          f"{DP_MODE_STEPS}; workers' jax/ray_tpu modules "
           f"{[r['foreign'] for r in ranks]}, nvcc builds "
           f"{[r['compiles'] for r in ranks]}")
     if bad:
@@ -3531,7 +3579,7 @@ def run_dp(card: str) -> dict:
 # card, an elastic group (num_workers=(1, 2)) whose ShardedOptimizer
 # mirrors each rank's ShardAdamW shard to its ring successor after init
 # and after every step (mirror_interval_steps=1: two f32 moments of the
-# half shard, 5.95 GB, staged once into shared memory). At step 2 rank 1
+# half shard, 5.08 GB, staged once into shared memory). At step 2 rank 1
 # dies (SIGKILL after its backward, before the reduce-scatter, once its
 # step-1 mirror has landed); rank 0, blocked in the reduce-scatter, gets
 # PeerLostError when the controller's rewire aborts the ring,
@@ -3722,6 +3770,7 @@ def run_elastic(card: str, want: list) -> dict:
     t_phase = time.monotonic()
     root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     marker = os.path.join(root, "victim_died_at")
+    free0 = torch.cuda.mem_get_info()[0]
     ray_tpu_torch.init(num_cpus=4)
     try:
         res = TorchTrainer(
@@ -3745,6 +3794,7 @@ def run_elastic(card: str, want: list) -> dict:
     finally:
         ray_tpu_torch.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+    wait_card_back(free0, "the elastic workers")
     phase_s = time.monotonic() - t_phase
     hist_ = [m for m in res.metrics_history if "step" in m]
     steps = surv["steps"]
@@ -3832,6 +3882,541 @@ def run_elastic(card: str, want: list) -> dict:
         raise SystemExit("the elastic phase failed: " + "; ".join(bad))
     return {"launches": {"train_dp_elastic": [
         surv["launches"][i] + vict["launches"][i] for i in range(3)]}}
+
+
+# --- pipeline parallelism: two stage actors on the card --------------------
+#
+# Llama-3-8B at full width cut to PIPE_LAYERS layers, bf16, random weights
+# from PIPE_SEED: stage 0 holds the embedding and layers 0-1, stage 1
+# layers 2-3, the final norm, lm_head and the chunked cross-entropy
+# (about 0.96 B parameters each). Each stage is a PipelineStageActor in a
+# worker process of its own on the card whose stage function runs the
+# port's model pieces (llama._layer, _rmsnorm, _rope_tables,
+# fused_cross_entropy) through torch.func.functional_call; the
+# optimizer is optax.sgd's shape over tensors. train.Pipeline drives
+# 1f1b over PIPE_MB microbatches of 1 x 4096 tokens. Run A: PIPE_STEPS
+# steps over the device transport (TensorRef handles in the shm rings,
+# each fetched through its owner's host memory), save_checkpoint after
+# step PIPE_SAVE_AFTER, its losses held to one process's steps on the
+# same weights (the per-microbatch gradients summed in bf16, divided by
+# PIPE_MB, the same SGD). Run B: two new stages from other weights,
+# restore_checkpoint, then the last step over the host transport (the
+# activations in the channels' frames): its loss and both stages'
+# parameters bitwise run A's last step's.
+PIPE_LAYERS = 4
+PIPE_MB = 4
+PIPE_STEPS = 3
+PIPE_SAVE_AFTER = 2
+PIPE_SEED = 7
+PIPE_LR = 0.5
+PIPE_CE_CHUNK = 1024
+# Step 1: the same weights and the same forward without grad on the same
+# values in both runs, so the mean loss is expected bit for bit equal
+# (printed); the bound allows the f32 rounding of the loss's sums in
+# another order. Later steps start from weights updated by gradients
+# that each run sums in its own order: TRAIN_LOSS_REL_TOL.
+PIPE_STEP1_REL_TOL = 1e-4
+# K1, K1 with lse, K2, K3 per stage process per step: 2 layers x 4
+# microbatches (each F op runs K1 without lse, each B op recomputes the
+# forward with K1 with lse and runs K2 and K3).
+PIPE_LAUNCHES_PER_STEP = 2 * PIPE_MB
+# the host transport's shm slots: one frame holds a microbatch's
+# activation (1 x 4096 x 4096 bf16, 32 MiB) and its targets
+PIPE_SLOT_BYTES = 40 << 20
+# the object store's capacity for the phase: both stages' restore blobs
+# are in it at once
+PIPE_STORE_BYTES = 12 << 30
+PIPE_LAYER_PARAMS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
+                     "w_gate", "w_up", "w_down")
+
+
+def pipe_cfg():
+    from ray_tpu_torch.models import llama
+    return llama.llama3_8b(n_layers=PIPE_LAYERS, dtype="bfloat16",
+                           logits_dtype="float32")
+
+
+def pipe_layout(cfg, stage: int) -> list:
+    """(name, shape, fan_in, global index) of stage ``stage``'s
+    parameters, named as PipeStageBody's; fan_in 0 marks a norm (ones).
+    The global index seeds each tensor's draw, so a stage draws only its
+    own tensors and the one-process reference draws the same ones."""
+    d, f, v = cfg.dim, cfg.ffn_dim, cfg.vocab_size
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = {"attn_norm": ((d,), 0), "wq": ((h * hd, d), d),
+              "wk": ((kvh * hd, d), d), "wv": ((kvh * hd, d), d),
+              "wo": ((d, h * hd), h * hd), "mlp_norm": ((d,), 0),
+              "w_gate": ((f, d), d), "w_up": ((f, d), d),
+              "w_down": ((d, f), f)}
+    half = cfg.n_layers // 2
+    out, idx = [], 0
+    if stage == 0:
+        out.append(("embed.weight", (v, d), d, idx))
+    idx += 1
+    for i in range(cfg.n_layers):
+        for name in PIPE_LAYER_PARAMS:
+            shape, fan_in = shapes[name]
+            suffix = name if name.endswith("norm") else f"{name}.weight"
+            if (i < half) == (stage == 0):
+                out.append((f"layers.{i % half}.{suffix}", shape, fan_in,
+                            idx))
+            idx += 1
+    if stage == 1:
+        out.append(("final_norm", (d,), 0, idx))
+        out.append(("lm_head.weight", (v, d), d, idx + 1))
+    return out
+
+
+@torch.no_grad()
+def pipe_params(cfg, stage: int, seed: int) -> dict:
+    """Stage ``stage``'s bf16 parameters on the card: normal(0, 1) *
+    fan_in^-0.5 drawn in f32 from a generator per tensor, norms at one."""
+    out = {}
+    for name, shape, fan_in, idx in pipe_layout(cfg, stage):
+        if fan_in == 0:
+            out[name] = torch.ones(shape, dtype=torch.bfloat16,
+                                   device="cuda")
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(
+            seed * 100003 + idx)
+        out[name] = (torch.randn(shape, generator=gen, device="cuda")
+                     * fan_in ** -0.5).to(torch.bfloat16)
+    return out
+
+
+def pipe_body(cfg, stage: int):
+    """Stage ``stage`` as a module on the meta device: it only names the
+    parameters that functional_call hands in."""
+    from torch import nn
+
+    from ray_tpu_torch.models import llama
+
+    class PipeStageBody(nn.Module):
+        def __init__(self):
+            super().__init__()
+            f = dict(device="meta", dtype=torch.bfloat16)
+            if stage == 0:
+                self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, **f)
+            self.layers = nn.ModuleList(
+                llama.LlamaLayer(cfg, **f)
+                for _ in range(cfg.n_layers // 2))
+            if stage == 1:
+                self.final_norm = nn.Parameter(torch.empty(cfg.dim, **f))
+                self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size,
+                                         bias=False, **f)
+
+        def forward(self, x, targets):
+            if stage == 0:
+                x = self.embed(x)
+            b, s, _ = x.shape
+            pos = torch.arange(s, dtype=torch.int32, device=x.device)
+            rc, rs = llama._rope_tables(pos[None].expand(b, s),
+                                        cfg.head_dim, cfg.rope_theta)
+            for lyr in self.layers:
+                x = llama._layer(lyr, x, rc, rs, cfg, "auto")
+            if stage == 0:
+                return x, targets
+            x = llama._rmsnorm(x, self.final_norm, cfg.norm_eps)
+            # the head as a function of the tensor functional_call
+            # handed in: the loss's checkpointed chunks recompute after
+            # the call has put the meta parameter back
+            import functools
+
+            import torch.nn.functional as F
+            head = functools.partial(F.linear, weight=self.lm_head.weight)
+            return llama.fused_cross_entropy(
+                x, head, {"targets": targets}, PIPE_CE_CHUNK,
+                cfg.logits_dtype)
+    return PipeStageBody()
+
+
+def pipe_stage_fn(cfg, stage: int, params: dict, payload):
+    """Stage ``stage``'s stage_fn(params, x): (tokens, targets) -> (h,
+    targets) at stage 0, (h, targets) -> the loss at stage 1."""
+    return torch.func.functional_call(pipe_body(cfg, stage), params,
+                                      tuple(payload))
+
+
+class PipeSGD:
+    """optax.sgd(lr) in optax's shape over tensors: the update is
+    ``-lr * g`` (PipelineStageActor adds it in the parameter's dtype)."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params=None):
+        return {k: -self.lr * g for k, g in grads.items()}, state
+
+
+def pipe_batches(cfg) -> list:
+    """PIPE_MB microbatches of 1 x 4096 tokens and their targets, as CPU
+    tensors (what the driver feeds the first stage)."""
+    toks = torch.from_numpy(np.random.default_rng(PIPE_SEED).integers(
+        0, cfg.vocab_size, (PIPE_MB, 4097)))
+    return [(toks[i:i + 1, :-1].contiguous(), toks[i:i + 1, 1:].contiguous())
+            for i in range(PIPE_MB)]
+
+
+def pipe_reference(cfg, mbs) -> list:
+    """One process's PIPE_STEPS steps of the pipeline's model on the card:
+    per microbatch, stage 1's loss of stage 0's output (a forward without
+    grad, as the pipeline's F ops compute it) and the gradients of both
+    stages' parameters (a forward with grad and its backward), summed in
+    bf16 and divided by PIPE_MB, then PipeSGD. Returns each step's mean
+    loss; the weights are freed."""
+    params = [pipe_params(cfg, k, PIPE_SEED) for k in range(2)]
+    fns = [lambda p, x, k=k: pipe_stage_fn(cfg, k, p, x) for k in range(2)]
+    want = []
+    for _ in range(PIPE_STEPS):
+        acc, losses = None, []
+        for tok, tgt in mbs:
+            x = (tok.cuda(), tgt.cuda())
+            with torch.no_grad():
+                losses.append(fns[1](params[1],
+                                     fns[0](params[0], x)).item())
+            leaves = [{n: t.detach().requires_grad_(True)
+                       for n, t in p.items()} for p in params]
+            loss = fns[1](leaves[1], fns[0](leaves[0], x))
+            names = [(k, n) for k in range(2) for n in leaves[k]]
+            grads = torch.autograd.grad(
+                loss, [leaves[k][n] for k, n in names])
+            acc = list(grads) if acc is None else \
+                [a + g for a, g in zip(acc, grads)]
+            del loss, grads, leaves
+        want.append(float(np.mean(np.asarray(losses, np.float32))))
+        with torch.no_grad():
+            for (k, n), g in zip(names, acc):
+                p = params[k][n]
+                params[k][n] = (p + (-PIPE_LR * (g * (1.0 / PIPE_MB)))
+                                ).to(p.dtype)
+        del acc
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def rss_bytes() -> int:
+    """This process's resident set (VmRSS), or 0 where /proc lacks it."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def pipe_stage_class():
+    """PipelineStageActor with run_pipeline's probes, built where it is
+    first needed (chip_smoke.py imports nothing of the port at module
+    level): the stage draws its own parameters on the card, and counts
+    the seconds and bytes of the TensorRefs it resolves (the activations'
+    and gradients' hop through the producer's host memory)."""
+    from ray_tpu_torch.dag import runtime as dag_runtime
+    from ray_tpu_torch.train.pipeline import PipelineStageActor
+
+    class PipeStage(PipelineStageActor):
+        def __init__(self, cfg, stage: int, seed: int):
+            import functools
+            torch.cuda.set_device(0)
+            super().__init__(functools.partial(pipe_stage_fn, cfg, stage),
+                             pipe_params(cfg, stage, seed),
+                             optimizer=PipeSGD(PIPE_LR),
+                             is_last=stage == 1)
+            self.hop = {"s": 0.0, "bytes": 0, "n": 0}
+            self.rss_peak = 0
+            threading.Thread(target=self._sample_rss, daemon=True).start()
+            # one F and one B op on a microbatch of zeros at the real
+            # shape, then discarded: the process's first forward and
+            # backward (CUDA libraries, kernel modules, allocator) run
+            # here, in both stages at once, instead of serialized down
+            # the first step's schedule
+            t0 = time.monotonic()
+            s = 4096
+            z = torch.zeros((1, s), dtype=torch.int64, device="cuda")
+            h = torch.zeros((1, s, cfg.dim), dtype=torch.bfloat16,
+                            device="cuda")
+            self.pipe_forward(-1, (z, z) if stage == 0 else (h, z))
+            self.pipe_backward(-1, None if stage == 1 else (h, None))
+            self._acc, self._acc_n, self._losses = None, 0, []
+            torch.cuda.synchronize()
+            self.warm_s = time.monotonic() - t0
+            resolve = dag_runtime._resolve_device_tree
+            from ray_tpu_torch.runtime.device_store import TensorRef
+
+            def timed(value, device=None):
+                refs = []
+                dag_runtime._map_tree_leaves(
+                    lambda v: refs.append(v) if isinstance(v, TensorRef)
+                    else None, value)
+                t0 = time.monotonic()
+                out = resolve(value, device)
+                torch.cuda.synchronize()
+                self.hop["s"] += time.monotonic() - t0
+                self.hop["n"] += len(refs)
+                self.hop["bytes"] += sum(
+                    int(np.prod(r.shape)) * getattr(torch, r.dtype).itemsize
+                    for r in refs)
+                return out
+            dag_runtime._resolve_device_tree = timed
+
+        def _sample_rss(self):
+            # the host RSS peak, every 0.1 s (the chip machine's
+            # /proc/self/status has VmRSS, no VmHWM)
+            while True:
+                self.rss_peak = max(self.rss_peak, rss_bytes())
+                time.sleep(0.1)
+
+        def reset_counts(self):
+            from ray_tpu_torch.ops import flash_attention as fa
+            reset_train_counts(fa)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.hop = {"s": 0.0, "bytes": 0, "n": 0}
+            self.rss_peak = rss_bytes()
+
+        def counts(self) -> dict:
+            from ray_tpu_torch.ops import flash_attention as fa
+            from ray_tpu_torch.runtime.device_store import _store
+            from ray_tpu_torch.util import events
+            c = train_counts(fa)
+            return {"launches": [
+                c["flash_attention_fwd"] - c["flash_attention_fwd_lse"],
+                c["flash_attention_fwd_lse"], c["flash_attention_bwd_dkv"],
+                c["flash_attention_bwd_dq"]],
+                "store": _store().stats(), "foreign": foreign_modules(),
+                "compiles": [e.get("fn") for e in events.dump()
+                             if e.get("name") == "compile"],
+                "peak_hbm": torch.cuda.max_memory_allocated(),
+                "rss_peak": self.rss_peak, "hop": dict(self.hop),
+                "activation_bytes": metric(
+                    "pipeline_activation_bytes_total"),
+                "warm_s": self.warm_s, "pid": os.getpid()}
+
+        def fingerprint(self) -> list:
+            return param_fingerprint(
+                [self.params[k] for k in sorted(self.params)])
+    return PipeStage
+
+
+def run_pipeline(card: str) -> dict:
+    """The pipeline phase (see the comment block above): the one-process
+    reference first (then freed), then init() and run A, its teardown,
+    and run B. Checks run A's losses against the reference (step 1 within
+    PIPE_STEP1_REL_TOL, later steps within TRAIN_LOSS_REL_TOL), run B's
+    step bitwise run A's (loss and both stages' parameters), K1, K1 with
+    lse, K2 and K3 PIPE_LAUNCHES_PER_STEP times a step in each stage
+    process, every step's report, stage_stats at teardown, both device
+    stores empty after it, activation bytes metered, and no jax,
+    ml_dtypes, ray_tpu or nvcc in either stage process; prints the step
+    walls of both transports, each stage's bubble against
+    bubble_fraction(2, PIPE_MB), the activations' host hop, the save and
+    restore seconds and bytes, peak HBM and host RSS per stage."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.train import Pipeline, bubble_fraction
+    t_phase = time.monotonic()
+    cfg = pipe_cfg()
+    mbs = pipe_batches(cfg)
+    want = pipe_reference(cfg, mbs)
+    ref_s = time.monotonic() - t_phase
+    Stage = ray_tpu_torch.remote(max_concurrency=2)(pipe_stage_class())
+    # the checkpoint on tmpfs where there is one: what is timed is the
+    # pipeline's save and restore (snapshots over the object plane,
+    # ckptio's archive, hash and atomic write), not the disk
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipe_", dir=shm)
+    from ray_tpu_torch.train import ckptio
+    ck_s = {"write_shard": 0.0, "_assemble_space": 0.0}
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ck_s[fn.__name__] += time.monotonic() - t0
+        return wrapper
+    originals = {n: getattr(ckptio, n) for n in ck_s}
+    for n, fn in originals.items():
+        setattr(ckptio, n, timed(fn))
+    bad, runs = [], {}
+    # a stage's checkpoint blob (its parameters at the f32 wire, 3.85 GB)
+    # crosses the object plane whole, both ways
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=4,
+                       system_config={"shm_store_bytes": PIPE_STORE_BYTES})
+    try:
+        later = None    # run B's stages, started during run A's save
+        for run, seed, transport in (("A", PIPE_SEED, True),
+                                     ("B", PIPE_SEED + 1, False)):
+            t0 = time.monotonic()
+            stages = later or [Stage.remote(cfg, k, seed) for k in range(2)]
+            ray_tpu_torch.get([s.reset_counts.remote() for s in stages],
+                              timeout=300)
+            up_s = time.monotonic() - t0
+            pipe = Pipeline(stages, num_microbatches=PIPE_MB,
+                            schedule="1f1b", device=transport,
+                            timeout_s=300.0,
+                            **({} if transport else
+                               dict(nslots=PIPE_MB,
+                                    slot_bytes=PIPE_SLOT_BYTES)))
+            rec = {"walls": [], "losses": [], "reports": [],
+                   "launches": [], "up_s": up_s}
+            try:
+                first = 1
+                if run == "B":
+                    t0 = time.monotonic()
+                    rec["restored"] = pipe.restore_checkpoint(path)
+                    rec["restore_s"] = time.monotonic() - t0
+                    first = rec["restored"] + 1
+                    ray_tpu_torch.get([s.reset_counts.remote()
+                                       for s in stages], timeout=60)
+                for step in range(first, PIPE_STEPS + 1):
+                    t0 = time.monotonic()
+                    out = pipe.step(mbs)
+                    rec["walls"].append(time.monotonic() - t0)
+                    rec["losses"].append(out.loss)
+                    print(f"pipeline {run} step {step} [{card}]: loss "
+                          f"{out.loss}, wall {rec['walls'][-1]:.3f} s",
+                          flush=True)
+                    rec["reports"].append(
+                        [(r["stage"], r["stats"]["step_s"],
+                          r["stats"]["bubble_s"]) for r in out.reports])
+                    rec["bubble_fraction"] = out.bubble_fraction
+                    rec["launches"].append([c["launches"] for c in
+                                            ray_tpu_torch.get(
+                                                [s.counts.remote()
+                                                 for s in stages],
+                                                timeout=60)])
+                    if run == "A" and step == PIPE_SAVE_AFTER:
+                        # run B's two new stages come up (and warm up)
+                        # under the save, which leaves the card idle;
+                        # they join no pipeline until run A is torn
+                        # down, and their warm-up ends before run A's
+                        # next step (reset_counts waits for __init__)
+                        later = [Stage.remote(cfg, k, PIPE_SEED + 1)
+                                 for k in range(2)]
+                        t0 = time.monotonic()
+                        path = pipe.save_checkpoint(root, step=step)
+                        rec["save_s"] = time.monotonic() - t0
+                        rec["save_bytes"] = sum(
+                            os.path.getsize(os.path.join(d, f))
+                            for d, _, fs in os.walk(path) for f in fs)
+                        ray_tpu_torch.get(
+                            [s.reset_counts.remote() for s in later],
+                            timeout=300)
+                        rec["b_ready_s"] = time.monotonic() - t0
+                rec["fingerprints"] = ray_tpu_torch.get(
+                    [s.fingerprint.remote() for s in stages], timeout=120)
+            finally:
+                pipe.teardown(timeout=120.0)
+            rec["stage_stats"] = pipe.stage_stats
+            rec["counts"] = ray_tpu_torch.get(
+                [s.counts.remote() for s in stages], timeout=60)
+            for s in stages:
+                ray_tpu_torch.kill(s)
+            wait_exited([c["pid"] for c in rec["counts"]], 120)
+            runs[run] = rec
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        for n, fn in originals.items():
+            setattr(ckptio, n, fn)
+    wait_card_back(free0, "the pipeline's stages")
+    a, b = runs["A"], runs["B"]
+    rel = [abs(g - w) / abs(w) for g, w in zip(a["losses"], want)]
+    if not rel[0] <= PIPE_STEP1_REL_TOL or \
+            not all(r <= TRAIN_LOSS_REL_TOL for r in rel[1:]):
+        bad.append(f"run A's losses {a['losses']} off one process's "
+                   f"{want}")
+    if not all(np.isfinite(a["losses"] + b["losses"])):
+        bad.append("non-finite loss")
+    if b.get("restored") != PIPE_SAVE_AFTER or \
+            b["losses"] != a["losses"][PIPE_SAVE_AFTER:] or \
+            b["fingerprints"] != a["fingerprints"]:
+        bad.append(f"run B (restored at step {b.get('restored')}) is not "
+                   f"run A's last step bitwise: losses {b['losses']} vs "
+                   f"{a['losses'][PIPE_SAVE_AFTER:]}, parameters equal "
+                   f"{b['fingerprints'] == a['fingerprints']}")
+    for run, rec in runs.items():
+        n = len(rec["walls"])
+        per = [[[PIPE_LAUNCHES_PER_STEP * (i + 1)] * 4] * 2
+               for i in range(n)]
+        if rec["launches"] != per:
+            bad.append(f"run {run}: launches (K1, K1 with lse, K2, K3) "
+                       f"per stage after each step {rec['launches']}")
+        stats = rec["stage_stats"] or []
+        if sorted(r["stage"] for r in stats) != [0, 1] or \
+                any(r["steps"] != n for r in stats):
+            bad.append(f"run {run}: stage_stats {stats}")
+        for k, c in enumerate(rec["counts"]):
+            if c["store"]["live_count"] or c["store"]["live_bytes"]:
+                bad.append(f"run {run} stage {k}: store {c['store']}")
+            if c["foreign"] or c["compiles"]:
+                bad.append(f"run {run} stage {k}: modules {c['foreign']}, "
+                           f"nvcc builds {c['compiles']}")
+            if not c["activation_bytes"] > 0:
+                bad.append(f"run {run} stage {k}: no activation bytes")
+    analytic = bubble_fraction(2, PIPE_MB)
+    print(f"pipeline [{card}]: llama3_8b widths at {cfg.n_layers} layers, "
+          f"2 stages (2 layers each, the embedding on stage 0, the head "
+          f"and loss on stage 1), 1f1b over {PIPE_MB} microbatches of 1 x "
+          f"4096 tokens; one process's reference {ref_s:.1f} s; run A "
+          f"(device transport) losses {a['losses']} vs one process's "
+          f"{want} (rel {['%.2e' % r for r in rel]}, step 1 tol "
+          f"{PIPE_STEP1_REL_TOL}, later {TRAIN_LOSS_REL_TOL}); run B "
+          f"(host transport, restored at step {b.get('restored')}) losses "
+          f"{b['losses']}, parameters bitwise run A's "
+          f"{b['fingerprints'] == a['fingerprints']}")
+    for run, rec in runs.items():
+        hops = [c["hop"] for c in rec["counts"]]
+        up = (f"stages up in {rec['up_s']:.1f} s" if run == "A" else
+              f"stages started at run A's save, ready "
+              f"{a['b_ready_s']:.1f} s after it began")
+        print(f"pipeline {run} [{card}]: {up}; "
+              f"step walls {['%.3f' % w for w in rec['walls']]} s; per "
+              f"step (stage, step_s, bubble_s) {rec['reports']}; measured "
+              f"bubble fraction (last step, slowest stage) "
+              f"{rec['bubble_fraction']:.3f} vs bubble_fraction(2, "
+              f"{PIPE_MB}) {analytic:.3f}; launches (K1, K1 with lse, K2, "
+              f"K3) per stage after each step {rec['launches']}")
+        for k, (c, h) in enumerate(zip(rec["counts"], hops)):
+            rate = h["bytes"] / h["s"] / 1e9 if h["s"] else float("nan")
+            print(f"pipeline {run} stage {k} [{card}]: TensorRef "
+                  f"resolves {h['n']} ({h['bytes']} bytes) in "
+                  f"{h['s']:.3f} s ({rate:.3f} GB/s); activation bytes "
+                  f"shipped {c['activation_bytes']:.0f}; store after "
+                  f"teardown {c['store']}; peak HBM "
+                  f"{c['peak_hbm'] / 2**30:.2f} GiB; peak host RSS "
+                  f"{c['rss_peak'] / 2**30:.2f} GiB; modules {c['foreign']}, "
+                  f"nvcc builds {c['compiles']}")
+    print(f"pipeline host [{card}]: /dev/shm (total, free) {shm_size()} "
+          f"bytes after the phase")
+    print(f"pipeline checkpoint [{card}]: under {root}; save after step "
+          f"{PIPE_SAVE_AFTER} {a.get('save_s', float('nan')):.1f} s "
+          f"({ck_s['write_shard']:.1f} s of it in ckptio.write_shard, "
+          f"the rest the stages' snapshots over the object plane), "
+          f"{a.get('save_bytes', 0)} bytes; restore "
+          f"{b.get('restore_s', float('nan')):.1f} s "
+          f"({ck_s['_assemble_space']:.1f} s of it loading and hashing "
+          f"the shards, the rest shipping the blobs and pipe_restore); "
+          f"stage warm-up (one F and one B op before the run) "
+          f"{[round(c['warm_s'], 1) for r in runs.values() for c in r['counts']]}"
+          f" s; phase {time.monotonic() - t_phase:.1f} s")
+    if bad:
+        raise SystemExit("the pipeline phase failed: " + "; ".join(bad))
+    return {"launches": {
+        name: sum(rec["launches"][-1][k][i] for rec in runs.values()
+                  for k in range(2))
+        for i, name in enumerate(("train_pipeline_fwd",
+                                  "train_pipeline_lse",
+                                  "train_pipeline_k2",
+                                  "train_pipeline_k3"))}}
 
 
 COPY_SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's 1.98 GHz clock
@@ -4024,6 +4609,7 @@ def main() -> int:
     trainer = run_trainer(card)
     dp = run_dp(card)
     elastic = run_elastic(card, dp["want"])
+    pipe = run_pipeline(card)
     run_device_batches(card)
     train_k = {name: {f"train_{p}": train[p]["launches"][key]
                       for p in TRAIN_POLICIES}
@@ -4039,6 +4625,11 @@ def main() -> int:
         for path, counts in dict(dp["launches"],
                                  **elastic["launches"]).items():
             train_k[name][path] = counts[i]
+    pipe_k = pipe["launches"]
+    train_k["K1"]["train_pipeline_fwd"] = pipe_k["train_pipeline_fwd"]
+    train_k["K1"]["train_pipeline_lse"] = pipe_k["train_pipeline_lse"]
+    train_k["K2"]["train_pipeline"] = pipe_k["train_pipeline_k2"]
+    train_k["K3"]["train_pipeline"] = pipe_k["train_pipeline_k3"]
     full_ms = train["full"]["per_launch_ms"]
 
     bwd_tol = {"row_rel_l2": BWD_ROW_REL_TOL}

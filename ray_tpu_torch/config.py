@@ -7,7 +7,7 @@ src/ray/common/ray_config_def.h) — every tunable has a typed default and
 is overridable from the environment as ``RAY_TPU_<NAME>`` or from the
 ``system_config`` dict handed to :func:`ray_tpu_torch.init`. A field of
 the reference comes here with the port's code that reads it (the
-pipeline knobs and the forensics bundle's have none yet), so no knob is
+forensics bundle's knobs have none yet), so no knob is
 accepted and then ignored; a ``system_config`` key that names no field
 lands in ``extra``.
 """
@@ -105,6 +105,35 @@ class Config:
     # within 1e-3 relative of the fp32 trajectory; no-EF int8 is NOT).
     # With this off, codec="auto" never picks a lossy codec.
     codec_error_feedback: bool = True
+
+    # --- pipeline parallelism (train/pipeline.py) ---
+    # Default microbatch schedule for train.Pipeline: "1f1b" keeps
+    # in-flight activations at O(stages) with the same bubble as
+    # GPipe; "gpipe" is the simple fill/drain reference.
+    pipeline_schedule: str = "1f1b"
+    # Ship activations/gradients across stage edges as device-path
+    # TensorRef handles (runtime/device_store.py: only the handle rides
+    # the channel; across processes the tensor is staged through the
+    # owner's host memory on the consumer's fetch) instead of
+    # host-staged tensors in the channel's frames. The runtime loop
+    # frees every ref the moment the consumer materializes it.
+    pipeline_device_transport: bool = True
+    # TTL backstop on schedule-owned activation refs: a consumer that
+    # dies before resolving cannot pin the producer's memory past this
+    # bound (the normal path frees refs at materialization). Keep it
+    # ABOVE pipeline_step_timeout_s: a ref must outlive any stall the
+    # pipeline itself tolerates, or a slow-but-healthy consumer
+    # resolves an already-expired tensor.
+    pipeline_activation_ttl_s: float = 600.0
+    # Bound on one schedule step's MID-step channel waits (recv of a
+    # microbatch / backpressured send): a stage dead mid-step surfaces
+    # as PeerLostError within this instead of hanging the pipeline.
+    # The wait for a NEW step's first microbatch is exempt (driver
+    # cadence: eval/checkpoint pauses between steps are healthy); a
+    # peer dead at a step boundary is detected by the driver's report
+    # read, and Pipeline.teardown() injects STOP directly on
+    # inter-stage edges when a dead stage can't relay it.
+    pipeline_step_timeout_s: float = 300.0
 
     # --- rpc ---
     rpc_connect_timeout_s: float = 10.0

@@ -199,10 +199,14 @@ class ShmRingChannel:
         self.slot_bytes = slot_bytes
         size = HDR + nslots * (SLOT_HDR + slot_bytes)
         if create:
+            # A new segment reads as zeros (ftruncate), so the sequence
+            # words need no reset. Writing them here would race: a lazy
+            # edge's producer may attach as soon as the segment has its
+            # size and publish a frame before this constructor returns,
+            # and a reset would drop that frame and desync the ring.
             name = name or f"rtch-{uuid.uuid4().hex[:16]}"
             self._shm = shared_memory.SharedMemory(
                 name=name, create=True, size=size)
-            self._shm.buf[:HDR] = b"\x00" * HDR
         else:
             assert name is not None
             self._shm = shared_memory.SharedMemory(name=name)

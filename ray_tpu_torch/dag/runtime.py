@@ -21,12 +21,18 @@ experimental/rdt/tensor_transport_manager.py:37). A method that returns
 transport instead: only the handles ride the channel. The star reduce
 (``_tree_reduce``) takes torch and numpy leaves alike; the chunked
 ring and its ring-of-rings (dag/ring.py) reduce numpy, and torch leaves
-cross them as numpy. ``pipe_exec_loop`` (train/pipeline.py's stage
-loop) waits for ROADMAP Queue 1 item 13c.
+cross them as numpy. ``pipe_exec_loop`` is the pipeline-stage loop
+(train/pipeline.py compiles its schedules): with the device transport a
+stage's activations and gradients are parked in its device store
+(``_ship_device_tree``) and the next stage resolves the handles onto
+its own device on the loop thread (``_resolve_device_tree``), across
+processes through the owner's host memory; without it they ride the
+channel's frames staged to CPU tensors.
 """
 
 from __future__ import annotations
 
+import os
 import queue as _queue
 import sys
 import threading
@@ -40,6 +46,7 @@ from ray_tpu_torch.dag.channel import (DATA, ERROR, STOP, ChannelClosed,
                                        attach_channel)
 from ray_tpu_torch.runtime.serialization import (dumps_oob, loads_oob,
                                                  serialize)
+from ray_tpu_torch.util import events
 
 _MAX_TIMED_ITEMS = 512   # per-item windows kept for overlap analysis
 
@@ -576,12 +583,19 @@ def exec_loop(instance, spec: dict) -> dict:
             "timing": stats, "items": items}
 
 
-# --- device transport helpers --------------------------------------------
+# --- pipeline-parallel stage loop ----------------------------------------
 #
-# The reference's pipeline-stage loop (pipe_exec_loop, driven by
-# train/pipeline.py) ships its activations and gradients through these;
-# the loop itself waits for ROADMAP Queue 1 item 13c, the helpers are the
-# device transport's and ported with it.
+# The MPMD sibling of exec_loop (reference: arxiv 2412.14374 — per-stage
+# programs driven by a microbatch schedule): instead of one method
+# applied per streamed item, the actor executes a COMPILED OP SCHEDULE
+# per training step (train/pipeline.py compile_schedule — GPipe
+# fill/drain or 1F1B), alternating forward receives from the previous
+# stage and backward-gradient receives from the next one over the same
+# placement-aware channels. The prefetch reader walks the identical
+# schedule one window ahead, so stage p's recv of microbatch i+1 hides
+# under its compute of microbatch i — the same overlap window exec_loop
+# gives streamed items, measured the same way. Activations and
+# gradients ship through the device-transport helpers below.
 
 class _UnwalkableTree(TypeError):
     """A container whose ctor isn't shape-compatible (defaultdict, a
@@ -679,3 +693,383 @@ def _resolve_device_tree(value, device=None):
                 v.free()
         return v
     return _map_tree_leaves(resolve, value)
+
+
+class _PipeFlight:
+    """Flight recorder for one stage loop: the last K op timing records,
+    dumped to JSON on a terminal channel death so the raised
+    PeerLostError names a post-mortem file — the ring flight-recorder
+    contract (dag/ring.py _RingTrace) for the pipeline plane."""
+
+    def __init__(self, stage: int, chain: int, group: str, keep: int = 64):
+        import collections
+        self.stage, self.chain, self.group = stage, chain, group
+        self.ops = collections.deque(maxlen=keep)
+        self.path: Optional[str] = None
+
+    def add(self, **rec) -> None:
+        self.ops.append(rec)
+
+    def dump(self, err: BaseException) -> Optional[str]:
+        import json
+        import os
+        import tempfile
+        try:
+            from ray_tpu_torch.config import get_config
+            d = getattr(get_config(), "collective_flight_dir", "") or \
+                os.path.join(tempfile.gettempdir(), "ray_tpu_flight")
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(
+                d, f"pipe-{self.group}-s{self.stage}-c{self.chain}-"
+                   f"{os.getpid()}-{int(time.time() * 1000)}.json")
+            with open(path, "w") as f:
+                json.dump({"error": repr(err), "stage": self.stage,
+                           "chain": self.chain, "group": self.group,
+                           "ts": time.time(),
+                           "ops": list(self.ops)}, f, default=str)
+            self.path = path
+            return path
+        except Exception:   # noqa: BLE001 — post-mortem must not mask
+            return None
+
+
+def _pipe_peer_lost(cause: BaseException, flight: _PipeFlight):
+    """Terminal channel death -> the typed error elastic train_fns
+    catch (train.PeerLostError), flight-dump path stitched in like the
+    ring plane does."""
+    from ray_tpu_torch.train.collective import PeerLostError
+    path = flight.dump(cause)
+    note = f" [collective flight recorder: {path}]" if path else ""
+    err = PeerLostError(
+        f"pipeline stage {flight.stage} lost a channel peer "
+        f"(stage actor died mid-schedule?): {cause}{note}")
+    err.flight_recorder_path = path
+    return err
+
+
+def pipe_exec_loop(instance, spec: dict) -> dict:
+    """Pinned pipeline-stage loop: runs one op schedule per step until
+    a STOP frame arrives at a step boundary.
+
+    spec (built by train/pipeline.py build_pipe_specs):
+      stage/num_stages/chain: this actor's position
+      schedule: ordered [kind, mb] op list for ONE step
+      fwd_in/fwd_out/bwd_in/bwd_out: channel specs (None at the ends)
+      res_out: per-step report channel back to the driver
+      zero_spec: per-stage ZeRO ring (handed to pipe_configure)
+      device: ship activations/gradients as TensorRefs
+      ttl_s: activation-ref TTL backstop (leak bound for dead consumers)
+      group/step_base/timeout_s: trace tags + recv bound
+    """
+    from ray_tpu_torch.util import tracing
+    stage = int(spec["stage"])
+    chain = int(spec.get("chain", 0))
+    group = str(spec.get("group", ""))[:12]
+    timeout_s = float(spec.get("timeout_s", 300.0))
+    sched = [tuple(op) for op in spec["schedule"]]
+    device = bool(spec.get("device"))
+    ttl_s = spec.get("ttl_s")
+    step_base = int(spec.get("step_base", 0))
+    fwd_in = attach_channel(spec["fwd_in"], "consumer") \
+        if spec.get("fwd_in") else None
+    fwd_out = attach_channel(spec["fwd_out"], "producer") \
+        if spec.get("fwd_out") else None
+    bwd_in = attach_channel(spec["bwd_in"], "consumer") \
+        if spec.get("bwd_in") else None
+    bwd_out = attach_channel(spec["bwd_out"], "producer") \
+        if spec.get("bwd_out") else None
+    res_out = attach_channel(spec["res_out"], "producer")
+    chans = [c for c in (fwd_in, fwd_out, bwd_in, bwd_out, res_out)
+             if c is not None]
+    # where resolved TensorRefs land: the stage's own device (None: the
+    # parked tensor itself, in its own process)
+    stage_dev = getattr(instance, "device", None)
+    cfg = getattr(instance, "pipe_configure", None)
+    if cfg is not None:
+        cfg(spec)
+    flight = _PipeFlight(stage, chain, group)
+    try:
+        from ray_tpu_torch.train.pipeline import pipeline_metrics
+        metrics = pipeline_metrics()
+    except Exception:   # noqa: BLE001 — metrics must never break the loop
+        metrics = None
+
+    def recv_chan(kind: str):
+        return fwd_in if kind == "F" else bwd_in
+
+    def send_chan(kind: str):
+        return fwd_out if kind == "F" else bwd_out
+
+    recv_ops = [(j, op) for j, op in enumerate(sched)
+                if recv_chan(op[0]) is not None]
+
+    # -- prefetch reader: walks the same schedule one window ahead -------
+    rounds_q: _queue.Queue = _queue.Queue(maxsize=2)
+    done_evt = threading.Event()        # loop exiting: reader must too
+
+    def _qput(item) -> bool:
+        """Bounded put that can never strand the reader: once the
+        executor has exited (done_evt), the frame is dropped instead
+        of blocking forever on a full queue — a failed run must not
+        leak the reader thread for the worker's lifetime."""
+        while not done_evt.is_set():
+            try:
+                rounds_q.put(item, timeout=0.2)
+                return True
+            except _queue.Full:
+                continue
+        return False
+
+    def _read_schedule():
+        while not done_evt.is_set():
+            for n, (j, (kind, mb, *_v)) in enumerate(recv_ops):
+                t0 = time.time()
+                while True:
+                    try:
+                        # the STEP BOUNDARY recv (n == 0) arrives at
+                        # the driver's cadence (eval/checkpoint pauses
+                        # between steps are healthy) — park in short
+                        # slices, resetting the recv window each
+                        # slice so driver idle doesn't masquerade as
+                        # transfer time in recv_s/overlap stats.
+                        # timeout_s bounds MID-step waits only; a
+                        # peer dead at a boundary is detected by the
+                        # driver's report read and unwound by
+                        # STOP/teardown.
+                        frame = recv_chan(kind).read_bytes(
+                            min(1.0, timeout_s) if n == 0
+                            else timeout_s)
+                        break
+                    except ChannelTimeout as e:
+                        if n == 0 and not done_evt.is_set():
+                            t0 = time.time()
+                            continue
+                        _qput(("fail", e, (t0, time.time())))
+                        return
+                    except BaseException as e:  # noqa: BLE001
+                        _qput(("fail", e, (t0, time.time())))
+                        return
+                if not _qput((j, frame, (t0, time.time()))):
+                    return
+                if frame[0] == STOP:
+                    return
+
+    reader = threading.Thread(target=_read_schedule, daemon=True,
+                              name=f"pipe-prefetch-s{stage}")
+    reader.start()
+
+    def _broadcast(frame: bytes, kind: int) -> None:
+        for out in (fwd_out, bwd_out, res_out):
+            if out is None:
+                continue
+            try:
+                out.write(frame, kind, timeout=5.0)
+            except Exception:   # noqa: BLE001 — tearing down
+                pass
+
+    def _terminal(err: BaseException) -> None:
+        """Ship the failure everywhere a peer could be parked, then
+        STOP every edge so downstream/upstream loops terminate (shm
+        rings carry no peer-death signal)."""
+        try:
+            frame = dumps_oob(err)
+        except Exception:   # noqa: BLE001 — unpicklable payload
+            frame = dumps_oob(RuntimeError(f"{type(err).__name__}: {err}"))
+        _broadcast(frame, ERROR)
+        _broadcast(b"", STOP)
+
+    stats = {"recv_s": 0.0, "compute_s": 0.0, "overlapped_recv_s": 0.0,
+             "bubble_s": 0.0, "steps": 0}
+    first_recv_j = recv_ops[0][0] if recv_ops else None
+    step_no = 0
+    # persists ACROSS steps (the exec_loop pattern): a frame the
+    # reader prefetched during the previous step's compute tail must
+    # still earn its overlapped_recv_s credit when consumed early in
+    # the next step
+    compute_until = 0.0
+    try:
+        while True:     # one iteration == one schedule step
+            step_tag = step_base + step_no
+            step_t0 = None
+            bubble = 0.0
+            recv0 = stats["recv_s"]
+            ov0 = stats["overlapped_recv_s"]
+            comp0 = stats["compute_s"]
+            try:
+                for j, op in enumerate(sched):
+                    kind, mb = op[0], int(op[1])
+                    payload = None
+                    wait_s = 0.0
+                    if recv_chan(kind) is not None:
+                        q0 = time.time()
+                        tag = rounds_q.get()
+                        q1 = time.time()
+                        if tag[0] == "fail":
+                            raise _ReaderDead(tag[1])
+                        rj, (fkind, fpayload), (r0, r1) = tag
+                        if fkind == STOP:
+                            raise _Stop()
+                        if fkind == ERROR:
+                            raise _Upstream(bytes(fpayload))
+                        if rj != j:
+                            raise RuntimeError(
+                                f"pipeline schedule desync at stage "
+                                f"{stage}: expected op {j}, reader "
+                                f"delivered {rj}")
+                        wait_s = q1 - q0
+                        # bubble counts IN-step stalls only: the wait
+                        # for the step's FIRST payload is driver
+                        # cadence + fill (and in steady state the
+                        # prefetch reader hides it under the previous
+                        # step's tail), and the step window below
+                        # opens after it — numerator and denominator
+                        # cover the same window, so the fraction is
+                        # always <= 1
+                        if j != first_recv_j:
+                            bubble += wait_s
+                        stats["recv_s"] += r1 - r0
+                        if compute_until > r0:
+                            stats["overlapped_recv_s"] += \
+                                min(r1, compute_until) - r0
+                        payload = loads_oob(fpayload)
+                        if device:
+                            # onto the stage's device HERE, on the loop
+                            # thread, so the compute that follows is
+                            # ordered after the copy on the same stream
+                            payload = _resolve_device_tree(payload,
+                                                           stage_dev)
+                    if step_t0 is None:
+                        step_t0 = time.time()
+                    c0 = time.time()
+                    if kind == "F":
+                        out_val = instance.pipe_forward(mb, payload)
+                    else:
+                        out_val = instance.pipe_backward(mb, payload)
+                    c1 = time.time()
+                    stats["compute_s"] += c1 - c0
+                    compute_until = c1
+                    out_ch = send_chan(kind)
+                    if out_ch is not None:
+                        nbytes = 0
+                        if device:
+                            out_val, nbytes = _ship_device_tree(
+                                out_val, ttl_s)
+                        ser = serialize(_stage_to_host(out_val))
+                        nbytes = nbytes or ser.total_bytes
+                        out_ch.write(ser, DATA, timeout=timeout_s)
+                        if metrics is not None:
+                            try:
+                                metrics["activation_bytes"].inc(nbytes)
+                            except Exception:   # noqa: BLE001
+                                pass
+                    flight.add(op=j, kind=kind, mb=mb, ts=c0,
+                               wait_s=round(wait_s, 6),
+                               compute_s=round(c1 - c0, 6))
+                    events.record(
+                        "pipeline", "op", ph="X", ts=c0, dur=c1 - c0,
+                        stage=stage, chain=chain, mb=mb, kind=kind,
+                        step=step_tag, group=group,
+                        wait_s=round(wait_s, 6), pid=os.getpid())
+                    # stage/microbatch-tagged dag exec span: `ray-tpu
+                    # list tasks` / the dag timeline see pipeline ops
+                    # like any other dag compute
+                    tracing.record_exec(
+                        "", "dag", f"pipe{stage}:{kind}{mb}", c0, c1)
+                # end of schedule: optimizer step + report to driver
+                u0 = time.time()
+                result = instance.pipe_step()
+                u1 = time.time()
+                stats["compute_s"] += u1 - u0
+                step_dur = u1 - (step_t0 if step_t0 is not None else u0)
+                stats["bubble_s"] += bubble
+                stats["steps"] += 1
+                if metrics is not None:
+                    try:
+                        metrics["stage_step"].observe(
+                            step_dur, tags={"stage": str(stage)})
+                        metrics["bubble"].observe(
+                            bubble, tags={"stage": str(stage)})
+                    except Exception:   # noqa: BLE001
+                        pass
+                events.record(
+                    "pipeline", "step", ph="X",
+                    ts=step_t0 if step_t0 is not None else u0,
+                    dur=step_dur, stage=stage, chain=chain,
+                    step=step_tag, group=group,
+                    bubble_s=round(bubble, 6),
+                    update_s=round(u1 - u0, 6), pid=os.getpid())
+                try:
+                    # this stage's step anatomy, pre-aggregated (the
+                    # exec loop measures compute/bubble itself — no
+                    # interval stamping). "rank" is the STAGE index:
+                    # stage processes have no train rank, and per-stage
+                    # rows are what the bubble-fraction cross-check in
+                    # scripts/goodput_bench.py reads
+                    from ray_tpu_torch.util import goodput
+                    goodput.record_step(
+                        step_tag, step_dur, rank=stage,
+                        compute=stats["compute_s"] - comp0,
+                        bubble=bubble)
+                except Exception:   # noqa: BLE001
+                    pass
+                res_out.write(serialize({
+                    "result": result,
+                    # per-step values only (THIS step's deltas); the
+                    # loop's return value carries the cumulative totals
+                    "stats": {"step_s": step_dur,
+                              "bubble_s": bubble,
+                              "update_s": u1 - u0,
+                              "recv_s": stats["recv_s"] - recv0,
+                              "overlapped_recv_s":
+                                  stats["overlapped_recv_s"] - ov0}}),
+                    DATA, timeout=timeout_s)
+                step_no += 1
+            except _Stop:
+                _broadcast(b"", STOP)
+                break
+            except _Upstream as e:
+                # a peer already failed: relay ITS error (driver raises
+                # the original), terminate every edge, leave
+                _broadcast(e.frame, ERROR)
+                _broadcast(b"", STOP)
+                break
+            except _ReaderDead as e:
+                cause = e.cause
+                if isinstance(cause, (ChannelClosed, ChannelTimeout)):
+                    cause = _pipe_peer_lost(cause, flight)
+                _terminal(cause)
+                break
+            except BaseException as e:  # noqa: BLE001 — user/compute error
+                if isinstance(e, (ChannelClosed, ChannelTimeout)):
+                    # SEND-side channel death (peer gone, edge full
+                    # forever): the same typed contract as a recv-side
+                    # death — elastic train_fns catch PeerLostError,
+                    # and the flight dump names the stalled op
+                    e = _pipe_peer_lost(e, flight)
+                _terminal(e)
+                break
+    finally:
+        # unstick the reader BEFORE closing channels: _qput drops
+        # frames once done_evt is set, so a reader blocked on the full
+        # queue (or parked at a step boundary) exits instead of
+        # leaking for the worker's lifetime
+        done_evt.set()
+        try:
+            while True:
+                rounds_q.get_nowait()
+        except _queue.Empty:
+            pass
+        closer = getattr(instance, "pipe_close", None)
+        if closer is not None:
+            try:
+                closer()    # releases the stage's ZeRO ring channels
+            except Exception:   # noqa: BLE001 — teardown
+                pass
+        for ch in chans:
+            ch.close()
+            if getattr(ch, "_lazy_owner", False):
+                ch.unlink()
+        reader.join(timeout=2.0)
+    return {"stage": stage, "chain": chain, "steps": stats["steps"],
+            "timing": stats,
+            "flight": flight.path}

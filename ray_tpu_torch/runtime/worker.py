@@ -582,13 +582,14 @@ class WorkerExecutor:
                 from ray_tpu_torch.dag.runtime import exec_loop
                 fn = partial(exec_loop, hosted.instance)
             elif method == "__pipe_exec_loop__":
-                # the pipeline-stage pinned loop (train/pipeline.py
-                # schedules run by dag/runtime.py pipe_exec_loop)
-                raise NotImplementedError(
-                    "__pipe_exec_loop__: the pipeline-stage loop "
-                    "(dag/runtime.py pipe_exec_loop, train/pipeline.py) "
-                    "is not ported to ray_tpu_torch yet (ROADMAP Queue 1 "
-                    "item 13c)")
+                # Pipeline-stage pinned loop (train/pipeline.py
+                # schedules executed by dag/runtime.py pipe_exec_loop)
+                # — dispatched like the dag loop, duck-typed against
+                # the instance's pipe_forward/pipe_backward/pipe_step.
+                from functools import partial
+
+                from ray_tpu_torch.dag.runtime import pipe_exec_loop
+                fn = partial(pipe_exec_loop, hosted.instance)
             else:
                 fn = getattr(hosted.instance, method)
             if hosted.groups:

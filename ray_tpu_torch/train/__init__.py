@@ -8,8 +8,10 @@ worker_group/worker_group.py:113), with ``TorchTrainer`` driving
 async checkpoint plane (``ckptio``), the goodput ledger, and the
 host-plane collectives over the controller-wired gradient ring
 (``allreduce_gradients``, ``reduce_scatter_gradients``,
-``allgather_params``, ZeRO-1's ``ShardedOptimizer``). Pipelines wait for
-ROADMAP.md's Queue 1 item 13c, boosting for item 17.
+``allgather_params``, ZeRO-1's ``ShardedOptimizer``), and pipeline
+parallelism (``Pipeline`` over ``PipelineStageActor`` stages, its
+schedules from ``compile_schedule``). Boosting waits for ROADMAP.md's
+Queue 1 item 17.
 """
 
 from ray_tpu_torch.train.api import (Checkpoint, CheckpointConfig,
@@ -24,6 +26,9 @@ from ray_tpu_torch.train.collective import (PeerLostError,
                                             allgather_params,
                                             allreduce_gradients,
                                             reduce_scatter_gradients)
+from ray_tpu_torch.train.pipeline import (Pipeline, PipelineStageActor,
+                                          bubble_fraction,
+                                          compile_schedule)
 from ray_tpu_torch.train.reshard import ReshardError
 from ray_tpu_torch.train.trainer import (SklearnTrainer, TorchTrainer,
                                          get_controller)
@@ -33,9 +38,11 @@ __all__ = [
     "AsyncCheckpointer",
     "Checkpoint", "CheckpointConfig", "CkptError",
     "FailureConfig", "PeerLostError",
+    "Pipeline", "PipelineStageActor",
     "Result", "ReshardError",
     "RunConfig", "ScalingConfig", "ShardedOptimizer", "SklearnTrainer",
     "allgather_params", "allreduce_gradients", "await_regroup",
+    "bubble_fraction", "compile_schedule",
     "ensure_torch_distributed",
     "get_context", "get_dataset_shard", "preempted",
     "reduce_scatter_gradients", "report", "restore_checkpoint",

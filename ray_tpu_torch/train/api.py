@@ -260,11 +260,20 @@ class TrainContext:
         # next reshard collective (assigned by the controller's rewire).
         self._recovered_mirrors: list = []
         self._lost_info: dict = {}
-        # Pipeline-parallel group id: the controller's reshape gate
-        # reads it off poll() (a pipeline cannot re-form in place
-        # around a lost stage). Nothing sets it until the pipelines
-        # are ported (ROADMAP.md, Queue 1 item 13c).
+        # Pipeline-parallel group id (train/pipeline.py Pipeline sets
+        # it when constructed inside a train_fn): the controller's
+        # reshape gate reads it off poll() — a pipeline topology can
+        # NOT re-form in place around a lost stage (the stage's
+        # parameters exist nowhere else), so worker loss falls through
+        # to the checkpoint-restart path — and trace_step() uses it to
+        # pull the step's pipeline spans into the waterfall.
+        # pipeline_step is the pipeline's OWN step counter (bumped by
+        # Pipeline.step), deliberately separate from collective_step:
+        # an auxiliary allreduce between pipeline steps must not
+        # desynchronize the stage spans' step tags from the ones
+        # trace_step stamps.
         self.pipeline_group: Optional[str] = None
+        self.pipeline_step = 0
 
     # -- elastic reshape ---------------------------------------------------
 
@@ -479,6 +488,23 @@ class TrainContext:
             raise KeyError(f"no dataset shard named {name!r}")
         return shard
 
+    def register_pipeline(self, group: str) -> None:
+        """Mark this worker as driving a pipeline-parallel group (see
+        train/pipeline.py): gates elastic in-place reshape OFF for the
+        worker group (controller reads the flag off poll()) and tags
+        trace_step() waterfalls with the pipeline group id."""
+        self.pipeline_group = str(group)[:12] or None
+        self.pipeline_step = 0
+
+    def unregister_pipeline(self, group: str) -> None:
+        """Clear the pipeline flag at Pipeline.teardown() — a train_fn
+        that moves on to pure data-parallel training gets its elastic
+        in-place reshape back (a stale flag would force checkpoint
+        restarts forever). Only the registering group may clear it, so
+        tearing down an old pipeline can't unflag a newer one."""
+        if self.pipeline_group == str(group)[:12]:
+            self.pipeline_group = None
+
     def trace_step(self, name: str = "train_step"):
         """Context manager tracing ONE training step as a request-plane
         trace: mints a root trace context (or joins the ambient one),
@@ -528,6 +554,11 @@ class TrainContext:
                 return
             tok = tracing.set_request_context(tctx)
             step = self.collective_step
+            # the pipeline group id scopes the step's pipe:stage<k>
+            # spans as the ring group id scopes its rounds (two
+            # pipelines sharing a step index must not cross-wire)
+            pgroup = getattr(self, "pipeline_group", None)
+            pstep0 = int(getattr(self, "pipeline_step", 0))
             t0, ok = time.time(), False
             try:
                 yield tctx.trace_id
@@ -543,6 +574,14 @@ class TrainContext:
                 devmon.record_device_window(name, t0, time.time(),
                                             trace=tctx.trace_id)
                 extra = {}
+                if pgroup:
+                    extra["pgroup"] = pgroup
+                    # the FIRST pipeline step that ran inside this
+                    # span (Pipeline.step bumps pipeline_step); -1
+                    # when none did, so filter_trace pulls nothing
+                    # rather than an arbitrary step's lanes
+                    extra["pstep"] = pstep0 \
+                        if self.pipeline_step > pstep0 else -1
                 if root:
                     # the outermost step span IS the trace's root —
                     # train-step traces are few and hand-opened, so

@@ -7,9 +7,10 @@ initialized driver/worker. The port's copy of ``ray_tpu/util/state.py``
 cut to the task rows, which read the runtime's always-on task events
 (``util/tracing.record_exec``), the actor rows (the serve plane's
 tests read replicas' states from them) and the collective rows (the
-ring's round spans, dag/ring.py); the node, pipeline, goodput, trace,
-device, health, job and placement-group views come with the CLI that
-renders them (ROADMAP Queue 1 item 17).
+ring's round spans, dag/ring.py) and the pipeline summary (the stage
+loops' step spans, dag/runtime.py pipe_exec_loop); the node, goodput,
+trace, device, health, job and placement-group views come with the CLI
+that renders them (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -134,6 +135,39 @@ def summarize_collectives(rows: List[dict]) -> List[dict]:
         out.append(a)
     out.sort(key=lambda x: -x["rounds"])
     return out
+
+
+def pipeline_from_events(events, limit: int = 50) -> List[dict]:
+    """Timeline "pipeline" STEP spans -> per (group, stage, chain)
+    summary rows, newest first. The ONE place the pipeline step-span
+    shape is interpreted: steps seen, mean step wall time, mean
+    measured bubble, and the resulting bubble fraction — the number to
+    hold against the analytic (S-1)/(M+S-1) bound (per-microbatch op
+    spans are a chrome-trace concern and are skipped here)."""
+    acc: dict = {}
+    for e in events:
+        if e.get("cat") != "pipeline" or e.get("name") != "step":
+            continue
+        key = (e.get("group"), e.get("stage"), e.get("chain", 0))
+        row = acc.setdefault(key, {
+            "group": key[0], "stage": key[1], "chain": key[2],
+            "steps": 0, "step_s_sum": 0.0, "bubble_s_sum": 0.0,
+            "last_ts": 0.0})
+        row["steps"] += 1
+        row["step_s_sum"] += float(e.get("dur", 0.0))
+        row["bubble_s_sum"] += float(e.get("bubble_s", 0.0))
+        row["last_ts"] = max(row["last_ts"], e.get("ts", 0.0))
+    rows = []
+    for row in acc.values():
+        n = max(1, row["steps"])
+        step_s = row.pop("step_s_sum") / n
+        bubble_s = row.pop("bubble_s_sum") / n
+        rows.append({**row, "mean_step_s": step_s,
+                     "mean_bubble_s": bubble_s,
+                     "bubble_fraction": (bubble_s / step_s)
+                     if step_s > 0 else 0.0})
+    rows.sort(key=lambda x: (-(x["last_ts"] or 0), x["stage"] or 0))
+    return rows[:limit]
 
 
 def list_collectives(limit: int = 50) -> List[dict]:

@@ -5,11 +5,14 @@ tests, and a bf16 train state through it.
 ``tests/test_zz_ckptio.py`` runs here unedited (``_torch_ported.py``,
 ``ray_tpu`` rewritten to ``ray_tpu_torch``, no other rename); its
 optimizer states are optax's, which the port's checkpoint plane takes
-as any numpy pytree. Left out, each for the ROADMAP.md Queue 1 item it
-waits for:
+as any numpy pytree. Left out of the adoption and rewritten below
+under their own names with torch stage functions (the reference's stage
+computes in ``jnp`` and steps ``optax.adam``; here ``torch`` and the
+port's ``ShardAdamW`` without decay, warmup or a reachable clip, on the
+CPU):
 
 - test_pipeline_stage_snapshot_restore_roundtrip,
-  test_pipeline_stage_snapshot_seg_only: item 13c (pipeline stages).
+  test_pipeline_stage_snapshot_seg_only.
 """
 
 import os
@@ -26,9 +29,9 @@ from ray_tpu_torch.train import ckptio
 
 SKIP = {
     "test_pipeline_stage_snapshot_restore_roundtrip":
-        "Queue 1 item 13c: pipeline stages",
+        "rewritten below with torch stage functions",
     "test_pipeline_stage_snapshot_seg_only":
-        "Queue 1 item 13c: pipeline stages",
+        "rewritten below with torch stage functions",
 }
 
 adopt(ported("test_zz_ckptio"), globals(), skip=SKIP)
@@ -135,3 +138,89 @@ def test_sharded_optimizer_waits_for_item_13(tmp_path):
     again, _ = opt.update(grads, got_s, back)
     for k in params:
         assert torch.equal(live[k], again[k])
+
+
+# -- pipeline stage checkpointing, on torch stages ---------------------------
+
+
+def _stage_fn(params, x):
+    return torch.sum(params["w"] * x)
+
+
+def _stage_adam(lr):
+    from ray_tpu_torch.parallel import ShardAdamW
+    return ShardAdamW(mesh.AdamW(learning_rate=lr, weight_decay=0.0,
+                                 warmup_steps=0, total_steps=1000,
+                                 grad_clip=1e30), device="cpu")
+
+
+def test_pipeline_stage_snapshot_restore_roundtrip():
+    """A stage actor's snapshot/restore round-trips params AND ZeRO
+    optimizer state: a fresh stage restored from the blob produces a
+    bitwise-identical next step."""
+    from ray_tpu_torch.train.pipeline import PipelineStageActor
+
+    def make():
+        return PipelineStageActor(
+            _stage_fn, {"w": np.linspace(0.5, 1.5, 8).astype(np.float32)},
+            optimizer=_stage_adam(0.05), is_last=True, zero="local",
+            device="cpu")
+
+    def one_step(stage, x):
+        stage.pipe_forward(0, x)
+        stage.pipe_backward(0, None)
+        return stage.pipe_step()
+
+    x = np.arange(8, dtype=np.float32)
+    a = make()
+    one_step(a, x)
+    one_step(a, x * 0.5)
+    blob = a.pipe_snapshot()
+    assert blob["step_count"] == 2
+    assert "opt" in blob and blob["opt"]["bounds"] == (0, 8)
+    b = make()
+    b.pipe_restore(blob)
+    np.testing.assert_array_equal(b.params["w"].numpy(),
+                                  a.params["w"].numpy())
+    assert b.step_count == 2
+    ra = one_step(a, x * 2.0)
+    rb = one_step(b, x * 2.0)
+    assert ra["loss"] == rb["loss"]
+    np.testing.assert_array_equal(a.params["w"].numpy(),
+                                  b.params["w"].numpy())
+
+
+def test_pipeline_stage_snapshot_seg_only():
+    """``full_params=False`` (replicas j>0 of a driver-side save)
+    ships only the owned param segment + bounds — and the segment
+    matches the full snapshot's same slice exactly."""
+    from ray_tpu_torch.train.pipeline import PipelineStageActor
+
+    a = PipelineStageActor(
+        _stage_fn, {"w": np.linspace(-1.0, 1.0, 10).astype(np.float32)},
+        optimizer=_stage_adam(0.05), is_last=True, zero="local",
+        device="cpu")
+    a.pipe_forward(0, np.arange(10, dtype=np.float32))
+    a.pipe_backward(0, None)
+    a.pipe_step()
+    full = a.pipe_snapshot()
+    seg = a.pipe_snapshot(rank=0, world=1, full_params=False)
+    assert "params_flat" not in seg
+    lo, hi = seg["bounds"]
+    np.testing.assert_array_equal(
+        np.asarray(seg["param_seg"]),
+        np.asarray(full["params_flat"])[lo:hi])
+    # optimizer shard rides along identically
+    assert seg["opt"]["bounds"] == full["opt"]["bounds"]
+    for x, y in zip(seg["opt"]["elem"], full["opt"]["elem"]):
+        np.testing.assert_array_equal(x, y)
+
+    # no optimizer state yet: bounds fall back to shard_bounds
+    b = PipelineStageActor(
+        _stage_fn, {"w": np.zeros(10, np.float32)},
+        optimizer=_stage_adam(0.05), is_last=True, zero="local",
+        device="cpu")
+    sb = b.pipe_snapshot(rank=1, world=2, full_params=False)
+    from ray_tpu_torch.train.reshard import shard_bounds
+    assert tuple(sb["bounds"]) == shard_bounds(10, 2, 1)
+    assert sb["param_seg"].size == sb["bounds"][1] - sb["bounds"][0]

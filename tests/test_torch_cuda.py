@@ -1547,3 +1547,105 @@ def test_elastic_zero_workers_on_one_card_match_one_process(dev):
                                [w[0] for w in want], rtol=2e-3)
     np.testing.assert_allclose([r["grad_norm"] for r in rows],
                                [w[1] for w in want], rtol=2e-2)
+
+
+def _pipeline_run(stages, mbs, steps, actors=None, device=None):
+    """``steps`` pipeline steps over ``Pipeline`` (``actors``: two stage
+    actors on the runtime; ``device``: the transport) or, with no
+    actors, the stage loops on threads over ``wire_local`` on the CPU.
+    Returns the losses and both stages' parameters on the CPU."""
+    import threading
+
+    import ray_tpu_torch
+    from _torch_pipeline_stages import SGD
+    from ray_tpu_torch.dag.channel import DATA, STOP
+    from ray_tpu_torch.dag.runtime import pipe_exec_loop
+    from ray_tpu_torch.runtime.serialization import loads_oob, serialize
+    from ray_tpu_torch.train import pipeline as pl
+    if actors is not None:
+        pipe = pl.Pipeline(actors, num_microbatches=len(mbs),
+                           device=device, slot_bytes=1 << 20,
+                           timeout_s=120.0)
+        try:
+            losses = [pipe.step(mbs).loss for _ in range(steps)]
+            params = ray_tpu_torch.get(
+                [a.get_params.remote() for a in actors], timeout=120)
+        finally:
+            pipe.teardown()
+        return losses, [{k: v.cpu() for k, v in p.items()}
+                        for p in params]
+    specs, ins, res, chans = pl.wire_local(2, len(mbs))
+    cpu = [pl.PipelineStageActor(f, p, optimizer=SGD(0.5),
+                                 is_last=k == 1, device="cpu")
+           for k, (f, p) in enumerate(stages)]
+    ts = [threading.Thread(target=pipe_exec_loop, args=(a, sp[0]))
+          for a, sp in zip(cpu, specs)]
+    for t in ts:
+        t.start()
+    losses = []
+    try:
+        for _ in range(steps):
+            for mb in mbs:
+                ins[0].write(serialize(mb), DATA, timeout=30)
+            reps = [loads_oob(r[0].read_bytes(120)[1]) for r in res]
+            losses.append(reps[1]["result"]["loss"])
+    finally:
+        ins[0].write(b"", STOP, timeout=30)
+        for r in res:
+            r[0].read_bytes(60)
+        for t in ts:
+            t.join(60)
+        for c in chans:
+            c.close()
+            c.unlink()
+    return losses, [a.params for a in cpu]
+
+
+def test_tiny_pipeline_on_card_matches_cpu(dev):
+    """A tiny two-stage Llama (f32, 2 + 2 layers, head_dim 64, s 128, 4
+    microbatches) through ``Pipeline`` over two stage actors on the
+    card, over the device transport and over the host transport, against
+    the same steps on the CPU: losses within 1e-4 relative and every
+    parameter within 1e-4 after 2 steps (f32 on both sides, TF32 off:
+    the card's kernels sum in other orders)."""
+    import functools
+    import sys
+
+    import cloudpickle
+
+    import ray_tpu_torch
+    from _torch_pipeline_stages import SGD, llama_stage_fn, \
+        llama_stage_params
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import pipeline as pl
+    cloudpickle.register_pickle_by_value(sys.modules[__name__])
+    cfg = llama.tiny(dtype="float32", n_layers=4, vocab_size=256, dim=256,
+                     ffn_dim=512)       # head_dim 64: the kernels' least
+    model = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    stages = [(functools.partial(llama_stage_fn, cfg, 2, k == 0, k == 1),
+               llama_stage_params(model, 2 * k, 2 * k + 2, k == 0, k == 1))
+              for k in range(2)]
+    rng = np.random.default_rng(4)
+    toks = [torch.from_numpy(rng.integers(0, 256, (1, 129)))
+            for _ in range(4)]
+    mbs = [(t[:, :-1], t[:, 1:]) for t in toks]
+    want, want_p = _pipeline_run(stages, mbs, 2)
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        Stage = ray_tpu_torch.remote(max_concurrency=2)(
+            pl.PipelineStageActor)
+        for transport in (True, False):
+            actors = [Stage.remote(f, p, optimizer=SGD(0.5),
+                                   is_last=k == 1, device="cuda")
+                      for k, (f, p) in enumerate(stages)]
+            got, got_p = _pipeline_run(stages, mbs, 2, actors, transport)
+            np.testing.assert_allclose(got, want, rtol=1e-4)
+            for a, b in zip(got_p, want_p):
+                assert a.keys() == b.keys()
+                for k in a:
+                    torch.testing.assert_close(a[k], b[k], rtol=1e-4,
+                                               atol=1e-4)
+            for a in actors:
+                ray_tpu_torch.kill(a)
+    finally:
+        ray_tpu_torch.shutdown()

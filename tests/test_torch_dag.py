@@ -380,21 +380,6 @@ def test_star_resolutions_follow_the_reference():
         assert _resolve_impl(dict(g)) == "star"
 
 
-def test_pipe_exec_loop_raises_naming_item_13(cluster):
-    from ray_tpu_torch.api import ActorMethod
-
-    @ray_tpu_torch.remote
-    class S:
-        def f(self):
-            return 1
-
-    s = S.remote()
-    with pytest.raises(Exception, match="item 13"):
-        ray_tpu_torch.get(ActorMethod(s, "__pipe_exec_loop__").remote({}),
-                          timeout=60)
-    assert ray_tpu_torch.get(s.f.remote(), timeout=30) == 1
-
-
 def test_ship_and_resolve_device_tree():
     """The device transport helpers: tensor leaves park as TensorRefs
     (bytes counted), resolve back to the same tensors and free
@@ -494,3 +479,38 @@ def test_tensor_aliasing_matches_torch_pickle():
         got[0].add_(1.0)
         assert torch.equal(got[2], a[16:4096])
         assert torch.equal(got[3], a.view(64, 128))
+
+
+def test_lazy_shm_consumer_keeps_a_frame_published_during_its_create(
+        monkeypatch):
+    """A lazy edge's consumer creates the segment while its producer
+    polls for the name; the producer may attach and publish a frame
+    before the consumer's constructor returns. That frame must still be
+    the first one read: a reset of the sequence words after the create
+    would drop it, and a ring would then read a data chunk as a
+    header."""
+    import uuid
+    from multiprocessing import resource_tracker
+
+    from ray_tpu_torch.dag.channel import DATA, attach_channel
+    name = f"rtch-test-{uuid.uuid4().hex[:12]}"
+    spec = {"name": name, "nslots": 4, "slot_bytes": 1024, "lazy": True}
+    real = resource_tracker.register
+    sent = []
+
+    def register(shm_name, rtype):   # runs inside the consumer's create
+        real(shm_name, rtype)
+        if not sent and shm_name.lstrip("/") == name:
+            sent.append(True)
+            prod = attach_channel(spec, "producer", timeout=5.0)
+            prod.write(b"header frame")
+            prod.close()
+
+    monkeypatch.setattr(resource_tracker, "register", register)
+    cons = attach_channel(spec, "consumer", timeout=5.0)
+    try:
+        assert sent
+        assert cons.read_bytes(timeout=1.0) == (DATA, b"header frame")
+    finally:
+        cons.close()
+        cons.unlink()

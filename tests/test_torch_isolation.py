@@ -79,6 +79,7 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.train.ckptio",
                 "ray_tpu_torch.train.controller",
                 "ray_tpu_torch.train.mirror",
+                "ray_tpu_torch.train.pipeline",
                 "ray_tpu_torch.train.reshard",
                 "ray_tpu_torch.train.trainer", "ray_tpu_torch.train.worker",
                 "ray_tpu_torch.util.goodput", "ray_tpu_torch.util.storage"]
@@ -238,6 +239,62 @@ def test_elastic_reshape_leaves_jax_optax_and_ray_tpu_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_pipeline_step_leaves_jax_optax_and_ray_tpu_out():
+    """In a fresh process, two steps of a two-stage pipeline (the stage
+    loops on threads over ``wire_local``'s shm channels, the device
+    transport, torch stages, the ZeRO code path over ``ShardAdamW``):
+    jax, ml_dtypes, optax and every ray_tpu module stay out of
+    ``sys.modules``."""
+    code = (
+        "import sys, threading, numpy as np, torch\n"
+        "from ray_tpu_torch.dag.channel import DATA, STOP\n"
+        "from ray_tpu_torch.dag.runtime import pipe_exec_loop\n"
+        "from ray_tpu_torch.parallel import ShardAdamW, default_optimizer\n"
+        "from ray_tpu_torch.runtime.serialization import loads_oob, "
+        "serialize\n"
+        "from ray_tpu_torch.train import pipeline as pl\n"
+        "specs, ins, res, chans = pl.wire_local(2, 2, device=True)\n"
+        "opt = ShardAdamW(default_optimizer(1e-2, warmup_steps=1,\n"
+        "                                   total_steps=10), device='cpu')\n"
+        "s0 = pl.PipelineStageActor(lambda p, x: torch.tanh(x @ p),\n"
+        "    torch.ones(4, 3), optimizer=opt, zero='local', device='cpu')\n"
+        "s1 = pl.PipelineStageActor(lambda p, h: (h @ p).square().mean(),\n"
+        "    torch.ones(3, 1), optimizer=opt, zero='local', device='cpu',\n"
+        "    is_last=True)\n"
+        "ts = [threading.Thread(target=pipe_exec_loop, args=(a, sp[0]))\n"
+        "      for a, sp in zip((s0, s1), specs)]\n"
+        "for t in ts: t.start()\n"
+        "for _ in range(2):\n"
+        "    for i in range(2):\n"
+        "        ins[0].write(serialize(torch.full((2, 4), i + 1.0)), DATA)\n"
+        "    kinds = [r[0].read_bytes(30)[0] for r in res]\n"
+        "    assert kinds == [DATA, DATA], kinds\n"
+        "ins[0].write(b'', STOP)\n"
+        "for r in res: assert r[0].read_bytes(30)[0] == STOP\n"
+        "for t in ts: t.join(30)\n"
+        "assert s1.step_count == 2 and s0.params.dtype == torch.float32\n"
+        "for c in chans:\n"
+        "    c.close(); c.unlink()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'optax', 'ray_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_pipeline_stage_defaults_to_cuda(monkeypatch):
+    """A ``PipelineStageActor`` without ``device=`` puts its parameters
+    on the card, so with no CUDA it raises instead of training on the
+    CPU."""
+    from ray_tpu_torch.train.pipeline import PipelineStageActor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PipelineStageActor(lambda p, x: x @ p, torch.ones(2, 2))
+    assert PipelineStageActor(lambda p, x: x @ p, torch.ones(2, 2),
+                              device="cpu").params.device.type == "cpu"
 
 
 def test_runtime_leaves_jax_and_ray_tpu_out():

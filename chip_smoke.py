@@ -100,7 +100,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      from the same weights, its first 3 losses and grad norms held to
      the single-device run's, step time, tok/s, peak memory and one
      traced step's busy time and idle share beside the single-device
-     step's;
+     step's; then the MoE family (``run_moe``) at Mixtral-8x7B's widths:
+     A, 4 layers on one device under "full" (b 1 x s 4096), step 1 with
+     K1-K3 held to the same step with plain attention, 2 warm-up and 3
+     timed steps with K1/K2/K3 exactly 8/4/4 a step, step time, tok/s,
+     MFU, executed TF/s, peak memory, the aux loss and each layer's
+     dropped share of top-k assignments, one step traced by kind (K1-K3,
+     expert bmms, dispatch/combine einsums, routing, other GEMMs,
+     optimizer); B, 2 layers over the expert mesh (fsdp 2, expert 2) of
+     four shards on the card, 3 steps (b 2 x s 4096) held to the same
+     layers on one device, K1/K2/K3 exactly 8/4/4 a step (the attention
+     once per row block, shared by the expert shards);
   9. the training path through the train library (``run_trainer``):
      init(), a TorchTrainer whose one worker trains Llama-3-8B's widths
      at 2 layers under "dots" for 6 steps on the card, saves through
@@ -1780,19 +1790,24 @@ def wait_exited(pids, timeout_s: float) -> None:
             time.sleep(0.2)
 
 
-def wait_card_back(free0: int, what: str, timeout_s: float = 120.0) -> None:
+def wait_card_back(free0: int, what: str, timeout_s: float = 120.0) -> int:
     """Wait until the card's free memory is back within 1 GiB of
     ``free0``, taken before ``what`` started its worker processes: a
     worker's memory leaves the card when its process has exited, which
-    shutdown() does not wait for, and the next phase's workers need
-    it."""
+    shutdown() waits for, so the first poll is expected to find it back
+    (a guard; the polls it took are printed and returned)."""
     deadline = time.monotonic() + timeout_s
+    polls = 1
     while torch.cuda.mem_get_info()[0] < free0 - (1 << 30):
         if time.monotonic() > deadline:
             raise SystemExit(
                 f"card memory not back after {what}: free "
                 f"{torch.cuda.mem_get_info()[0]} of {free0} before")
         time.sleep(0.5)
+        polls += 1
+    print(f"card memory back after {what}: {polls} poll(s) of "
+          f"mem_get_info after shutdown() returned (1: already free)")
+    return polls
 
 
 # Loaded at every interpreter start of run_serve's cluster (through
@@ -2967,6 +2982,377 @@ def run_mesh(fa, card: str, single: dict) -> dict:
                   "flash_attention_bwd_dq"))
               for n, r in runs.items()))
     return runs
+
+
+# The MoE phase (run_moe): the MoE family (models/moe.py) at Mixtral-8x7B's
+# published widths (dim 4096, 32/8 heads, 8 experts of ffn 14336, top 2,
+# capacity factor 1.25, vocab 32000) cut in depth: 32 layers are 47 B
+# parameters, 94 GB in bf16 alone. A: 4 layers (6.07 B parameters; with
+# their gradients and AdamW's two moments ~49 GB) on one device under
+# "full", b 1 x s 4096. B: 2 layers over the expert mesh (fsdp 2, expert
+# 2) of four shards on the one card, b 2 x s 4096, against the same two
+# layers on one device. Step 1 of A with K1-K3 against the same step with
+# the plain attention (check_train_parity's tolerances: kernels against
+# plain move the loss by ~1e-4, the grad norm by ~1e-3); B's first
+# MESH_PARITY_STEPS steps against one device's at the same tolerances
+# (the expert partials in bf16 are summed over the expert shards in
+# another order).
+MOE_LAYERS = 4
+MOE_MESH_LAYERS = 2
+MOE_MESH = dict(data=1, fsdp=2, tensor=1, context=1, expert=2)
+
+
+def moe_cfg(n_layers: int, attn_impl: str = "auto"):
+    from ray_tpu_torch.models import moe
+    return moe.mixtral_8x7b(n_layers=n_layers, dtype="bfloat16",
+                            remat_policy="full", logits_dtype="float32",
+                            attn_impl=attn_impl)
+
+
+def moe_optimizer():
+    from ray_tpu_torch.parallel import default_optimizer
+    return default_optimizer(learning_rate=3e-4, warmup_steps=2,
+                             total_steps=100)
+
+
+def moe_executed_flops(cfg, b: int, s: int) -> float:
+    """The FLOPs one "full"-remat step of ``cfg`` executes on b x s
+    tokens, by my count: each layer's forward runs twice (the step's and
+    the recompute's) and each matmul's backward is twice its forward; the
+    matmuls are the projections, the router, the dispatch and combine
+    einsums over all E x C capacity slots and the experts' three products
+    over those slots; causal attention's forward is 2 b h s^2 hd (two
+    products over half the pairs) and K2 + K3 3.5 times it; the lm_head
+    runs once forward and its backward."""
+    d, f, E = cfg.dim, cfg.ffn_dim, cfg.n_experts
+    h, kvh, hd, C = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.capacity(s)
+    proj = 2 * b * s * (2 * d * h * hd + 2 * d * kvh * hd)
+    route = 2 * b * s * d * E
+    disp = 2 * 2 * b * s * E * C * d
+    experts = 3 * 2 * b * E * C * d * f
+    attn = 2 * b * h * s * s * hd
+    layer = 4 * (proj + route + disp + experts) + 5.5 * attn
+    return cfg.n_layers * layer + 3 * 2 * b * s * d * cfg.vocab_size
+
+
+@torch.no_grad()
+def moe_drops(model, cfg, batch) -> tuple:
+    """A walk of ``model``'s layers on ``batch``'s tokens without grad:
+    per layer the share of the top-k assignments that the capacity
+    dropped, and the forward's aux loss (the sum over layers)."""
+    from ray_tpu_torch.models import llama, moe
+    toks = batch["tokens"]
+    b, s = toks.shape
+    x = model.embed(toks)
+    pos = torch.arange(s, dtype=torch.int32, device=toks.device)[None]
+    rc, rs = llama._rope_tables(pos.expand(b, s), cfg.head_dim,
+                                cfg.rope_theta)
+    drops, aux = [], 0.0
+    for lyr in model.layers:
+        x = llama._attn_block(lyr, x, rc, rs, cfg, cfg.attn_impl)
+        y = llama._rmsnorm(x, lyr.mlp_norm, cfg.norm_eps)
+        dispatch, _, a = moe._route(y, lyr.router, cfg)
+        drops.append(1.0 - dispatch.sum().item()
+                     / (b * s * cfg.experts_per_token))
+        aux += a.item()
+        del dispatch
+        x = x + moe._moe_block(y, lyr, cfg)[0]
+    return drops, aux
+
+
+RANGES = ("moe_routing", "optimizer")    # trace_moe's profiler ranges
+
+
+class _Ranged:
+    """A module function wrapped in a profiler range named ``label``
+    (the ranges of the traced MoE step's kinds)."""
+
+    def __init__(self, fn, label: str):
+        self.fn, self.label = fn, label
+
+    def __call__(self, *args, **kw):
+        from torch.profiler import record_function
+        with record_function(self.label):
+            return self.fn(*args, **kw)
+
+
+def _moe_kind(ev, e_local: int) -> str:
+    """The kind of the work of CPU op ``ev`` (which launched kernels):
+    the expert products are batched over the experts (``aten.bmm`` with
+    batch e_local), the dispatch and combine einsums over the rows;
+    other matmuls are GEMMs; under the ranges ``moe_routing`` and
+    ``optimizer`` (``_Ranged``) the routing's passes and the update."""
+    chain, p = [], ev
+    while p is not None:
+        chain.append(p.name)
+        p = p.cpu_parent
+    if "optimizer" in chain:
+        return "optimizer"
+    if ev.name in ("aten::bmm", "aten::baddbmm"):
+        shapes = ev.input_shapes or [[]]
+        batch = shapes[0][0] if shapes and shapes[0] else None
+        return "expert bmm" if batch == e_local else "dispatch/combine"
+    if ev.name in ("aten::mm", "aten::addmm", "aten::matmul",
+                   "aten::linear"):
+        return "other GEMM"
+    if "moe_routing" in chain:
+        return "routing"
+    return "other"
+
+
+def trace_moe(loop: TrainLoop, card: str, e_local: int) -> dict:
+    """One more step of ``loop`` under the profiler with shapes: device
+    busy and idle share, and ms by kind: K1-K3 (by kernel name), the
+    expert bmms, the dispatch and combine einsums, other GEMMs, the
+    routing's passes (its forward and recompute, under a range; their
+    backward counts as other), the optimizer's update (under a range)
+    and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        loop.step()
+    kinds, ops, busy = {}, {}, 0.0
+    for e in prof.events():
+        # the ranges' own spans on the device timeline are not kernels
+        if e.device_type == DeviceType.CUDA and e.name not in RANGES:
+            busy += e.time_range.elapsed_us() / 1e3
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        for kern in ev.kernels:
+            kind = _kernel_kind(kern.name)
+            if kind not in ("K1", "K2", "K3"):
+                kind = _moe_kind(ev, e_local)
+            kinds[kind] = kinds.get(kind, 0.0) + kern.duration / 1e3
+            at = (kind, ev.name, str(ev.input_shapes)[:60])
+            t, c = ops.get(at, (0.0, 0))
+            ops[at] = (t + kern.duration / 1e3, c + 1)
+    wall_ms = loop.walls[-1] * 1e3
+    idle = f"{1 - busy / wall_ms:.3f}" if busy else "not measured"
+    linked = sum(kinds.values())
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"moe step traced [A] [{card}]: host wall {wall_ms:.1f} ms, "
+          f"device busy {busy:.1f} ms, device idle share {idle}; by kind "
+          f"(ms; {linked:.1f} ms of kernels linked to their ops): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1]))
+          + "; top ops (kind, op, input shapes: ms, kernels): "
+          + "; ".join(f"{k[0]}, {k[1]}, {k[2]}: {v[0]:.1f} x{v[1]}"
+                      for k, v in top))
+    return {"kinds_ms": kinds, "busy_ms": busy, "wall_ms": wall_ms,
+            "idle": idle}
+
+
+class _RangedAdamW:
+    """The step's optimizer with its update under the ``optimizer``
+    profiler range (``trace_moe``)."""
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, *args):
+        from torch.profiler import record_function
+        with record_function("optimizer"):
+            return self.opt.update(*args)
+
+
+def moe_single(fa, card: str) -> dict:
+    """A: make_train_step(cfg, model=moe) at MOE_LAYERS layers on the
+    card from seed 0, b 1 x s 4096 (train_batch): first step 1's loss
+    and grad norm with attn_impl="reference" on the same weights and
+    batch (the gradients then cleared), then 2 warm-up and 3 timed steps
+    with K1 (all with lse) 2L, K2 and K3 L a step; the drop shares and
+    aux loss of a no_grad walk; one step traced by kind."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import make_train_step
+    from ray_tpu_torch.parallel.mesh import global_norm
+
+    cfg = moe_cfg(MOE_LAYERS)
+    b, s, steps = 1, 4096, 3
+    init_fn, step_fn = make_train_step(cfg, model=moe,
+                                       optimizer=_RangedAdamW(moe_optimizer()))
+    t0 = time.monotonic()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"moe [A] [{card}]: mixtral_8x7b widths, {cfg.n_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f}B params "
+          f"({cfg.num_active_params() / 1e9:.3f}B active), bf16 (router "
+          f"f32), capacity {cfg.capacity(s)} per expert, random weights "
+          f"(seed 0) and AdamW state in {time.monotonic() - t0:.1f} s")
+    batch = train_batch(cfg, b, s)
+    drops0, aux0 = moe_drops(state.params, cfg, batch)
+    print(f"moe [A] [{card}] at the drawn weights: aux loss {aux0:.5f} "
+          f"(k = {cfg.experts_per_token} per layer at uniform load), "
+          f"dropped share of top-k assignments per layer "
+          f"{['%.4f' % d for d in drops0]}")
+    params = list(state.params.parameters())
+    reset_train_counts(fa)
+    loss = moe.loss_fn(state.params, batch, moe_cfg(MOE_LAYERS,
+                                                    "reference"))
+    loss.backward()
+    plain = (loss.item(), global_norm([p.grad for p in params]).item())
+    if any(train_counts(fa).values()):
+        raise SystemExit("the plain-attention step launched a kernel")
+    for p in params:
+        p.grad = None
+    del loss, params
+    loop = TrainLoop(state, step_fn, batch)
+    del state
+    for _ in range(2):
+        loop.step()
+    dl = abs(loop.losses[0] - plain[0]) / abs(plain[0])
+    dn = abs(loop.norms[0] - plain[1]) / plain[1]
+    ok = dl <= TRAIN_LOSS_REL_TOL and dn <= TRAIN_GNORM_REL_TOL
+    print(f"moe step 1 [A] kernels vs plain attention [{card}]: loss "
+          f"{loop.losses[0]!r} vs {plain[0]!r} (rel {dl:.2e}, tol "
+          f"{TRAIN_LOSS_REL_TOL}), grad norm {loop.norms[0]!r} vs "
+          f"{plain[1]!r} (rel {dn:.2e}, tol {TRAIN_GNORM_REL_TOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the MoE step with the kernels disagrees with "
+                         "plain attention")
+    reset_train_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        loop.step()
+    launches = train_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = cfg.n_layers * steps
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_fwd_lse": 2 * n,
+            "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+    per_step = "/".join(str(launches[k] // steps) for k in (
+        "flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq"))
+    losses, norms = loop.losses, loop.norms
+    print(f"moe [A] [{card}] losses {['%.5f' % x for x in losses]}, grad "
+          f"norms {['%.4f' % x for x in norms]}; launches over the {steps} "
+          f"timed steps {launches}, K1 (with lse)/K2/K3 per step "
+          f"{per_step} (want {2 * cfg.n_layers}/{cfg.n_layers}/"
+          f"{cfg.n_layers})")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise SystemExit("a MoE loss or grad norm is not finite")
+    if not losses[-1] < losses[1]:
+        raise SystemExit(f"the MoE loss did not fall: {losses}")
+    if launches != want:
+        raise SystemExit(f"MoE launch counts {launches}, expected {want}")
+    step_s = float(np.median(loop.walls[2:]))
+    tok_s = b * s / step_s
+    mfu = tok_s * cfg.flops_per_token(s) / PEAK_BF16_FLOPS
+    executed = moe_executed_flops(cfg, b, s)
+    drops, aux = moe_drops(loop.state.params, cfg, batch)
+    print(f"moe step [A] [{card}]: host wall median {step_s * 1e3:.1f} ms "
+          f"(steps {', '.join('%.1f' % (w * 1e3) for w in loop.walls[2:])}"
+          f" ms), {tok_s:.1f} tok/s, MFU {mfu:.4f} (flops_per_token(4096) "
+          f"{cfg.flops_per_token(s):.4e}, active parameters only, / 989 "
+          f"TF/s), executed {executed / 1e12:.1f} TF a step = "
+          f"{executed / step_s / 1e12:.1f} TF/s (moe_executed_flops), peak "
+          f"memory {peak_gb:.2f} GB; after the last step: aux loss "
+          f"{aux:.5f}, dropped share of top-k "
+          f"assignments per layer {['%.4f' % d for d in drops]}")
+    moe._routing = _Ranged(moe._routing, "moe_routing")
+    try:
+        traced = trace_moe(loop, card, cfg.n_experts)
+    finally:
+        moe._routing = moe._routing.fn
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_s * 1e3, "tok_s": tok_s,
+            "mfu": mfu, "tflops_s": executed / step_s / 1e12,
+            "peak_gb": peak_gb, "drops": drops, "aux": aux,
+            "drops0": drops0, "aux0": aux0,
+            "plain_rel": (dl, dn), **traced}
+
+
+def moe_mesh_run(fa, card: str, devices) -> dict:
+    """MOE_MESH_LAYERS layers from seed 0 on b 2 x s 4096, 3 steps: on
+    one device (``devices`` None) or over MOE_MESH on ``devices``; the
+    losses, grad norms, step walls, K1 (with lse)/K2/K3 per step and the
+    peak memory of the fullest card."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh, make_train_step
+
+    cfg = moe_cfg(MOE_MESH_LAYERS)
+    mesh = None if devices is None else make_mesh(MeshSpec(**MOE_MESH),
+                                                  devices=devices)
+    init_fn, step_fn = make_train_step(cfg, mesh, model=moe,
+                                       optimizer=moe_optimizer())
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    loop = TrainLoop(state, step_fn, train_batch(cfg, 2, 4096))
+    del state
+    sync_cards()
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(d)
+    per = []
+    for _ in range(MESH_PARITY_STEPS):
+        reset_train_counts(fa)
+        loop.step()
+        c = train_counts(fa)
+        per.append((c["flash_attention_fwd_lse"],
+                    c["flash_attention_bwd_dkv"],
+                    c["flash_attention_bwd_dq"]))
+    peak_gb = max(torch.cuda.max_memory_allocated(d)
+                  for d in range(torch.cuda.device_count())) / 1e9
+    out = {"losses": loop.losses, "norms": loop.norms, "per_step": per,
+           "launches": [sum(x[i] for x in per) for i in range(3)],
+           "step_ms": float(np.median(loop.walls[1:])) * 1e3,
+           "peak_gb": peak_gb}
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe(fa, card: str) -> dict:
+    """A on one device (``moe_single``); then B: the 2-layer single-device
+    run first (freed), then the expert mesh on ``("cuda:0",) * 4`` and,
+    where four cards are visible, with each shard on its own card ("B4"):
+    its first MESH_PARITY_STEPS losses and grad norms held to the single
+    device's, and K1 (with lse)/K2/K3 exactly 2 row blocks x (2L, L, L)
+    a step: the attention runs once per row block (fsdp 2), shared by
+    the expert shards."""
+    t0 = time.monotonic()
+    single = moe_single(fa, card)
+    one = moe_mesh_run(fa, card, None)
+    L = MOE_MESH_LAYERS
+    want = [(2 * 2 * L, 2 * L, 2 * L)] * MESH_PARITY_STEPS
+    runs = {"B": ("cuda:0",) * 4}
+    if torch.cuda.device_count() >= 4:
+        runs["B4"] = tuple(f"cuda:{i}" for i in range(4))
+    meshes = {}
+    for name, devices in runs.items():
+        r = moe_mesh_run(fa, card, devices)
+        k = MESH_PARITY_STEPS
+        loss_rel = max(abs(a - w) / abs(w) for a, w in
+                       zip(r["losses"][:k], one["losses"][:k]))
+        norm_rel = max(abs(a - w) / abs(w) for a, w in
+                       zip(r["norms"][:k], one["norms"][:k]))
+        ok = (all(np.isfinite(r["losses"])) and loss_rel <= TRAIN_LOSS_REL_TOL
+              and norm_rel <= TRAIN_GNORM_REL_TOL and r["per_step"] == want)
+        print(f"moe mesh {name} {MOE_MESH} [{card}] on {list(devices)}: "
+              f"losses {['%.5f' % x for x in r['losses']]} (one device "
+              f"{['%.5f' % x for x in one['losses']]}), grad norms "
+              f"{['%.4f' % x for x in r['norms']]} (one device "
+              f"{['%.4f' % x for x in one['norms']]}); worst rel loss "
+              f"{loss_rel:.2e} (tol {TRAIN_LOSS_REL_TOL}), grad norm "
+              f"{norm_rel:.2e} (tol {TRAIN_GNORM_REL_TOL}); K1 (with "
+              f"lse)/K2/K3 per step {r['per_step']} (want {want[0]}; one "
+              f"device {one['per_step'][0]}); step median "
+              f"{r['step_ms']:.1f} ms (one device {one['step_ms']:.1f}), "
+              f"peak {r['peak_gb']:.2f} GB (one device "
+              f"{one['peak_gb']:.2f}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"MoE mesh {name} disagrees with one device "
+                             "or its launch counts")
+        meshes[name] = r
+    print(f"moe phase [{card}]: {time.monotonic() - t0:.1f} s")
+    return {"single": single, "one": one, "meshes": meshes}
 
 
 # The trainer phase: Llama-3-8B's widths at 2 layers under "dots" through
@@ -4541,6 +4927,11 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     kind = torch.cuda.get_device_name(0)
+    t_run = time.monotonic()
+
+    def took(name: str) -> None:
+        print(f"script clock [{card}]: {name} done at "
+              f"{time.monotonic() - t_run:.1f} s")
 
     t0 = time.monotonic()
     reports = _build.build_all()
@@ -4555,12 +4946,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     sass = check_sass(_build)
+    took("build")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_flash(fa, gen)
     k4 = check_paged(pa, gen)
+    took("check_flash, check_paged")
     launches, model, cfg, ref = run_engine(card)
+    took("run_engine")
     tp = run_tp(model, cfg, ref, fa, pa, gen, card)
+    took("run_tp")
     gc.collect()
     torch.cuda.empty_cache()
     mono = run_monolithic(model, cfg, ref, card)
@@ -4568,12 +4963,16 @@ def main() -> int:
     pd = run_pd(model, cfg, ref, card)
     hooks = run_hooks(model, cfg, card)
     breakdown(model, cfg, card, mono["step"], spec["step"])
+    took("run_monolithic, run_spec, run_pd, run_hooks, breakdown")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     rpd = run_runtime_pd(cfg, ref, pd["want_bytes"], card)
+    took("run_runtime_pd")
     served = run_serve(ref, pd["want_bytes"], rpd, card)
+    took("run_serve")
     dllm = run_data_llm(ref, card)
+    took("run_data_llm")
 
     serve_k1 = {"serve": launches["flash_attention_fwd"],
                 "serve_tp": tp["launches"]["flash_attention_fwd"],
@@ -4602,15 +5001,25 @@ def main() -> int:
     tk = check_train_kernels(fa, gen)
     tk_shard = check_train_kernels(fa, gen, 32 // TP, 8 // TP, " tp-shard")
     check_train_parity(fa, card)
+    took("check_train_kernels, check_train_parity")
     train = run_train(fa, card)
+    took("run_train")
     meshes = run_mesh(fa, card, train["dots"])
+    took("run_mesh")
     gc.collect()
     torch.cuda.empty_cache()
+    moe_run = run_moe(fa, card)
+    took("run_moe")
     trainer = run_trainer(card)
+    took("run_trainer")
     dp = run_dp(card)
+    took("run_dp")
     elastic = run_elastic(card, dp["want"])
+    took("run_elastic")
     pipe = run_pipeline(card)
+    took("run_pipeline")
     run_device_batches(card)
+    took("run_device_batches")
     train_k = {name: {f"train_{p}": train[p]["launches"][key]
                       for p in TRAIN_POLICIES}
                for name, key in (("K1", "flash_attention_fwd_lse"),
@@ -4621,6 +5030,10 @@ def main() -> int:
                                      ("K3", "flash_attention_bwd_dq"))):
         for m, r in meshes.items():
             train_k[name][f"train_mesh_{m}"] = r["launches"][key]
+        train_k[name]["train_moe"] = moe_run["single"]["launches"][key]
+        for m, r in moe_run["meshes"].items():
+            train_k[name]["train_moe_mesh" + ("" if m == "B" else
+                                              "_4cards")] = r["launches"][i]
         train_k[name]["train_trainer"] = trainer["launches"][i]
         for path, counts in dict(dp["launches"],
                                  **elastic["launches"]).items():

@@ -269,7 +269,10 @@ def shutdown() -> None:
     for svc in (_g.agent, _g.head):
         if svc is not None:
             try:
-                elt.run(svc.stop(), timeout=10)
+                # the agent's stop returns once its workers have exited
+                # (terminated, then killed after their grace: well
+                # inside this bound)
+                elt.run(svc.stop(), timeout=30)
             except Exception:
                 pass
     _g.agent = _g.head = None

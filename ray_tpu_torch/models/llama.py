@@ -133,7 +133,7 @@ class MeshAxes:
     fsdp: str = "fsdp"
     tensor: str = "tensor"
     context: str = "context"
-    expert: str = "expert"   # the MoE family's (ROADMAP Queue 1 item 14)
+    expert: str = "expert"   # the MoE family's experts (models/moe.py)
 
     @property
     def batch(self):
@@ -290,9 +290,12 @@ def _spec_of(specs: dict, name: str) -> tuple:
 
 
 class _BlockLayer(nn.Module):
-    """One layer's matrices at one (fsdp, tensor) block's shapes."""
+    """One layer's matrices at one (fsdp, tensor) block's shapes: the
+    attention's, and the dense MLP's unless ``dense`` is False (the MoE
+    family keeps its experts apart)."""
 
-    def __init__(self, cfg: LlamaConfig, fsdp: int, tp: int, **factory):
+    def __init__(self, cfg: LlamaConfig, fsdp: int, tp: int,
+                 dense: bool = True, **factory):
         super().__init__()
         d, hd = cfg.dim // fsdp, cfg.head_dim
         h, kvh, f = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.ffn_dim // tp
@@ -300,21 +303,23 @@ class _BlockLayer(nn.Module):
         self.wk = nn.Linear(d, kvh * hd, bias=False, **factory)
         self.wv = nn.Linear(d, kvh * hd, bias=False, **factory)
         self.wo = nn.Linear(h * hd, d, bias=False, **factory)
-        self.w_gate = nn.Linear(d, f, bias=False, **factory)
-        self.w_up = nn.Linear(d, f, bias=False, **factory)
-        self.w_down = nn.Linear(f, d, bias=False, **factory)
+        if dense:
+            self.w_gate = nn.Linear(d, f, bias=False, **factory)
+            self.w_up = nn.Linear(d, f, bias=False, **factory)
+            self.w_down = nn.Linear(f, d, bias=False, **factory)
 
 
 class _Block(nn.Module):
     """One (fsdp, tensor) block of a ``Llama``'s matrices, under the same
     parameter names."""
 
-    def __init__(self, cfg: LlamaConfig, fsdp: int, tp: int, **factory):
+    def __init__(self, cfg: LlamaConfig, fsdp: int, tp: int,
+                 dense: bool = True, **factory):
         super().__init__()
         d, v = cfg.dim // fsdp, cfg.vocab_size // tp
         self.embed = nn.Embedding(v, d, **factory)
         self.layers = nn.ModuleList(
-            _BlockLayer(cfg, fsdp, tp, **factory)
+            _BlockLayer(cfg, fsdp, tp, dense, **factory)
             for _ in range(cfg.n_layers))
         self.lm_head = nn.Linear(d, v, bias=False, **factory)
 
@@ -336,42 +341,31 @@ class _Norms(nn.Module):
         self.final_norm = nn.Parameter(torch.empty(cfg.dim, **factory))
 
 
-class MeshLlama(nn.Module):
-    """A ``Llama`` split over a ``DeviceMesh`` for training, per
-    ``param_shardings``: ``blocks[f * tp + t]`` holds block (f, t) of every
-    matrix, on the device of the first mesh shard with those fsdp and
-    tensor coordinates; ``norms`` holds the replicated norms once, on the
-    mesh's first device (a shard on another device reads them through
-    ``.to()``, whose backward brings the gradient home, so there are no
-    copies to keep equal and each norm is counted once)."""
+class MeshModule(nn.Module):
+    """What the train step and the checkpoint plane read of a model
+    family's module sharded over a mesh (``MeshLlama``; the MoE family's
+    ``MeshMoE``): ``mesh`` and ``axes``; each parameter's place in the
+    family's unsharded model (``layout``, ``entries``) and the whole
+    tensors (``logical``). A subclass gives ``specs()`` (its
+    ``param_shardings``), ``whole()`` (the unsharded model, on the meta
+    device) and ``coords(scope, k)`` (the mesh coordinates of block k of
+    a ``ModuleList`` named ``scope``); its ``norms`` scope holds whole
+    tensors."""
 
-    def __init__(self, cfg: LlamaConfig, mesh, axes: MeshAxes = MeshAxes(),
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.cfg, self.mesh, self.axes = cfg, mesh, axes
-        self.fsdp, self.tp = mesh.shape[axes.fsdp], mesh.shape[axes.tensor]
-        factory = dict(device="meta", dtype=dtype or cfg.torch_dtype)
-        blocks = []
-        for f in range(self.fsdp):
-            for t in range(self.tp):
-                home = mesh.devices[mesh.index({axes.fsdp: f,
-                                                axes.tensor: t})]
-                blocks.append(_Block(cfg, self.fsdp, self.tp, **factory)
-                              .to_empty(device=home))
-        self.blocks = nn.ModuleList(blocks)
-        self.norms = _Norms(cfg, **factory).to_empty(device=mesh.devices[0])
+    def specs(self) -> dict:
+        raise NotImplementedError
 
-    def block(self, f: int, t: int) -> _Block:
-        return self.blocks[f * self.tp + t]
+    def whole(self) -> nn.Module:
+        raise NotImplementedError
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.norms.final_norm.dtype
+    def coords(self, scope: str, k: int) -> dict:
+        raise NotImplementedError
 
     def layout(self) -> List[Tuple[str, tuple]]:
         """For each parameter, in ``parameters()`` order: the name it has
-        in a ``Llama`` and the index of its block in that tensor."""
-        specs = param_shardings(self.cfg, self.axes)
+        in the unsharded model and the index of its block in that
+        tensor."""
+        specs = self.specs()
         out = []
         for full, p in self.named_parameters():
             scope, rest = full.split(".", 1)
@@ -379,8 +373,7 @@ class MeshLlama(nn.Module):
                 out.append((rest, ()))
                 continue
             k, name = rest.split(".", 1)
-            at = {self.axes.fsdp: int(k) // self.tp,
-                  self.axes.tensor: int(k) % self.tp}
+            at = self.coords(scope, int(k))
             out.append((name, tuple(
                 slice(None) if a is None
                 else slice(at[a] * n, (at[a] + 1) * n)
@@ -388,20 +381,21 @@ class MeshLlama(nn.Module):
         return out
 
     def entries(self) -> List[Tuple[str, tuple, List[Tuple[int, tuple]]]]:
-        """Each logical tensor, in a ``Llama``'s ``named_parameters()``
-        order: (name, its whole shape, [(index into ``parameters()``,
-        the block's index in it)])."""
+        """Each logical tensor, in the unsharded model's
+        ``named_parameters()`` order: (name, its whole shape, [(index into
+        ``parameters()``, the block's index in it)])."""
         parts: dict = {}
         for k, (name, idx) in enumerate(self.layout()):
             parts.setdefault(name, []).append((k, idx))
         return [(n, tuple(p.shape), parts[n])
-                for n, p in Llama(self.cfg).named_parameters()]
+                for n, p in self.whole().named_parameters()]
 
     @torch.no_grad()
     def logical(self, values: Optional[list] = None) -> dict:
-        """{``Llama`` parameter name: the whole tensor} on the mesh's first
-        device, assembled from ``values`` (aligned with ``parameters()``;
-        default the parameters themselves, e.g. their grads or moments)."""
+        """{unsharded parameter name: the whole tensor} on the mesh's
+        first device, assembled from ``values`` (aligned with
+        ``parameters()``; default the parameters themselves, e.g. their
+        grads or moments)."""
         values = list(self.parameters()) if values is None else values
         dev = self.mesh.devices[0]
         out = {}
@@ -412,6 +406,48 @@ class MeshLlama(nn.Module):
                 full[idx] = values[k].detach().to(dev)
             out[name] = full
         return out
+
+
+class MeshLlama(MeshModule):
+    """A ``Llama`` split over a ``DeviceMesh`` for training, per
+    ``param_shardings``: ``blocks[f * tp + t]`` holds block (f, t) of every
+    matrix, on the device of the first mesh shard with those fsdp and
+    tensor coordinates; ``norms`` holds the replicated norms once, on the
+    mesh's first device (a shard on another device reads them through
+    ``.to()``, whose backward brings the gradient home, so there are no
+    copies to keep equal and each norm is counted once)."""
+
+    def __init__(self, cfg: LlamaConfig, mesh, axes: MeshAxes = MeshAxes(),
+                 dtype: Optional[torch.dtype] = None, dense: bool = True):
+        super().__init__()
+        self.cfg, self.mesh, self.axes = cfg, mesh, axes
+        self.fsdp, self.tp = mesh.shape[axes.fsdp], mesh.shape[axes.tensor]
+        factory = dict(device="meta", dtype=dtype or cfg.torch_dtype)
+        blocks = []
+        for f in range(self.fsdp):
+            for t in range(self.tp):
+                home = mesh.devices[mesh.index({axes.fsdp: f,
+                                                axes.tensor: t})]
+                blocks.append(_Block(cfg, self.fsdp, self.tp, dense,
+                                     **factory).to_empty(device=home))
+        self.blocks = nn.ModuleList(blocks)
+        self.norms = _Norms(cfg, **factory).to_empty(device=mesh.devices[0])
+
+    def block(self, f: int, t: int) -> _Block:
+        return self.blocks[f * self.tp + t]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.norms.final_norm.dtype
+
+    def specs(self) -> dict:
+        return param_shardings(self.cfg, self.axes)
+
+    def whole(self) -> nn.Module:
+        return Llama(self.cfg)
+
+    def coords(self, scope: str, k: int) -> dict:
+        return {self.axes.fsdp: k // self.tp, self.axes.tensor: k % self.tp}
 
 
 @torch.no_grad()
@@ -502,8 +538,10 @@ def _remat(cfg: LlamaConfig) -> Optional[dict]:
         create_selective_checkpoint_contexts, saved)}
 
 
-def _layer(lyr: LlamaLayer, x: torch.Tensor, rc: torch.Tensor,
-           rs: torch.Tensor, cfg: LlamaConfig, impl: str) -> torch.Tensor:
+def _attn_block(lyr: nn.Module, x: torch.Tensor, rc: torch.Tensor,
+                rs: torch.Tensor, cfg, impl: str) -> torch.Tensor:
+    """The residual stream after a layer's attention half (``lyr`` holds
+    ``attn_norm`` and ``wq/wk/wv/wo``; the MoE family's layers too)."""
     from ray_tpu_torch.ops.attention import attention
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -512,7 +550,12 @@ def _layer(lyr: LlamaLayer, x: torch.Tensor, rc: torch.Tensor,
     k = _rope(lyr.wk(y).view(b, s, kvh, hd), rc, rs)
     v = lyr.wv(y).view(b, s, kvh, hd)
     o = attention(q, k, v, causal=True, impl=impl).to(x.dtype)
-    x = x + lyr.wo(o.reshape(b, s, h * hd))
+    return x + lyr.wo(o.reshape(b, s, h * hd))
+
+
+def _layer(lyr: LlamaLayer, x: torch.Tensor, rc: torch.Tensor,
+           rs: torch.Tensor, cfg: LlamaConfig, impl: str) -> torch.Tensor:
+    x = _attn_block(lyr, x, rc, rs, cfg, impl)
     return x + lyr.mlp(x, cfg.norm_eps)
 
 
@@ -648,10 +691,10 @@ def loss_fn(model: Llama, batch: dict,
 
 
 def _sharded(model, mesh) -> bool:
-    """Whether a forward runs over a mesh: ``model`` is a ``MeshLlama``
-    (and ``mesh``, if given, is its mesh). A plain ``Llama`` with a mesh
-    of one device is the single-device forward."""
-    if isinstance(model, MeshLlama):
+    """Whether a forward runs over a mesh: ``model`` is a ``MeshModule``
+    (and ``mesh``, if given, is its mesh). A plain model with a mesh of
+    one device is the single-device forward."""
+    if isinstance(model, MeshModule):
         if mesh is not None and mesh is not model.mesh:
             raise ValueError("the model is sharded over another mesh")
         return True
@@ -718,18 +761,25 @@ def shard_batch(batch: dict, mesh, axes: MeshAxes = MeshAxes(),
 
 class _MeshPass:
     """The shards of one forward over ``model.mesh``. Shard j, at mesh
-    coordinates (d, f, t, c), computes batch rows block r = d * fsdp + f
-    and sequence block c on tensor slice t. The residual stream of (r, c)
-    is the same on every tensor shard, so it is kept, and its replicated
-    work (norms, adds) done, once per distinct device among them
-    (``key[j]`` = (r, c, device), ``lead``: the first shard of each key),
-    as ``llm.model._Shards`` does for serving."""
+    coordinates (d, f, t, c, e), computes batch rows block r = d * fsdp +
+    f and sequence block c on tensor slice t. The residual stream of (r, c)
+    is the same on every tensor and expert shard, so it is kept, and its
+    replicated work (norms, adds) done, once per distinct device among
+    them (``key[j]`` = (r, c, device), ``lead``: the first shard of each
+    key), as ``llm.model._Shards`` does for serving. The specs leave the
+    expert axis out of everything but the MoE family's experts (JAX's
+    ``P(batch, context, tensor)``): the embedding, attention and a dense
+    MLP are replicated over it, and run once per (r, c, tensor slice,
+    device) (``work[device]``: the first shard of each; ``twin[j]``: the
+    one whose result shard j takes), and the loss reads each row block
+    once (``vocab_groups``)."""
 
     def __init__(self, model: MeshLlama, cfg: LlamaConfig):
         self.model, self.cfg = model, cfg
         self.mesh, self.ax = model.mesh, model.axes
         self.fsdp, self.tp = model.fsdp, model.tp
         self.cp = self.mesh.shape[self.ax.context]
+        self.ep = self.mesh.shape.get(self.ax.expert, 1)
         self.devs = self.mesh.devices
         self.co = [self.mesh.coords(j) for j in range(self.mesh.size)]
         self.key = [(c[self.ax.data] * self.fsdp + c[self.ax.fsdp],
@@ -737,17 +787,31 @@ class _MeshPass:
                     for j, c in enumerate(self.co)]
         self.lead: dict = {}
         self.on: dict = {}               # device -> its shards, in order
+        self.work: dict = {}             # device -> its working shards
+        self.twin: List[int] = []
+        first: dict = {}
         for j, k in enumerate(self.key):
             self.lead.setdefault(k, j)
             self.on.setdefault(k[2], []).append(j)
+            w = first.setdefault((k, self.co[j][self.ax.tensor]), j)
+            self.twin.append(w)
+            if w == j:
+                self.work.setdefault(k[2], []).append(j)
         self.specs = param_shardings(cfg, self.ax)
 
     def split(self, batch: dict) -> dict:
         return shard_batch(batch, self.mesh, self.ax)
 
+    def full(self, parts: dict) -> list:
+        """Every shard's entry of ``parts`` (keyed by working shards): a
+        shard that did not work takes its twin's."""
+        return [parts[self.twin[j]] for j in range(self.mesh.size)]
+
     def vocab_groups(self) -> list:
-        """The tensor groups (shards of one (r, c), in tensor order)."""
-        return self.mesh.groups(self.ax.tensor)
+        """The tensor groups (shards of one (r, c), in tensor order) at
+        expert coordinate 0: each row block once."""
+        return [g for g in self.mesh.groups(self.ax.tensor)
+                if self.co[g[0]].get(self.ax.expert, 0) == 0]
 
     def weights(self, dev: torch.device, i: int, names) -> dict:
         """{(name, t): layer i's matrix ``name`` gathered over fsdp for
@@ -767,12 +831,19 @@ class _MeshPass:
         return out
 
     def lm_heads(self) -> list:
-        """Every shard's lm_head block gathered over fsdp, on its device."""
-        parts = [self.model.block(c[self.ax.fsdp], c[self.ax.tensor])
-                 .lm_head.weight for c in self.co]
-        return self.mesh.all_gather(
-            parts, self.ax.fsdp,
-            _spec_of(self.specs, "lm_head").index(self.ax.fsdp))
+        """Every shard's lm_head block gathered over fsdp, on its device
+        (one gather per tensor slice and device)."""
+        dim = _spec_of(self.specs, "lm_head").index(self.ax.fsdp)
+        done: dict = {}
+        for j, c in enumerate(self.co):
+            t, dev = c[self.ax.tensor], self.devs[j]
+            if (t, dev) not in done:
+                parts = [self.model.block(f, t).lm_head.weight.to(dev)
+                         for f in range(self.fsdp)]
+                done[t, dev] = (parts[0] if len(parts) == 1
+                                else torch.cat(parts, dim))
+        return [done[c[self.ax.tensor], self.devs[j]]
+                for j, c in enumerate(self.co)]
 
     def norm(self, xs: dict, w: torch.Tensor, dev=None) -> dict:
         """``w``'s RMS norm of each key's stream (only ``dev``'s keys,
@@ -782,9 +853,9 @@ class _MeshPass:
 
     def add(self, xs: dict, parts: dict) -> dict:
         """The residual stream plus the sum over tensor shards of a
-        row-parallel product ({shard: its partial})."""
-        red = self.mesh.all_reduce([parts[j] for j in range(len(self.co))],
-                                   self.ax.tensor)
+        row-parallel product ({working shard: its partial}, or every
+        shard's)."""
+        red = self.mesh.all_reduce(self.full(parts), self.ax.tensor)
         return {k: xs[k] + red[j] for k, j in self.lead.items()}
 
     def per_device(self, remat, fn, *args) -> dict:
@@ -807,9 +878,9 @@ class _MeshPass:
         concatenated; the sum over tensor shards is the embedding (one
         nonzero term per token, so exact)."""
         vt = self.cfg.vocab_size // self.tp
-        parts = []
-        for j, tok in enumerate(toks):
-            t, dev = self.co[j][self.ax.tensor], self.devs[j]
+        parts = {}
+        for j in sorted(set(self.twin)):
+            t, dev, tok = self.co[j][self.ax.tensor], self.devs[j], toks[j]
             idx = tok.long() - t * vt
             keep = (idx >= 0) & (idx < vt)
             idx = torch.where(keep, idx, torch.zeros_like(idx))
@@ -818,8 +889,8 @@ class _MeshPass:
                 w = self.model.block(f, t).embed.weight
                 rows.append(F.embedding(idx.to(w.device), w).to(dev))
             x = rows[0] if len(rows) == 1 else torch.cat(rows, -1)
-            parts.append(x * keep[..., None].to(x.dtype))
-        red = self.mesh.all_reduce(parts, self.ax.tensor)
+            parts[j] = x * keep[..., None].to(x.dtype)
+        red = self.mesh.all_reduce(self.full(parts), self.ax.tensor)
         return {k: red[j] for k, j in self.lead.items()}
 
     def ropes(self, toks: list) -> dict:
@@ -837,6 +908,10 @@ class _MeshPass:
             out[k] = tables[(c, dev)]
         return out
 
+    def layer(self, i: int, xs: dict, ropes: dict, remat) -> dict:
+        """Layer i of the family over every shard (a Llama's)."""
+        return _mesh_layer(self, i, xs, ropes, remat)
+
     def hidden(self, toks: list) -> dict:
         """The final normed hidden states, per key."""
         cfg = self.cfg
@@ -844,7 +919,7 @@ class _MeshPass:
         xs = self.embed(toks)
         ropes = self.ropes(toks)
         for i in range(cfg.n_layers):
-            xs = _mesh_layer(self, i, xs, ropes, remat)
+            xs = self.layer(i, xs, ropes, remat)
         return self.norm(xs, self.model.norms.final_norm)
 
     def assemble(self, blocks: dict) -> torch.Tensor:
@@ -858,17 +933,20 @@ class _MeshPass:
                           for r in range(n_rows)], 0)
 
 
-def _mesh_attend(ps: _MeshPass, q: list, k: list, v: list) -> list:
-    """Attention of every shard, dispatched as the JAX package's
-    ``_attend`` under a mesh: the ring over the context axis for 'ring',
-    and for 'auto' when the context axis is split; else each shard's
-    own causal attention ('auto'/'flash': the kernels on CUDA), or, with
-    the sequence split, 'reference' over the gathered keys and values."""
+def _mesh_attend(ps: _MeshPass, q: list, k: list, v: list) -> dict:
+    """{working shard: its attention output}, from every shard's q, k
+    and v, dispatched as the JAX package's ``_attend`` under a mesh: the
+    ring over the context axis for 'ring', and for 'auto' when the
+    context axis is split; else each shard's own causal attention
+    ('auto'/'flash': the kernels on CUDA), or, with the sequence split,
+    'reference' over the gathered keys and values."""
     from ray_tpu_torch.ops.attention import attention
     impl, cp = ps.cfg.attn_impl, ps.cp
+    work = [j for j in range(ps.mesh.size) if ps.twin[j] == j]
     if impl == "ring" or (impl == "auto" and cp > 1):
         from ray_tpu_torch.ops.ring_attention import ring_attention
-        return ring_attention(q, k, v, ps.mesh, ps.ax.context)
+        out = ring_attention(q, k, v, ps.mesh, ps.ax.context)
+        return {j: out[j] for j in work}
     if cp > 1:
         if impl != "reference":
             raise ValueError(
@@ -876,21 +954,22 @@ def _mesh_attend(ps: _MeshPass, q: list, k: list, v: list) -> list:
                 f"mesh (context axis size {cp}); use 'ring' or 'auto'")
         kg = ps.mesh.all_gather(k, ps.ax.context, 1)
         vg = ps.mesh.all_gather(v, ps.ax.context, 1)
-        return [attention(q[j], kg[j], vg[j], causal=True, impl=impl,
-                          q_offset=ps.co[j][ps.ax.context] * q[j].shape[1])
-                for j in range(len(q))]
-    return [attention(qj, kj, vj, causal=True, impl=impl)
-            for qj, kj, vj in zip(q, k, v)]
+        return {j: attention(q[j], kg[j], vg[j], causal=True, impl=impl,
+                             q_offset=ps.co[j][ps.ax.context] * q[j].shape[1])
+                for j in work}
+    return {j: attention(q[j], k[j], v[j], causal=True, impl=impl)
+            for j in work}
 
 
 def _qkv_region(ps: _MeshPass, dev: torch.device, i: int, xs: dict,
                 ropes: dict) -> dict:
-    """{shard on ``dev``: its (q, k, v)} of layer i, RoPE applied."""
+    """{working shard on ``dev``: its (q, k, v)} of layer i, RoPE
+    applied."""
     hd = ps.cfg.head_dim
     ys = ps.norm(xs, ps.model.norms.layers[i].attn_norm, dev)
     w = ps.weights(dev, i, ("wq", "wk", "wv"))
     out = {}
-    for j in ps.on[dev]:
+    for j in ps.work[dev]:
         key, t = ps.key[j], ps.co[j][ps.ax.tensor]
         y, (rc, rs) = ys[key], ropes[key]
         b, s, _ = y.shape
@@ -902,56 +981,64 @@ def _qkv_region(ps: _MeshPass, dev: torch.device, i: int, xs: dict,
 
 def _wo_region(ps: _MeshPass, dev: torch.device, i: int, outs: dict,
                dtype: torch.dtype) -> dict:
-    """{shard on ``dev``: wo's partial product of its attention output}."""
+    """{working shard on ``dev``: wo's partial product of its attention
+    output}."""
     w = ps.weights(dev, i, ("wo",))
     return {j: F.linear(outs[j].to(dtype).flatten(2),
                         w["wo", ps.co[j][ps.ax.tensor]])
-            for j in ps.on[dev]}
+            for j in ps.work[dev]}
 
 
 def _attn_region(ps: _MeshPass, dev: torch.device, i: int, xs: dict,
                  ropes: dict, dtype: torch.dtype) -> dict:
-    """The attention block of ``dev``'s shards when each shard attends
+    """The attention block of ``dev``'s working shards when each attends
     over its own q, k and v (K1-K3 on the card): q, k, v, attention and
     wo's partial product, in one region."""
-    qkv = _qkv_region(ps, dev, i, xs, ropes)
-    outs = dict(zip(qkv, _mesh_attend(ps, *zip(*qkv.values()))))
+    from ray_tpu_torch.ops.attention import attention
+    impl = ps.cfg.attn_impl
+    outs = {j: attention(q, k, v, causal=True, impl=impl)
+            for j, (q, k, v) in _qkv_region(ps, dev, i, xs, ropes).items()}
     return _wo_region(ps, dev, i, outs, dtype)
 
 
 def _mlp_region(ps: _MeshPass, dev: torch.device, i: int,
                 xs: dict) -> dict:
-    """{shard on ``dev``: w_down's partial product of its MLP}."""
+    """{working shard on ``dev``: w_down's partial product of its MLP}."""
     ys = ps.norm(xs, ps.model.norms.layers[i].mlp_norm, dev)
     w = ps.weights(dev, i, ("w_gate", "w_up", "w_down"))
     out = {}
-    for j in ps.on[dev]:
+    for j in ps.work[dev]:
         y, t = ys[ps.key[j]], ps.co[j][ps.ax.tensor]
         out[j] = F.linear(F.silu(F.linear(y, w["w_gate", t]))
                           * F.linear(y, w["w_up", t]), w["w_down", t])
     return out
 
 
-def _mesh_layer(ps: _MeshPass, i: int, xs: dict, ropes: dict,
-                remat) -> dict:
-    """Layer i over every shard. Each block's per-device work is a remat
-    region (``per_device``) holding that layer's fsdp gathers, so no
-    gathered weight outlives it; wo's and w_down's partials are summed
-    over the tensor shards between regions, before each residual add.
-    Attention that crosses shards (the ring, the gathered sequence) runs
-    between the q/k/v and wo regions; the ring checkpoints its own
-    steps."""
+def _mesh_attn(ps: _MeshPass, i: int, xs: dict, ropes: dict,
+               remat) -> dict:
+    """The residual stream after layer i's attention half, over every
+    shard. Each block's per-device work is a remat region
+    (``per_device``) holding that layer's fsdp gathers, so no gathered
+    weight outlives it; wo's partials are summed over the tensor shards
+    between regions, before the residual add. Attention that crosses
+    shards (the ring, the gathered sequence) runs between the q/k/v and
+    wo regions; the ring checkpoints its own steps."""
     dtype = next(iter(xs.values())).dtype
-    cp_ring = ps.cfg.attn_impl == "ring" or ps.cp > 1
-    if cp_ring:
-        qkv = ps.per_device(remat, _qkv_region, i, xs, ropes)
-        order = sorted(qkv)
-        outs = dict(zip(order, _mesh_attend(
-            ps, *([qkv[j][n] for j in order] for n in range(3)))))
+    if ps.cfg.attn_impl == "ring" or ps.cp > 1:
+        qkv = ps.full(ps.per_device(remat, _qkv_region, i, xs, ropes))
+        outs = _mesh_attend(ps, *([x[n] for x in qkv] for n in range(3)))
         parts = ps.per_device(remat, _wo_region, i, outs, dtype)
     else:
         parts = ps.per_device(remat, _attn_region, i, xs, ropes, dtype)
-    xs = ps.add(xs, parts)
+    return ps.add(xs, parts)
+
+
+def _mesh_layer(ps: _MeshPass, i: int, xs: dict, ropes: dict,
+                remat) -> dict:
+    """Layer i of a Llama over every shard: the attention half, then the
+    MLP's region, w_down's partials summed over the tensor shards before
+    the residual add."""
+    xs = _mesh_attn(ps, i, xs, ropes, remat)
     return ps.add(xs, ps.per_device(remat, _mlp_region, i, xs))
 
 
@@ -980,7 +1067,7 @@ def _mesh_loss(ps: _MeshPass, batch: dict, cfg: LlamaConfig) -> torch.Tensor:
     parts = ps.split(batch)
     toks = parts["tokens"]
     s = toks[0].shape[1] * ps.cp
-    chunk = cfg.ce_chunk
+    chunk = getattr(cfg, "ce_chunk", 0)     # the MoE family has none
     if chunk > 0 and s % chunk:
         raise ValueError(f"ce_chunk={chunk} must divide seq len {s}")
     fused = 0 < chunk < s

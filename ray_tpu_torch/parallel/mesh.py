@@ -14,10 +14,11 @@ the JAX tests' virtual devices, with the real per-shard shapes), and its
 collectives move each group's parts to the group's first device with
 ``.to()``, combine them there in shard order and move the result back
 (serving's ``parallel/tp.py`` ``TensorMesh`` is the one-axis case):
-deterministic, no ``torch.distributed``, no NCCL. The model (``models/llama.py``
-``MeshLlama``) holds one leaf parameter per (fsdp, tensor) block, and
-the step's autograd graph spans every shard, so the collectives'
-backward passes are autograd's own.
+deterministic, no ``torch.distributed``, no NCCL. The model (a family's
+``llama.MeshModule``: ``models/llama.py`` ``MeshLlama``, ``models/moe.py``
+``MeshMoE``) holds one leaf parameter per block, and the step's autograd
+graph spans every shard, so the collectives' backward passes are
+autograd's own.
 
 The step: loss, its gradients by autograd (attention's through the
 hand-written K1/K2/K3 kernels on the card, once per shard), the global
@@ -43,7 +44,7 @@ from torch import nn
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.llama import MeshAxes, MeshLlama
+from ray_tpu_torch.models.llama import MeshAxes, MeshModule
 
 
 def _device(d) -> torch.device:
@@ -213,17 +214,14 @@ def make_mesh(spec: MeshSpec = MeshSpec(),
     """A ``DeviceMesh`` over ``devices`` (default: every visible CUDA
     device; raises without one) with ``spec``'s axis sizes, in the JAX
     axis order (data, fsdp, tensor, context, expert). A device may repeat.
-    The expert axis waits for the MoE family (ROADMAP Queue 1 item 14)."""
+    The expert axis splits the MoE family's experts (``models/moe.py``);
+    the rest of that family, and a Llama, are replicated over it."""
     if devices is None:
         resolve_device(None)
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devices = list(devices)
     sizes = spec.resolve(len(devices))
-    if sizes[spec.axes.expert] > 1:
-        raise NotImplementedError(
-            "an expert axis > 1 belongs to the MoE family, not ported to "
-            "ray_tpu_torch yet (ROADMAP Queue 1 item 14)")
     grid = np.empty(len(devices), dtype=object)
     for i, d in enumerate(devices):
         grid[i] = d
@@ -446,8 +444,8 @@ def make_train_step(cfg, mesh: Optional[DeviceMesh] = None,
       trainable=True)``), with fresh optimizer state. ``device=None`` is
       the CUDA device, and raises when there is none. Over a ``mesh`` of
       several devices the model is drawn on the mesh's first device (or
-      taken as given: a ``Llama``, or a ``MeshLlama`` on this mesh) and
-      sharded with ``model.shard_params_for_training``.
+      taken as given: the family's whole model, or its ``MeshModule`` on
+      this mesh) and sharded with ``model.shard_params_for_training``.
     - ``step_fn(state, batch) -> (state, metrics)``: loss and gradients
       of ``loss_fn(model, batch)`` (default ``model.loss_fn`` with
       ``cfg``, and ``mesh`` and ``axes``), then one optimizer update, all
@@ -461,7 +459,8 @@ def make_train_step(cfg, mesh: Optional[DeviceMesh] = None,
     A one-device mesh is the single-device step on its device.
     ``model`` is a module exposing ``init_params`` and ``loss_fn`` (and
     ``shard_params_for_training`` over a mesh), as
-    ``ray_tpu_torch.models.llama`` does."""
+    ``ray_tpu_torch.models.llama`` (the default) and
+    ``ray_tpu_torch.models.moe`` do."""
     one = _single(mesh, device)
     sharded = mesh is not None and one is None
     opt = optimizer if optimizer is not None else default_optimizer()
@@ -482,7 +481,7 @@ def make_train_step(cfg, mesh: Optional[DeviceMesh] = None,
                 raise ValueError("init_fn needs a generator or params")
             params = model.init_params(generator, cfg, dev,
                                        trainable=not sharded)
-        elif isinstance(params, MeshLlama):
+        elif isinstance(params, MeshModule):
             if params.mesh is not mesh or not all(
                     p.requires_grad for p in params.parameters()):
                 raise ValueError("params must be trainable and sharded "
@@ -490,7 +489,7 @@ def make_train_step(cfg, mesh: Optional[DeviceMesh] = None,
         elif not sharded and any(p.device != dev or not p.requires_grad
                                  for p in params.parameters()):
             raise ValueError(f"params must be trainable and on {dev}")
-        if sharded and not isinstance(params, MeshLlama):
+        if sharded and not isinstance(params, MeshModule):
             params = model.shard_params_for_training(params, mesh, axes)
         return TrainState(params, opt.init(list(params.parameters())), 0)
 
@@ -516,7 +515,7 @@ def make_train_step(cfg, mesh: Optional[DeviceMesh] = None,
 def make_eval_step(cfg, mesh: Optional[DeviceMesh] = None,
                    axes: MeshAxes = MeshAxes(), *, model=llama):
     """``eval_fn(params, batch) -> loss`` without gradients (over a mesh
-    of several devices, ``params`` is the ``MeshLlama`` of a train state
+    of several devices, ``params`` is the ``MeshModule`` of a train state
     and ``batch`` as ``step_fn`` takes it)."""
     sharded = mesh is not None and _single(mesh, None) is None
 
@@ -544,10 +543,10 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def _entries(net: nn.Module) -> list:
     """Per logical tensor: (name, whole shape, [(index into
-    ``net.parameters()``, the part's index in the tensor)]). A ``Llama``'s
-    parameters are whole; a ``MeshLlama``'s blocks make up each tensor of
-    the ``Llama`` it was cut from, under its names."""
-    if isinstance(net, MeshLlama):
+    ``net.parameters()``, the part's index in the tensor)]). A whole
+    model's parameters are whole; a ``MeshModule``'s blocks make up each
+    tensor of the model it was cut from, under its names."""
+    if isinstance(net, MeshModule):
         return net.entries()
     return [(n, tuple(p.shape), [(k, ())])
             for k, (n, p) in enumerate(net.named_parameters())]

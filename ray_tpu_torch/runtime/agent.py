@@ -211,19 +211,19 @@ class NodeAgent:
         if getattr(self, "_metrics_held", False):
             self._metrics_held = False
             await _m.release_shared_server()
-        for w in list(self.workers.values()):
+        killed = [w for w in list(self.workers.values())
+                  if w.proc is not None]
+        for w in killed:
             await self._kill_worker(w)
-        caged = [w for w in self.workers.values()
-                 if w.cgroup is not None and w.proc is not None]
-        if caged:
-            # rmdir fails while the dying process is still a member;
-            # reap them first (the _reap_worker tasks may be cancelled
-            # when the loop closes right after this). One shared bound,
-            # not 5s per worker.
-            await asyncio.gather(
-                *[asyncio.wait_for(w.proc.wait(), 5) for w in caged],
-                return_exceptions=True)
-            for w in caged:
+        # Stop returns only once every worker process has exited (and a
+        # caged one's cgroup, whose rmdir fails while the dying process
+        # is still a member, is gone): the next owner of the node's
+        # devices and memory finds them free. The _reap_worker tasks may
+        # be cancelled when the loop closes right after this, so wait
+        # here, with one shared bound, not one per worker.
+        await self._wait_exited(killed)
+        for w in killed:
+            if w.cgroup is not None:
                 w.cgroup.remove()
         await self.server.stop()
         await self.pool.close()
@@ -644,6 +644,28 @@ class NodeAgent:
                            f"{w.proc.returncode}, state={was})")
             except Exception:
                 pass
+
+    async def _wait_exited(self, workers: List[WorkerHandle]) -> None:
+        """Wait for the terminated ``workers``' processes to exit, all
+        under one bound: the workers' own exit backstop after SIGTERM
+        (``preempt_grace_s`` + 3 s, ``worker.py``) and a second more;
+        then SIGKILL whatever is left and wait for it."""
+        procs = [w.proc for w in workers if w.proc.returncode is None]
+        if not procs:
+            return
+        bound = float(getattr(self.config, "preempt_grace_s", 0.0)
+                      or 0.0) + 4.0
+        await asyncio.wait([asyncio.ensure_future(p.wait()) for p in procs],
+                           timeout=bound)
+        left = [p for p in procs if p.returncode is None]
+        for p in left:
+            try:
+                p.kill()
+            except ProcessLookupError:
+                pass
+        if left:
+            await asyncio.wait([asyncio.ensure_future(p.wait())
+                                for p in left], timeout=5.0)
 
     async def _kill_worker(self, w: WorkerHandle):
         w.state = DEAD

@@ -1025,6 +1025,60 @@ def test_mesh_train_step_on_card_matches_single_device(dev):
         np.testing.assert_allclose(hist[:, 1], single[:, 1], rtol=2e-2)
 
 
+def _moe_card_run(dev, impl, kw=None, devices=("cuda:0",) * 4):
+    """3 steps of a 2-layer bf16 MoE (head_dim 128, 4 experts, top 2)
+    under "full" with ``attn_impl=impl`` from seed 0's weights on one
+    batch of 2 x 256 tokens, on one device or over the mesh ``kw``:
+    ((loss, grad norm) per step, (K1 with lse, K2, K3) launches per
+    step)."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import (MeshSpec, default_optimizer,
+                                        make_mesh, make_train_step)
+    cfg = moe.tiny(vocab_size=256, dim=256, n_layers=2, n_heads=2,
+                   n_kv_heads=1, ffn_dim=256, dtype="bfloat16",
+                   attn_impl=impl)
+    toks = np.random.default_rng(0).integers(0, 256, (2, 257))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    mesh = None if kw is None else make_mesh(MeshSpec(**kw), devices=devices)
+    init_fn, step_fn = make_train_step(
+        cfg, mesh, device=dev if mesh is None else None, model=moe,
+        optimizer=default_optimizer(1e-3, warmup_steps=1, total_steps=10))
+    state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    hist, launches = [], []
+    for _ in range(3):
+        before = (fa.flash_attention_fwd.lse_launches,
+                  fa.flash_attention_bwd_dkv.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        state, m = step_fn(state, batch)
+        hist.append((m["loss"].item(), m["grad_norm"].item()))
+        launches.append((fa.flash_attention_fwd.lse_launches - before[0],
+                         fa.flash_attention_bwd_dkv.launches - before[1],
+                         fa.flash_attention_bwd_dq.launches - before[2]))
+    return np.array(hist), launches
+
+
+def test_moe_train_step_on_card_matches_plain_attention(dev):
+    """The MoE family's step with K1-K3 on the card (2L/L/L a step under
+    "full") against the same step with the plain attention, from the
+    same weights on the same batch: the first step's loss and grad norm
+    within chip_smoke.py's TRAIN_LOSS_REL_TOL/TRAIN_GNORM_REL_TOL; and
+    over an expert mesh (fsdp 2, expert 2, all on the card), the
+    attention once per row block (2 x 2L/L/L) and the losses and grad
+    norms of the single-device kernel step."""
+    hist, launches = _moe_card_run(dev, "auto")
+    assert launches == [(4, 2, 2)] * 3
+    plain, none = _moe_card_run(dev, "reference")
+    assert none == [(0, 0, 0)] * 3
+    np.testing.assert_allclose(hist[0, 0], plain[0, 0], rtol=2e-3)
+    np.testing.assert_allclose(hist[0, 1], plain[0, 1], rtol=2e-2)
+    assert hist[-1, 0] < hist[0, 0]
+    mesh, launches = _moe_card_run(dev, "auto", dict(data=1, fsdp=2, tensor=1,
+                                                     context=1, expert=2))
+    assert launches == [(8, 4, 4)] * 3
+    np.testing.assert_allclose(mesh[:, 0], hist[:, 0], rtol=2e-3)
+    np.testing.assert_allclose(mesh[:, 1], hist[:, 1], rtol=2e-2)
+
+
 def _cards(n: int) -> list:
     """The first n cards, or a skip where fewer are visible: these tests
     put each shard on its own card (the one-card machine runs the

@@ -27,7 +27,8 @@ from ray_tpu_torch.parallel import make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
-                "ray_tpu_torch.models.llama", "ray_tpu_torch.ops.attention",
+                "ray_tpu_torch.models.llama", "ray_tpu_torch.models.moe",
+                "ray_tpu_torch.ops.attention",
                 "ray_tpu_torch.ops.flash_attention",
                 "ray_tpu_torch.ops.paged_attention",
                 "ray_tpu_torch.ops.ring_attention",

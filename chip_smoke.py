@@ -1,5 +1,5 @@
 """Drive ray_tpu_torch's serving path, training step, train library,
-compiled DAGs and datasets on one CUDA card and check them.
+compiled DAGs, datasets and RL learners on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -110,10 +110,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      optimizer); B, 2 layers over the expert mesh (fsdp 2, expert 2) of
      four shards on the card, 3 steps (b 2 x s 4096) held to the same
      layers on one device, K1/K2/K3 exactly 8/4/4 a step (the attention
-     once per row block, shared by the expert shards);
+     once per row block, shared by the expert shards); then RLlib
+     (``run_rllib``): _gae, _vtrace and each update function (PPO,
+     IMPALA, APPO, DQN, SAC, BC) on the card against the same update on
+     the CPU from the same parameters, batch and host draws, with both
+     times; then on a new init(num_cpus=4) each algorithm at its
+     reference test's configuration, hidden (64, 64), the learner on
+     cuda:0 behind CPU env runners and replay buffers: PPO for its
+     test's 18 iterations, held to its bar, one PPO update traced
+     (device busy, idle share, launches), IMPALA, APPO, DQN, SAC, BC on
+     the test's logged expert and multi-agent PPO for 2-3 iterations
+     each with their tests' checks; every learner tensor on cuda:0, the
+     wall per iteration, runner and learner seconds and env steps/s; no
+     runner or buffer process initialises CUDA or loads jax, optax,
+     ml_dtypes or ray_tpu, and nvidia-smi lists no compute process
+     that it did not list before the phase;
   9. the training path through the train library (``run_trainer``):
      init(), a TorchTrainer whose one worker trains Llama-3-8B's widths
-     at 2 layers under "dots" for 6 steps on the card, saves through
+     at 1 layer under "dots" for 6 steps on the card, saves through
      AsyncCheckpointer after step 3, dies once after step 4 and resumes
      from the checkpoint in a new worker; its losses held to the same
      steps in this process, its launches, checkpoint bytes, save and
@@ -122,13 +136,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      then data-parallel training through the gradient ring
      (``run_dp``): init(), a TorchTrainer of two workers sharing the
      card, each training the same model at 1 layer from the same seed on
-     its half of the batch (1 x 4096 tokens), 3 steps in each of three
+     its half of the batch (1 x 4096 tokens), 2, 2 and 1 steps in three
      modes: allreduce_gradients and the replicated AdamW (A),
      ShardedOptimizer (ZeRO-1) over ShardAdamW at the f32 wire (B), and
      with the int8 gradient reduce-scatter and the bf16 parameter
      allgather (C); A's and B's losses and grad norms held to one
      process's steps on the whole batch, the ranks' parameters bitwise
-     equal, K1/K2/K3 launched 2/2/2 a step on each rank, C's int8
+     equal, K1/K2/K3 launched 1/1/1 a step on each rank, C's int8
      reduce-scatter within the ring's bound, B's optimizer shard half
      the replicated moments, no nvcc, jax or ray_tpu in either worker;
      step walls, the ring's seconds, wire bytes, peak HBM and host RSS
@@ -143,14 +157,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      worlds [2, 1, 1], generation 1, one reshard and no lost step, the
      reshard's staleness 0, losses and grad norms held to run_dp's
      one-process trajectory, the moments after the reshard bitwise the
-     old shard and the victim's, K1/K2/K3 8 times each in the survivor,
+     old shard and the victim's, K1/K2/K3 4 times each in the survivor,
      no nvcc, jax or ray_tpu in either worker; recovery seconds, the
      reshard round, each mirror's bytes and seconds, step walls, peak HBM
      and host RSS per worker;
      then pipeline parallelism (``run_pipeline``): one process's 3 steps
-     of Llama-3-8B's widths at 4 layers first, then init() and two
+     of Llama-3-8B's widths at 2 layers first, then init() and two
      PipelineStageActor stages in their own worker processes on the card
-     (the embedding and layers 0-1; layers 2-3, the head and the loss),
+     (the embedding and layer 0; layer 1, the head and the loss),
      train.Pipeline driving 1f1b over 4 microbatches of 1 x 4096 tokens
      with SGD: run A, 3 steps over the device transport (TensorRef
      handles) with save_checkpoint after step 2, its losses held to the
@@ -158,7 +172,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      other weights restored from that checkpoint, step 3 over the host
      transport, bitwise run A's step 3 in loss and both stages'
      parameters; K1 without lse (F ops), K1 with lse, K2 and K3 (B ops)
-     8 times a step in each stage, every step reported, stage_stats at
+     4 times a step in each stage, every step reported, stage_stats at
      teardown, both device stores empty after it, no nvcc, jax,
      ml_dtypes or ray_tpu in either stage; step walls of both
      transports, each stage's bubble beside bubble_fraction(2, 4), the
@@ -187,6 +201,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -1810,18 +1825,39 @@ def wait_card_back(free0: int, what: str, timeout_s: float = 120.0) -> int:
     return polls
 
 
-# Loaded at every interpreter start of run_serve's cluster (through
-# PYTHONPATH): a thread writes the process's module names to
-# $CHIP_SMOKE_MODULES/<pid>.txt once a second, so the phase can tell
-# what the controller, the proxy and each replica imported.
+def compute_apps() -> list:
+    """The card's compute processes as nvidia-smi lists them, one entry a
+    process. In a container nvidia-smi may give another pid than the
+    process's own, or a placeholder such as "[N/A]", so entries are whole
+    lines, compared as a multiset with an earlier listing."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return [line.strip() for line in out.stdout.splitlines()
+            if line.strip()]
+
+
+# Loaded at every interpreter start of run_serve's and run_rllib's
+# clusters (through PYTHONPATH): a thread writes the process's module
+# names to $CHIP_SMOKE_MODULES/<pid>.txt once a second, and
+# "<cuda-initialized>" once torch has initialised CUDA there, so the
+# phase can tell what the controller, the proxy, each replica and each
+# env runner imported.
 MODULE_DUMP = """\
 import os, sys, threading, time
+
+def _cuda_initialized():
+    cuda = getattr(sys.modules.get("torch"), "cuda", None)
+    return cuda is not None and cuda.is_initialized()
 
 def _dump():
     path = os.path.join(os.environ["CHIP_SMOKE_MODULES"], f"{os.getpid()}.txt")
     while True:
+        names = sorted(sys.modules)
+        if _cuda_initialized():
+            names.append("<cuda-initialized>")
         with open(path + ".tmp", "w") as f:
-            f.write("\\n".join(sorted(sys.modules)))
+            f.write("\\n".join(names))
         os.replace(path + ".tmp", path)
         time.sleep(1.0)
 
@@ -3355,7 +3391,499 @@ def run_moe(fa, card: str) -> dict:
     return {"single": single, "one": one, "meshes": meshes}
 
 
-# The trainer phase: Llama-3-8B's widths at 2 layers under "dots" through
+# The RLlib phase (``run_rllib``): each algorithm of ray_tpu_torch.rllib at
+# its reference test's configuration (tests/test_rllib.py), hidden (64, 64)
+# (the only width the JAX package has), the learner on the card and the
+# env runners and replay buffers CPU processes of a new init(num_cpus=4),
+# as the reference places them. PPO runs its test's 18 iterations and is
+# held to its bar; the others run RL_ITERS iterations each.
+RL_PPO_ITERS = 18
+RL_ITERS = {"IMPALA": 3, "APPO": 3, "DQN": 2, "SAC": 2, "BC": 2,
+            "MultiAgentPPO": 2}
+# one update of each function on the card against the same update on the
+# CPU, from the same parameters, batch and host draws: every tensor after
+# it within RL_UPDATE_TOL of that tensor's largest entry (f32 on both
+# sides, TF32 off; cuBLAS and MKL sum in other orders; the CPU parity
+# tests see up to 7.7e-6 between XLA and torch)
+RL_UPDATE_TOL = 1e-4
+# the env runners of the algorithms below: 2 + 2 + 2 + 2 + 1 + 1
+RL_RUNNERS = 10
+# where the learners must be (a CPU rehearsal of the phase sets the CPU)
+RL_LEARNER_DEVICE = torch.device("cuda", 0)
+
+
+def rl_gap(got, want) -> float:
+    """Largest |got - want| over the tensors, each relative to the
+    largest entry of its ``want``."""
+    return max(float((g.detach().cpu() - w.detach()).abs().max()
+                     / w.detach().abs().max().clamp_min(1e-6))
+               for g, w in zip(got, want))
+
+
+def rl_update_cases() -> dict:
+    """name -> case(device) -> (step, state): ``step()`` runs one update
+    (or one return computation) on fresh state on ``device`` and returns
+    its outputs; ``state()`` the tensors it updated. Inputs are drawn from
+    a seeded numpy generator and CPU torch generators, at the shapes the
+    reference tests' configurations give each function."""
+    import copy
+    from ray_tpu_torch.rllib import appo, bc, dqn, impala, nets, ppo, sac
+    rng = np.random.default_rng(0)
+
+    def f(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=s))
+                                .astype(np.float32))
+
+    def bern(p, *s):
+        return torch.from_numpy((rng.random(s) < p).astype(np.float32))
+
+    def ints(n, *s):
+        return torch.from_numpy(rng.integers(0, n, s).astype(np.int32))
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    T, N = 128, 16              # PPO: 2 runners x 8 envs x 128 steps
+    rets = (torch.ones(T, N), f(T, N), bern(0.05, T, N), f(N))
+    ppo_batch = {"obs": f(T, N, 4, scale=0.1), "actions": ints(2, T, N),
+                 "logp": np.log(0.5) + f(T, N, scale=0.1)}
+    ppo_batch["advantages"], ppo_batch["returns"] = ppo._gae(
+        *rets, 0.99, 0.95)
+    perms = ppo.draw_perms(gen(1), 4, T * N)
+    frag = {"obs": f(64, 8, 4, scale=0.1), "actions": ints(2, 64, 8),
+            "behavior_logp": np.log(0.5) + f(64, 8, scale=0.1),
+            "rewards": torch.ones(64, 8), "dones": bern(0.05, 64, 8),
+            "last_obs": f(8, 4, scale=0.1)}
+    vt = (frag["behavior_logp"], frag["behavior_logp"] + f(64, 8, scale=0.3),
+          frag["rewards"], frag["dones"], f(64, 8), f(8))
+    dqn_b = {"obs": f(16, 64, 4, scale=0.1),
+             "next_obs": f(16, 64, 4, scale=0.1), "actions": ints(2, 16, 64),
+             "rewards": torch.ones(16, 64), "dones": bern(0.05, 16, 64)}
+    sac_b = {"obs": f(8, 128, 3), "next_obs": f(8, 128, 3),
+             "actions": 2 * torch.tanh(f(8, 128, 1)),
+             "rewards": -f(8, 128).abs(), "dones": torch.zeros(8, 128)}
+    noise = torch.randn((8, 2, 128, 1), generator=gen(2))
+    bc_b = {"obs": f(16, 256, 4, scale=0.1), "actions": ints(2, 16, 256)}
+    pol0 = ppo.init_policy(gen(0), 4, 2)
+    q0 = dqn.init_q(gen(0), 4, 2)
+    actor0, critic0 = sac.init_actor(gen(0), 3, 1), sac.init_critic(
+        gen(0), 3, 1)
+
+    def to(d, xs):
+        return {k: v.to(d) for k, v in xs.items()} if isinstance(xs, dict) \
+            else [v.to(d) for v in xs]
+
+    def policy_case(update, batch, lr, *extra):
+        def case(d):
+            pol = copy.deepcopy(pol0).to(d)
+            opt = nets.adam(pol.parameters(), lr)
+            b, more = to(d, batch), to(d, extra)
+
+            def step():
+                out = update(pol, opt, b, *more)
+                return list(out) if isinstance(out, tuple) else [out]
+            return step, lambda: list(pol.parameters())
+        return case
+
+    def dqn_case(d):
+        q = copy.deepcopy(q0).to(d)
+        target = copy.deepcopy(q).requires_grad_(False)
+        opt, b = nets.adam(q.parameters(), 1e-3), to(d, dqn_b)
+        return (lambda: [dqn.dqn_update(q, target, opt, b)],
+                lambda: list(q.parameters()))
+
+    def sac_case(d):
+        a, c = copy.deepcopy(actor0).to(d), copy.deepcopy(critic0).to(d)
+        tc = copy.deepcopy(c).requires_grad_(False)
+        la = torch.tensor(np.log(0.1), dtype=torch.float32, device=d,
+                          requires_grad=True)
+        opts = (nets.adam(a.parameters(), 1e-3),
+                nets.adam(c.parameters(), 1e-3), nets.adam([la], 1e-3))
+        b, nz = to(d, sac_b), noise.to(d)
+        return (lambda: [sac.sac_update(a, c, tc, la, opts, b, nz,
+                                        action_high=2.0)],
+                lambda: [la, *a.parameters(), *c.parameters(),
+                         *tc.parameters()])
+
+    return {
+        "_gae (128 x 16)": lambda d: (
+            lambda: list(ppo._gae(*to(d, rets), 0.99, 0.95)), list),
+        "_vtrace (64 x 8)": lambda d: (
+            lambda: list(impala._vtrace(*to(d, vt), 0.99)), list),
+        "ppo_update (4 x 4 of 512)": policy_case(
+            ppo.ppo_update, ppo_batch, 3e-4, perms),
+        "impala_update (64 x 8)": policy_case(
+            impala.impala_update, frag, 6e-4),
+        "appo_update (64 x 8)": policy_case(appo.appo_update, frag, 1e-3),
+        "dqn_update (16 of 64)": dqn_case,
+        "sac_update (8 of 128)": sac_case,
+        "bc_update (16 of 256)": policy_case(bc.bc_update, bc_b, 1e-3),
+    }
+
+
+def rl_timed(step, d: torch.device):
+    """(``step()``'s outputs, host ms until its work on ``d`` is done)."""
+    t0 = time.perf_counter()
+    out = step()
+    if d.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rl_updates_card_vs_cpu(card: str) -> dict:
+    """Each case of ``rl_update_cases`` once on the card and once on the
+    CPU, compared (outputs and updated state, RL_UPDATE_TOL), then three
+    more calls each, timed (median ms; the card's synced)."""
+    out = {}
+    for name, case in rl_update_cases().items():
+        runs = []
+        for d in (RL_LEARNER_DEVICE, torch.device("cpu")):
+            step, state = case(d)
+            got, _ = rl_timed(step, d)
+            snap = [t.detach().clone() for t in got + state()]
+            ms = float(np.median([rl_timed(step, d)[1] for _ in range(3)]))
+            runs.append((snap, ms))
+        runs = dict(zip(("cuda", "cpu"), runs))
+        gap = rl_gap(runs["cuda"][0], runs["cpu"][0])
+        ok = gap <= RL_UPDATE_TOL
+        print(f"rllib {name} [{card}]: card vs CPU largest gap {gap:.2e} "
+              f"(tol {RL_UPDATE_TOL}); ms a call: card (synced) "
+              f"{runs['cuda'][1]:.3f}, CPU {runs['cpu'][1]:.3f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"rllib {name}: the card's update disagrees "
+                             "with the CPU's")
+        out[name] = dict(gap=gap, card_ms=runs["cuda"][1],
+                         cpu_ms=runs["cpu"][1])
+    return out
+
+
+def rl_learner_tensors(algo) -> list:
+    """Every tensor a learner keeps: its nets' parameters (targets too),
+    its Adam buffers and SAC's log_alpha."""
+    mods = [getattr(algo, n) for n in ("policy", "q", "target_q", "actor",
+                                       "critic", "target_critic")
+            if hasattr(algo, n)] + list(getattr(algo, "nets", {}).values())
+    opt = getattr(algo, "opt", None) or getattr(algo, "opts", ())
+    opts = list(opt.values()) if isinstance(opt, dict) else \
+        list(opt) if isinstance(opt, tuple) else [opt]
+    return [p for m in mods for p in m.parameters()] + \
+        [t for o in opts for t in (o.flat, o.grad, o.m, o.v)] + \
+        ([algo.log_alpha] if hasattr(algo, "log_alpha") else [])
+
+
+def rl_trace_ppo_update(algo, card: str) -> dict:
+    """One ``ppo_update`` at PPO's shapes on a fresh fragment of the
+    algorithm's runners, on a copy of its policy: host wall (median of 3,
+    synced), then one traced with torch.profiler: the device's busy time
+    (its events' intervals), idle share, and its launches (kernels, and
+    the copies and fills)."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import nets, ppo
+    c = algo.cfg
+    frags = ray_tpu_torch.get([r.sample.remote(algo.get_policy_params())
+                               for r in algo.runners], timeout=300)
+    batch = ppo.gae_batch(ppo.concat_fragments(frags), algo.device,
+                          c.gamma, c.lam)
+    n = batch["obs"].shape[0] * batch["obs"].shape[1]
+    perms = ppo.draw_perms(torch.Generator().manual_seed(0), c.epochs,
+                           n).to(algo.device)
+    pol = copy.deepcopy(algo.policy)
+    opt = nets.adam(pol.parameters(), c.lr)
+
+    def step():
+        return ppo.ppo_update(pol, opt, batch, perms,
+                              minibatches=c.minibatches)
+    rl_timed(step, algo.device)
+    wall = float(np.median([rl_timed(step, algo.device)[1]
+                            for _ in range(3)]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rl_timed(step, algo.device)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if "memcpy" in e.name.lower()
+              or "memset" in e.name.lower()]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    steps = c.epochs * c.minibatches
+    r = dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall,
+             launches=len(events), copies=len(copies), steps=steps)
+    print(f"rllib ppo_update traced [{card}]: {steps} Adam steps of "
+          f"{n // c.minibatches} rows, host wall {wall:.3f} ms (median of "
+          f"3, synced), device busy {busy:.3f} ms, idle share "
+          f"{r['idle']:.3f}; {len(events)} device launches a update "
+          f"({len(events) - len(copies)} kernels, {len(copies)} copies or "
+          f"fills), {len(events) / steps:.1f} a step")
+    return r
+
+
+def rl_algorithms() -> dict:
+    """name -> (build(), the reference test's timesteps per iteration):
+    each at its reference test's configuration, with zero-CPU runners."""
+    from ray_tpu_torch import data, rllib
+
+    def bc_data():
+        e = rllib.CartPoleVec(16, seed=3)
+        obs = e.reset_all()
+        all_obs, all_act = [], []
+        for _ in range(400):            # the reference test's expert
+            act = ((obs[:, 2] + 0.5 * obs[:, 3]) > 0).astype(np.int32)
+            all_obs.append(obs.copy())
+            all_act.append(act)
+            obs, _r, _d = e.step(act)
+        return data.from_blocks([{"obs": np.concatenate(all_obs),
+                                  "action": np.concatenate(all_act)}])
+
+    # zero-CPU runners: every algorithm's start together under
+    # init(num_cpus=4) (the buffers take one CPU each)
+    zero = {"runner_options": {"num_cpus": 0}}
+    fragments = dict(num_env_runners=2, num_envs_per_runner=8,
+                     rollout_len=64, fragments_per_iter=2, **zero)
+    return {
+        "PPO": (lambda: rllib.PPO(rllib.PPOConfig(
+            num_env_runners=2, num_envs_per_runner=8, rollout_len=128,
+            seed=3, **zero)), 2 * 8 * 128),
+        "IMPALA": (lambda: rllib.IMPALA(rllib.IMPALAConfig(
+            seed=5, **fragments)), 2 * 8 * 64),
+        "APPO": (lambda: rllib.APPO(rllib.APPOConfig(
+            seed=11, **fragments)), 2 * 8 * 64),
+        "DQN": (lambda: rllib.DQN(rllib.DQNConfig(
+            num_env_runners=2, num_envs_per_runner=8, steps_per_call=64,
+            learning_starts=512, updates_per_iter=32, seed=7, **zero)),
+            2 * 8 * 64),
+        "SAC": (lambda: rllib.SAC(rllib.SACConfig(
+            num_env_runners=1, num_envs_per_runner=8, steps_per_call=50,
+            learning_starts=400, batch_size=128, updates_per_iter=400,
+            lr=1e-3, seed=0, **zero)), 8 * 50),
+        "BC": (lambda: rllib.BC(bc_data(), rllib.BCConfig(
+            eval_episodes=8, updates_per_iter=64)), None),
+        "MultiAgentPPO": (lambda: rllib.MultiAgentPPO(
+            rllib.MultiAgentPPOConfig(num_env_runners=1,
+                                      num_envs_per_runner=8,
+                                      rollout_len=128, seed=2, **zero)),
+            1 * 8 * 128 * 2),
+    }
+
+
+def rl_check(name: str, results: list) -> str:
+    """The reference tests' checks on an algorithm's short run (PPO's
+    bar is held in run_rllib); returns what was checked."""
+    last = results[-1]
+    if name in ("IMPALA", "APPO"):
+        rhos = [r["mean_rho"] for r in results]
+        ok = any(abs(x - 1.0) > 1e-4 for x in rhos) and all(
+            np.isfinite(x) and 0.0 < x < 100.0 for x in rhos)
+        what = f"mean ratios {['%.5f' % x for x in rhos]}"
+    elif name == "DQN":
+        ok = all(np.isfinite(r["loss"]) for r in results) and \
+            last["buffer_size"] > 512
+        what = (f"losses {['%.4f' % r['loss'] for r in results]}, buffer "
+                f"{last['buffer_size']}")
+    elif name == "SAC":
+        past = results[1:]      # iteration 1 sampled uniform torque
+        ok = bool(past) and all(
+            np.isfinite(r[k]) for r in past
+            for k in ("critic_loss", "actor_loss", "alpha"))
+        what = ", ".join(f"critic {r['critic_loss']:.3f} actor "
+                         f"{r['actor_loss']:.3f} alpha {r['alpha']:.4f}"
+                         for r in results)
+    elif name == "BC":
+        ok = last["dataset_size"] == 16 * 400 and np.isfinite(last["loss"])
+        what = (f"losses {['%.4f' % r['loss'] for r in results]}, return "
+                f"{last['episode_reward_mean']:.1f}")
+    else:
+        ok = set(last["policy_loss"]) == {"agent_0", "agent_1"} and all(
+            np.isfinite(v) for v in last["policy_loss"].values())
+        what = f"policy losses {last['policy_loss']}"
+    if not ok:
+        raise SystemExit(f"rllib {name} failed its checks: {what}")
+    return what
+
+
+def rl_stop(algo) -> None:
+    """End an algorithm's actors (runners, replay buffer), so the next
+    one's fit the cluster's CPUs."""
+    import ray_tpu_torch
+    if hasattr(algo, "stop"):
+        algo.stop()
+        return
+    for a in [*getattr(algo, "runners", []),
+              *([algo.buffer] if hasattr(algo, "buffer") else [])]:
+        ray_tpu_torch.kill(a)
+
+
+def run_rllib(card: str) -> dict:
+    """The RLlib phase on a new init(num_cpus=4): every algorithm's
+    learner on cuda:0 behind CPU runners (PPO for RL_PPO_ITERS iterations,
+    held to its reference test's bar; the others RL_ITERS, with their
+    tests' checks), each learner's tensors on cuda:0 after train(); the
+    wall per iteration, runner and learner seconds and env steps/s of
+    each; one PPO update traced; every update function on the card
+    against the CPU; no runner or buffer process initialised CUDA or
+    loaded jax, optax, ml_dtypes or ray_tpu (their module dumps), and
+    nvidia-smi lists no compute process that it did not list before the
+    phase, while every algorithm's runners are up and at its end."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import PPO
+
+    t_phase = time.monotonic()
+    cpu0 = time.process_time()
+    time.sleep(1.0)
+    with open("/proc/loadavg") as f:
+        load = f.read().split()[:3]
+    print(f"rllib [{card}]: host load average {load}; this process holds "
+          f"{threading.active_count()} Python threads and used "
+          f"{time.process_time() - cpu0:.3f} s of CPU over 1 s of sleep")
+    updates = rl_updates_card_vs_cpu(card)
+    free0 = torch.cuda.mem_get_info()[0]
+    apps0 = compute_apps()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
+    site, dumps = os.path.join(tmp, "site"), os.path.join(tmp, "modules")
+    os.mkdir(site)
+    os.mkdir(dumps)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(MODULE_DUMP)
+    os.environ["CHIP_SMOKE_MODULES"] = dumps
+    sys.path.insert(0, site)
+    try:
+        ray_tpu_torch.init(num_cpus=4)
+    finally:
+        sys.path.remove(site)
+    algos, trace = {}, None
+    try:
+        # every algorithm's runners and buffers start together, so their
+        # processes' imports overlap
+        t_up = time.monotonic()
+        built = {name: (build(), per_iter) for name, (build, per_iter)
+                 in rl_algorithms().items()}
+        for name, (algo, per_iter) in built.items():
+            t0 = time.monotonic()
+            if hasattr(algo, "_inflight"):
+                # every runner's first fragment ready, so that one
+                # runner's later start does not leave the other to make
+                # all of the few fragments consumed here (with fresh
+                # weights each: ratio 1)
+                ray_tpu_torch.wait(list(algo._inflight),
+                                   num_returns=len(algo._inflight),
+                                   timeout=300)
+            iters = RL_PPO_ITERS if name == "PPO" else RL_ITERS[name]
+            results, walls = [], []
+            for _ in range(iters):
+                t = time.monotonic()
+                results.append(algo.train())
+                walls.append(time.monotonic() - t)
+                if per_iter is not None and \
+                        results[-1]["timesteps_this_iter"] != per_iter:
+                    raise SystemExit(f"rllib {name}: timesteps_this_iter "
+                                     f"{results[-1]['timesteps_this_iter']}"
+                                     f" != {per_iter}")
+            off = [t for t in rl_learner_tensors(algo)
+                   if t.device != RL_LEARNER_DEVICE]
+            if off:
+                raise SystemExit(f"rllib {name}: {len(off)} learner "
+                                 f"tensors are not on {RL_LEARNER_DEVICE}")
+            if isinstance(algo, PPO):
+                rets = [r["episode_reward_mean"] for r in results]
+                first = next((x for x in rets if x > 0), None)
+                best = max(rets)
+                if first is None or not best > max(60.0, 1.5 * first):
+                    raise SystemExit(f"rllib PPO did not learn: first "
+                                     f"{first}, best {best}")
+                what = (f"first {first:.2f}, best {best:.2f} (bar "
+                        f"{max(60.0, 1.5 * first):.2f})")
+                trace = rl_trace_ppo_update(algo, card)
+                # every algorithm's runners were started with PPO's
+                apps_up = compute_apps()
+            else:
+                what = rl_check(name, results)
+            rl_stop(algo)
+            if name == "PPO":
+                up_s = time.monotonic() - t_up - sum(walls[1:])
+            # the first iteration may wait for the runners' processes to
+            # start: medians over the others
+            timers = [r["timers"] for r in results[1:]]
+            r = {k: float(np.median([t[k] for t in timers]))
+                 for k in timers[0]}
+            r.update(iters=iters, wall_s=float(np.median(walls[1:])),
+                     first_s=walls[0], phase_s=time.monotonic() - t0)
+            r["steps_per_s"] = per_iter / r["wall_s"] if per_iter else None
+            algos[name] = r
+            print(f"rllib {name} [{card}]: {iters} iterations, train() "
+                  f"wall {r['wall_s']:.3f} s (the first {walls[0]:.3f}); "
+                  f"a iteration: "
+                  + ", ".join(f"{k} {r[k]:.3f}" for k in timers[0])
+                  + (f", {r['steps_per_s']:.0f} env steps/s" if per_iter
+                     else "") + f" (medians after the first); {what}; "
+                  f"{r['phase_s']:.1f} s in all ok")
+            del algo
+        del built
+        apps_end = compute_apps()
+        time.sleep(1.5)         # the dumps' last write
+    finally:
+        ray_tpu_torch.shutdown()
+        os.environ.pop("CHIP_SMOKE_MODULES", None)
+    # every process that wrote a dump is one of the cluster's workers
+    # (the head and the agent run in this process): the runners, the
+    # buffers (their class pickles by value and needs numpy alone) and
+    # the idle pool
+    me = str(os.getpid())
+    workers = {}
+    for fname in os.listdir(dumps):
+        if fname.endswith(".txt") and fname[:-4] != me:
+            with open(os.path.join(dumps, fname)) as f:
+                workers[fname[:-4]] = set(f.read().split())
+    shutil.rmtree(tmp, ignore_errors=True)
+    with_torch = sum("torch" in mods for mods in workers.values())
+    bad = {pid: sorted(m for m in mods if m.split(".")[0] in
+                       ("jax", "jaxlib", "ml_dtypes", "optax", "ray_tpu"))
+           for pid, mods in workers.items()}
+    cuda_on = sorted(pid for pid, mods in workers.items()
+                     if "<cuda-initialized>" in mods)
+    mine = [m for m in sys.modules if m.split(".")[0] == "optax"] + \
+        foreign_modules()
+    added = {when: sorted((Counter(apps) - Counter(apps0)).elements())
+             for when, apps in (("with every runner up", apps_up),
+                                ("at the end", apps_end))}
+    placement = (
+        f"{len(workers)} worker processes ({with_torch} with torch, "
+        f"{RL_RUNNERS} runners expected), CUDA initialised in "
+        f"{cuda_on or 'none'}, foreign modules "
+        f"{[b for b in bad.values() if b] or 'none'}; the driver's "
+        f"{mine or 'none'}; nvidia-smi compute processes {apps0} before "
+        f"the phase, {apps_up} with every runner up, {apps_end} at the end "
+        f"(this process {me})")
+    print(f"rllib placement [{card}]: {placement}")
+    faults = [f for f, bad_ in (
+        ("fewer worker processes loaded torch than there are runners",
+         with_torch < RL_RUNNERS),
+        ("a worker process initialised CUDA", cuda_on),
+        ("a worker process loaded a foreign module", any(bad.values())),
+        ("the driver loaded a foreign module", mine),
+        (f"nvidia-smi lists new compute processes {added}",
+         any(added.values()))) if bad_]
+    if faults:
+        raise SystemExit(f"rllib placement: {'; '.join(faults)} "
+                         f"({placement})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    polls = wait_card_back(free0, "the RL phase")
+    phase = time.monotonic() - t_phase
+    print(f"rllib phase [{card}]: {phase:.1f} s, of which {up_s:.1f} s "
+          "to build every algorithm and take PPO's first iteration (its "
+          "runners' start with every other algorithm's)")
+    return dict(updates=updates, algos=algos, trace=trace, polls=polls,
+                phase_s=phase, up_s=up_s)
+
+
+# The trainer phase: Llama-3-8B's widths at TRAINER_LAYERS (1, for the
+# script's time limit) under "dots" through
 # TorchTrainer, 6 steps of 2 x 4096 tokens, a checkpoint after step 3, the
 # worker killed once before step 4 and the group restored from it. Its
 # losses and grad norms against the same 6 steps of make_train_step in this
@@ -3366,6 +3894,7 @@ def run_moe(fa, card: str) -> dict:
 # AdamW moments.
 TRAINER_STEPS, TRAINER_SAVE_AT, TRAINER_FAIL_AT = 6, 3, 4
 TRAINER_REL_TOL = 1e-5
+TRAINER_LAYERS = 1
 
 
 def trainer_run():
@@ -3373,8 +3902,9 @@ def trainer_run():
     worker and the driver both build it."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import default_optimizer, make_train_step
-    cfg = llama.llama3_8b(n_layers=2, dtype="bfloat16", remat_policy="dots",
-                          logits_dtype="float32", ce_chunk=0)
+    cfg = llama.llama3_8b(n_layers=TRAINER_LAYERS, dtype="bfloat16",
+                          remat_policy="dots", logits_dtype="float32",
+                          ce_chunk=0)
     init_fn, step_fn = make_train_step(cfg, optimizer=default_optimizer(
         learning_rate=3e-4, warmup_steps=2, total_steps=100))
     state = init_fn(torch.Generator(device="cuda").manual_seed(0))
@@ -3476,7 +4006,7 @@ def run_trainer(card: str) -> dict:
     runs trainer_fn on the card with FailureConfig(max_failures=1) and a
     storage path in a temporary directory (removed after). Checks the
     resumed losses and grad norms against this process's, each step's
-    K1/K2/K3 launches (2/2/2 under "dots" at 2 layers), the restart,
+    K1/K2/K3 launches (TRAINER_LAYERS each under "dots"), the restart,
     that the worker saw one card and loaded no jax or ray_tpu; prints the checkpoint's bytes, the save and
     restore seconds and the goodput anatomy."""
     import shutil
@@ -3602,12 +4132,17 @@ def run_trainer(card: str) -> dict:
 # elementwise (N * max block scale) / 2 of the sum, the
 # allreduce_quant_error gauge); B: the optim_shard_bytes gauge half of
 # the replicated moments' bytes at the f32 wire.
+# the one-process trajectory's steps: run_elastic's three steps are held
+# to it too
 DP_STEPS = 3
 DP_MODES = {"A": "allreduce", "B": "zero", "C": "zero_int8_bf16"}
 # C takes one step: its checks (the int8 bound on step 1's gradients, the
 # ranks' parameters bitwise equal after the step) need no more, and each
-# of its steps costs about 50 s of the script's time on the host ring.
-DP_MODE_STEPS = {"A": DP_STEPS, "B": DP_STEPS, "C": 1}
+# of its steps costs about 50 s of the script's time on the host ring. A
+# and B take two, so that a step runs on parameters and moments the
+# previous one updated (three until the RL phase needed the time: a step
+# of B costs ~20 s, of A ~10 s).
+DP_MODE_STEPS = {"A": 2, "B": 2, "C": 1}
 # 2 until the pipeline phase came after it; at 1 the whole script stays
 # inside its time (the ring's time goes with the parameters, most of
 # them the embedding and the head at any depth). run_elastic's model too.
@@ -4273,9 +4808,11 @@ def run_elastic(card: str, want: list) -> dict:
 # --- pipeline parallelism: two stage actors on the card --------------------
 #
 # Llama-3-8B at full width cut to PIPE_LAYERS layers, bf16, random weights
-# from PIPE_SEED: stage 0 holds the embedding and layers 0-1, stage 1
-# layers 2-3, the final norm, lm_head and the chunked cross-entropy
-# (about 0.96 B parameters each). Each stage is a PipelineStageActor in a
+# from PIPE_SEED: stage 0 holds the embedding and layer 0, stage 1 layer
+# 1, the final norm, lm_head and the chunked cross-entropy (about 0.74 B
+# parameters each; 4 layers until the RL phase needed the time, which
+# goes with the checkpoint's bytes, most of them the embedding's and the
+# head's at any depth). Each stage is a PipelineStageActor in a
 # worker process of its own on the card whose stage function runs the
 # port's model pieces (llama._layer, _rmsnorm, _rope_tables,
 # fused_cross_entropy) through torch.func.functional_call; the
@@ -4289,7 +4826,7 @@ def run_elastic(card: str, want: list) -> dict:
 # restore_checkpoint, then the last step over the host transport (the
 # activations in the channels' frames): its loss and both stages'
 # parameters bitwise run A's last step's.
-PIPE_LAYERS = 4
+PIPE_LAYERS = 2
 PIPE_MB = 4
 PIPE_STEPS = 3
 PIPE_SAVE_AFTER = 2
@@ -4302,10 +4839,10 @@ PIPE_CE_CHUNK = 1024
 # another order. Later steps start from weights updated by gradients
 # that each run sums in its own order: TRAIN_LOSS_REL_TOL.
 PIPE_STEP1_REL_TOL = 1e-4
-# K1, K1 with lse, K2, K3 per stage process per step: 2 layers x 4
-# microbatches (each F op runs K1 without lse, each B op recomputes the
-# forward with K1 with lse and runs K2 and K3).
-PIPE_LAUNCHES_PER_STEP = 2 * PIPE_MB
+# K1, K1 with lse, K2, K3 per stage process per step: a stage's layers x
+# the microbatches (each F op runs K1 without lse, each B op recomputes
+# the forward with K1 with lse and runs K2 and K3).
+PIPE_LAUNCHES_PER_STEP = PIPE_LAYERS // 2 * PIPE_MB
 # the host transport's shm slots: one frame holds a microbatch's
 # activation (1 x 4096 x 4096 bf16, 32 MiB) and its targets
 PIPE_SLOT_BYTES = 40 << 20
@@ -4750,7 +5287,8 @@ def run_pipeline(card: str) -> dict:
                 bad.append(f"run {run} stage {k}: no activation bytes")
     analytic = bubble_fraction(2, PIPE_MB)
     print(f"pipeline [{card}]: llama3_8b widths at {cfg.n_layers} layers, "
-          f"2 stages (2 layers each, the embedding on stage 0, the head "
+          f"2 stages ({cfg.n_layers // 2} a stage, the embedding on "
+          f"stage 0, the head "
           f"and loss on stage 1), 1f1b over {PIPE_MB} microbatches of 1 x "
           f"4096 tokens; one process's reference {ref_s:.1f} s; run A "
           f"(device transport) losses {a['losses']} vs one process's "
@@ -5010,6 +5548,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_run = run_moe(fa, card)
     took("run_moe")
+    run_rllib(card)
+    took("run_rllib")
     trainer = run_trainer(card)
     took("run_trainer")
     dp = run_dp(card)

@@ -8,8 +8,10 @@ router and an HTTP proxy (``serve``, ``serve.llm``), ``make_train_step``
 and the train library that drives it (``TorchTrainer``, async
 checkpoints, the goodput ledger), compiled actor DAGs over shared-memory
 rings (``dag``) and streaming datasets with batch LLM inference
-(``data``, ``data.llm``), with hand-written Hopper kernels in
-place of the Pallas TPU kernels on those paths. It imports torch and numpy, never jax
+(``data``, ``data.llm``), and RLlib's algorithms (``rllib``: PPO,
+IMPALA/APPO, DQN, SAC, BC, multi-agent PPO) with their learners on the
+card behind CPU env runners, with hand-written Hopper kernels in place
+of the Pallas TPU kernels on those paths. It imports torch and numpy, never jax
 and never ``ray_tpu``. Submodules load lazily; the runtime's processes
 import torch only when a task does.
 """
@@ -27,7 +29,8 @@ _API = (
 )
 
 _SUBMODULES = ("api", "bridge", "config", "dag", "data", "llm", "models",
-               "ops", "parallel", "runtime", "serve", "train", "util")
+               "ops", "parallel", "rllib", "runtime", "serve", "train",
+               "util")
 
 
 def __getattr__(name):

@@ -15,6 +15,12 @@ same way, with the attention's and norms' tensors named as Llama's, the
 ``w_gate``/``w_up`` (L, experts, dim, ffn) and ``w_down`` (L, experts, ffn,
 dim), whose orientation the port keeps: only the attention matrices and
 the embeddings' are transposed.
+
+The RL learners' nets (``ray_tpu_torch.rllib``) cross as the reference's
+flat dicts (``w0/b0 ... w_pi/b_pi/w_v/b_v``, ``w_q/b_q``,
+``w_mu/b_mu/w_ls/b_ls``, ``w_out/b_out``) and SAC's nested ``{"q1": ...,
+"q2": ...}``, float32 in the ``x @ W`` layout (``rl_params_from_jax``,
+``rl_params_to_jax``).
 """
 
 from __future__ import annotations
@@ -158,3 +164,46 @@ def moe_grads_to_numpy(model: "moe.MoE") -> dict:
     """The parameters' ``.grad`` in the JAX MoE tree layout (float32
     numpy; a parameter without a grad gives zeros)."""
     return _moe_tree(model, _grad)
+
+
+@torch.no_grad()
+def rl_params_from_jax(tree: dict, module: torch.nn.Module
+                       ) -> torch.nn.Module:
+    """Load an RL param dict of the JAX package (numpy leaves, ``x @ W``)
+    into ``module`` in place, on the module's device, and return it. A
+    ``rllib.nets.Net`` takes the flat dict of its ``linears()``; any other
+    module (SAC's twin critic) takes a dict of its children's dicts. The
+    keys must match exactly."""
+    if not hasattr(module, "linears"):
+        children = dict(module.named_children())
+        if set(tree) != set(children):
+            raise ValueError(f"param keys {sorted(tree)} != submodules "
+                             f"{sorted(children)}")
+        for name, child in children.items():
+            rl_params_from_jax(tree[name], child)
+        return module
+    lins = module.linears()
+    want = {f"{wb}{k}" for k in lins for wb in "wb"}
+    if set(tree) != want:
+        raise ValueError(f"param keys {sorted(tree)} != {sorted(want)}")
+    for key, lin in lins.items():
+        w = torch.from_numpy(np.array(tree["w" + key], np.float32))
+        lin.weight.copy_(w.t())
+        lin.bias.copy_(torch.from_numpy(
+            np.array(tree["b" + key], np.float32)))
+    return module
+
+
+@torch.no_grad()
+def rl_params_to_jax(module: torch.nn.Module) -> dict:
+    """``module``'s parameters as the JAX package's RL param dict (float32
+    numpy, ``x @ W``): what the reference's ``jax.device_get(params)``
+    gives. ``rl_params_from_jax`` of it restores the module bitwise."""
+    if not hasattr(module, "linears"):
+        return {name: rl_params_to_jax(child)
+                for name, child in module.named_children()}
+    out = {}
+    for key, lin in module.linears().items():
+        out["w" + key] = np.ascontiguousarray(_np(lin.weight).T)
+        out["b" + key] = _np(lin.bias)
+    return out

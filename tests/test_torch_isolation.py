@@ -83,7 +83,13 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.train.pipeline",
                 "ray_tpu_torch.train.reshard",
                 "ray_tpu_torch.train.trainer", "ray_tpu_torch.train.worker",
-                "ray_tpu_torch.util.goodput", "ray_tpu_torch.util.storage"]
+                "ray_tpu_torch.util.goodput", "ray_tpu_torch.util.storage",
+                "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.appo",
+                "ray_tpu_torch.rllib.bc", "ray_tpu_torch.rllib.dqn",
+                "ray_tpu_torch.rllib.env", "ray_tpu_torch.rllib.impala",
+                "ray_tpu_torch.rllib.multi_agent",
+                "ray_tpu_torch.rllib.nets", "ray_tpu_torch.rllib.ppo",
+                "ray_tpu_torch.rllib.rollout", "ray_tpu_torch.rllib.sac"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -431,17 +437,25 @@ def test_train_worker_leaves_jax_and_ray_tpu_out():
     assert out.stdout.strip().splitlines()[-1] == "[[], []]"
 
 
-# Loaded at every interpreter start of the serve test's cluster (through
-# PYTHONPATH): a thread writes the process's module names to
-# $MODULES_DIR/<pid>.txt five times a second.
+# Loaded at every interpreter start of the serve and RL tests' clusters
+# (through PYTHONPATH): a thread writes the process's module names to
+# $MODULES_DIR/<pid>.txt five times a second, and "<cuda-initialized>"
+# once torch has initialised CUDA in it.
 MODULE_DUMP = """\
 import os, sys, threading, time
+
+def _cuda_initialized():
+    cuda = getattr(sys.modules.get("torch"), "cuda", None)
+    return cuda is not None and cuda.is_initialized()
 
 def _dump():
     path = os.path.join(os.environ["MODULES_DIR"], f"{os.getpid()}.txt")
     while True:
+        names = sorted(sys.modules)
+        if _cuda_initialized():
+            names.append("<cuda-initialized>")
         with open(path + ".tmp", "w") as f:
-            f.write("\\n".join(sorted(sys.modules)))
+            f.write("\\n".join(names))
         os.replace(path + ".tmp", path)
         time.sleep(0.2)
 
@@ -456,11 +470,7 @@ def test_serve_processes_leave_jax_and_ray_tpu_out(tmp_path):
     jax, ml_dtypes or any ray_tpu module, and the controller and the
     proxy load no torch either. Each process reports its modules
     through a ``sitecustomize`` on PYTHONPATH."""
-    site = tmp_path / "site"
-    dumps = tmp_path / "modules"
-    site.mkdir()
-    dumps.mkdir()
-    (site / "sitecustomize.py").write_text(MODULE_DUMP)
+    dumps, env = _dump_env(tmp_path)
     code = (
         "import json, http.client, time\n"
         "import ray_tpu_torch as rt\n"
@@ -487,10 +497,6 @@ def test_serve_processes_leave_jax_and_ray_tpu_out(tmp_path):
         "serve.shutdown()\n"
         "rt.shutdown()\n"
         "import os; print(os.getpid())\n")
-    env = dict(os.environ, MODULES_DIR=str(dumps),
-               PYTHONPATH=os.pathsep.join(
-                   [str(site), str(ROOT)]
-                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
@@ -518,6 +524,56 @@ def test_serve_processes_leave_jax_and_ray_tpu_out(tmp_path):
         assert bad == [], (pid, roles[pid], bad)
         if roles[pid] in ("controller", "proxy"):
             assert "torch" not in mods, (pid, roles[pid])
+
+
+def _dump_env(tmp_path):
+    site = tmp_path / "site"
+    dumps = tmp_path / "modules"
+    site.mkdir()
+    dumps.mkdir()
+    (site / "sitecustomize.py").write_text(MODULE_DUMP)
+    env = dict(os.environ, MODULES_DIR=str(dumps),
+               PYTHONPATH=os.pathsep.join(
+                   [str(site), str(ROOT)]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return dumps, env
+
+
+def test_rl_iteration_leaves_jax_optax_and_ray_tpu_out(tmp_path):
+    """A fresh cluster and one PPO iteration with one env runner, the
+    learner on the CPU: neither the driver nor the runner process loads
+    jax, optax, ml_dtypes or any ray_tpu module, and the runner never
+    initialises CUDA (its policy steps are CPU work by design). Each
+    process reports its modules through a ``sitecustomize`` on
+    PYTHONPATH."""
+    dumps, env = _dump_env(tmp_path)
+    code = (
+        "import os, time\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch.rllib import PPO, PPOConfig\n"
+        "rt.init(num_cpus=2)\n"
+        "algo = PPO(PPOConfig(num_env_runners=1, num_envs_per_runner=4,\n"
+        "                     rollout_len=16, hidden=(8, 8), device='cpu'))\n"
+        "res = algo.train()\n"
+        "assert res['timesteps_this_iter'] == 64, res\n"
+        "time.sleep(1.0)\n"
+        "rt.shutdown()\n"
+        "print(os.getpid())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    driver = out.stdout.split()[-1]
+    procs = {p.stem: set(p.read_text().split())
+             for p in dumps.glob("*.txt")}
+    runners = [pid for pid, mods in procs.items() if pid != driver
+               and "ray_tpu_torch.rllib.ppo" in mods]
+    assert driver in procs and len(runners) == 1, sorted(procs)
+    for pid in [driver] + runners:
+        bad = sorted(m for m in procs[pid] if m.split(".")[0] in
+                     ("jax", "jaxlib", "ml_dtypes", "optax", "ray_tpu"))
+        assert bad == [], (pid, bad)
+    assert "<cuda-initialized>" not in procs[runners[0]]
+    assert "torch" in procs[runners[0]]
 
 
 def _imports(path: pathlib.Path):

@@ -1,5 +1,6 @@
 """Drive ray_tpu_torch's serving path, training step, train library,
-compiled DAGs, datasets and RL learners on one CUDA card and check them.
+Tune, compiled DAGs, datasets and RL learners on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -133,6 +134,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      steps in this process, its launches, checkpoint bytes, save and
      restore seconds and goodput anatomy printed, and no jax or ray_tpu
      in the worker;
+     then a Tune sweep of trainer trials (``run_tune``): init() with the
+     metrics endpoint, tune.Tuner over that TorchTrainer with two trials
+     on the card at once (trainer_run's learning rate and one that
+     diverges) under ASHA, 6 steps each: the diverging trial STOPPED at
+     the step-3 rung, the winner TERMINATED with its losses held to
+     run_trainer's, K1 (lse)/K2/K3 once per layer per step; while they
+     run, one trial's worker profiled over the control plane (its folded
+     stacks hold tune_fn), the CLI's ``stack`` run on it, and both
+     workers' train_mfu and goodput series found in the head's
+     /metrics; after fit(), the device and goodput views, the
+     dashboard's pages and the CLI's status, list and goodput; then the
+     winner's checkpoint served: serve.llm._load_model restores it on
+     the card, weights bitwise the saved ones, and an LLMEngine
+     generates 16 greedy tokens with exact K1 and K4 counts;
      then data-parallel training through the gradient ring
      (``run_dp``): init(), a TorchTrainer of two workers sharing the
      card, each training the same model at 1 layer from the same seed on
@@ -158,9 +173,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      reshard's staleness 0, losses and grad norms held to run_dp's
      one-process trajectory, the moments after the reshard bitwise the
      old shard and the victim's, K1/K2/K3 4 times each in the survivor,
-     no nvcc, jax or ray_tpu in either worker; recovery seconds, the
-     reshard round, each mirror's bytes and seconds, step walls, peak HBM
-     and host RSS per worker;
+     no nvcc, jax or ray_tpu in either worker; the controller's
+     worker_death audit writes one postmortem bundle from the survivor,
+     holding its ledger with the ring round the kill caught and an HBM
+     row equal to its torch.cuda.memory_allocated at the dump; recovery
+     seconds, the reshard round, each mirror's bytes and seconds, step
+     walls, peak HBM and host RSS per worker;
      then pipeline parallelism (``run_pipeline``): one process's 3 steps
      of Llama-3-8B's widths at 2 layers first, then init() and two
      PipelineStageActor stages in their own worker processes on the card
@@ -3897,16 +3915,22 @@ TRAINER_REL_TOL = 1e-5
 TRAINER_LAYERS = 1
 
 
-def trainer_run():
+def trainer_run(lr: float = 3e-4):
     """(cfg, state, step_fn, batch(step)) of the trainer phase, as the
-    worker and the driver both build it."""
+    worker and the driver both build it (the tune phase's trials with
+    their own peak learning rate ``lr``)."""
+    # torch is imported in the body of each function that a worker runs:
+    # a function pickled by value that names the module's global torch
+    # makes every process that unpickles it (the trial actor, the train
+    # controller) import torch first, ~7.5 s each on the chip host
+    import torch
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import default_optimizer, make_train_step
     cfg = llama.llama3_8b(n_layers=TRAINER_LAYERS, dtype="bfloat16",
                           remat_policy="dots", logits_dtype="float32",
                           ce_chunk=0)
     init_fn, step_fn = make_train_step(cfg, optimizer=default_optimizer(
-        learning_rate=3e-4, warmup_steps=2, total_steps=100))
+        learning_rate=lr, warmup_steps=2, total_steps=100))
     state = init_fn(torch.Generator(device="cuda").manual_seed(0))
 
     def batch(step: int) -> dict:
@@ -3927,6 +3951,7 @@ def trainer_fn(config):
     reports, and dies before reporting the step. Each step
     reports its loss, grad norm, K1/K2/K3 launches, goodput row and the
     train_mfu gauge."""
+    import torch  # in the body: see trainer_run
     import ray_tpu_torch
     from ray_tpu_torch import train
     from ray_tpu_torch.ops import flash_attention as fa
@@ -4016,8 +4041,8 @@ def run_trainer(card: str) -> dict:
     from ray_tpu_torch.train import (FailureConfig, RunConfig,
                                      ScalingConfig, TorchTrainer, ckptio)
     cfg, state, step_fn, batch = trainer_run()
-    want = []
-    for step in range(1, TRAINER_STEPS + 1):
+    want = []       # the tune phase's winner takes more steps
+    for step in range(1, max(TRAINER_STEPS, TUNE_STEPS) + 1):
         state, m = step_fn(state, batch(step))
         want.append((m["loss"].item(), m["grad_norm"].item()))
     del state, m
@@ -4054,8 +4079,9 @@ def run_trainer(card: str) -> dict:
     wait_card_back(free0, "the trainer")
     hist_ = res.metrics_history
     got = [(r["loss"], r["grad_norm"]) for r in hist_]
-    rel = max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want))
-    rel_norm = max(abs(g[1] - w[1]) / abs(w[1]) for g, w in zip(got, want))
+    ref = want[:TRAINER_STEPS]
+    rel = max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, ref))
+    rel_norm = max(abs(g[1] - w[1]) / abs(w[1]) for g, w in zip(got, ref))
     launches = [sum(r["launches"][i] for r in hist_) for i in range(3)]
     rows = [r["goodput"] for r in hist_]
     anatomy = {c: sum(r[c] for r in rows) for c in (
@@ -4067,10 +4093,10 @@ def run_trainer(card: str) -> dict:
           f"{fit_s:.1f} s; steps {[r['step'] for r in hist_]} resumed from "
           f"{[r['resumed_from'] for r in hist_]}, worker killed once "
           f"{died}; losses {[r[0] for r in got]} vs the driver's "
-          f"{[w[0] for w in want]} (max rel {rel:.2e}), grad norms "
-          f"{[r[1] for r in got]} vs {[w[1] for w in want]} (max rel "
+          f"{[w[0] for w in ref]} (max rel {rel:.2e}), grad norms "
+          f"{[r[1] for r in got]} vs {[w[1] for w in ref]} (max rel "
           f"{rel_norm:.2e}; tol {TRAINER_REL_TOL} on each; bitwise "
-          f"{got == want}); step walls "
+          f"{got == ref}); step walls "
           f"{['%.3f' % r['wall_s'] for r in hist_]} s")
     print(f"trainer checkpoint [{card}]: step {man['step']}, "
           f"{nbytes} bytes (parameters as f32, moments as bf16 bits); "
@@ -4107,7 +4133,438 @@ def run_trainer(card: str) -> dict:
     if anatomy["ckpt_stall"] <= 0 or not 0 < hist_[-1]["mfu"] < 1:
         raise SystemExit("the goodput ledger missed the save or the MFU")
     return {"launches": launches, "checkpoint_bytes": nbytes, **save,
-            "restore_s": hist_[-1]["restore_s"], "goodput": anatomy}
+            "restore_s": hist_[-1]["restore_s"], "goodput": anatomy,
+            "want": want}
+
+
+# --- a Tune sweep of trainer trials on the card ------------------------------
+#
+# One user flow: sweep, watch, pick the best, serve it. init() with the
+# metrics endpoint (metrics_port=0), then tune.Tuner over a TorchTrainer
+# (one worker, {"CPU": 1}) whose tune_fn trains trainer_run's model
+# (Llama-3-8B widths at TRAINER_LAYERS, "dots", bf16, 2 x 4096 tokens of
+# batch(step)) for TUNE_STEPS steps, a grid over the peak learning rate:
+# trainer_run's 3e-4 and 0.1, which diverges (AdamW's first steps move
+# every weight by ~lr, and the weights are ~0.016). Both trials run
+# together, each worker holding the one H100. ASHAScheduler(grace 3,
+# reduction 2) culls at step 3, the first step where the two losses can
+# differ (the warmup's first update is at lr 0); max_t is TUNE_STEPS + 1
+# because a trainer trial forwards its checkpoint in one report more than
+# its steps, and a STOP at max_t before that report would end the winner
+# STOPPED. ASHA is asynchronous: a trial that reaches every rung first is
+# never culled there (the reference's trainer-trial ASHA test is a known
+# flake for this reason), so the second trial builds its model beside the
+# first and starts stepping once the first has taken its last step (its
+# save then overlaps the second's steps): the rung holds the first
+# trial's loss when the second reaches it. The stop takes a few of the
+# second trial's steps to reach it (its reports cross the controller's
+# and the trial's polls, and the winner's save loads the host: 2-4 steps
+# after the rung on an H100 host), so the trials take TUNE_STEPS = 12
+# steps and the second has 9 to go at the rung.
+# The winner saves a parameters-only ckptio checkpoint at its last step
+# (on tmpfs where there is one, as run_pipeline's: what is timed is the
+# save, not the disk) and reports it. While the trials run, a watcher
+# thread profiles the first trial's worker over the control plane, runs
+# the CLI's `stack` on it and scrapes the head's /metrics for both
+# workers' series.
+TUNE_STEPS = 12
+TUNE_LRS = (3e-4, 0.1)
+TUNE_GRACE = 3
+TUNE_PROFILE_S = 1.0
+TUNE_NEW = 16           # greedy tokens the served winner generates
+
+
+def tune_fn(config):
+    """Each trial's train_fn, in its train worker: writes who it is
+    (pid, runtime worker id) to config["dir"], builds trainer_run's
+    model at config["lr"], waits (the second trial) for the first
+    trial's marker, then takes TUNE_STEPS steps, each inside a goodput
+    step window, reporting loss, grad norm, the K1-with-lse/K2/K3
+    launches of the step, the train_mfu gauge, the peak HBM and the
+    jax/ray_tpu modules; the first trial writes the marker after its
+    last step, then saves its parameters (f32) through
+    AsyncCheckpointer and reports the checkpoint and their fingerprint
+    with that step."""
+    import torch  # in the body: see trainer_run
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train import ckptio
+    from ray_tpu_torch.util import goodput, storage
+    lead = config["lr"] == config["lead_lr"]
+    me = {"pid": os.getpid(), "lr": config["lr"], "t_start": time.time(),
+          "worker": os.environ["RAY_TPU_WORKER_ID"][:12]}
+    storage.atomic_write_json(os.path.join(
+        config["dir"], "lead.json" if lead else "other.json"), me)
+    for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+              fa.flash_attention_bwd_dq):
+        f.launches = 0
+    fa.flash_attention_fwd.lse_launches = 0
+    cfg, state, step_fn, batch = trainer_run(config["lr"])
+    goodput.set_model_flops(cfg.flops_per_token(4096) * 2 * 4096)
+    ctx = train.get_context()
+    me["t_built"] = time.time()
+    gate = os.path.join(config["dir"], "lead-done")
+    if not lead:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(gate):
+            if time.monotonic() > deadline:
+                raise RuntimeError("the first trial never finished")
+            time.sleep(0.05)
+    for step in range(1, TUNE_STEPS + 1):
+        counts = (fa.flash_attention_fwd.lse_launches,
+                  fa.flash_attention_bwd_dkv.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        with ctx.trace_step():
+            with goodput.interval("compute"):
+                state, m = step_fn(state, batch(step))
+                torch.cuda.synchronize()
+        rep = {"step": step, "loss": m["loss"].item(),
+               "grad_norm": m["grad_norm"].item(),
+               "launches": [
+                   fa.flash_attention_fwd.lse_launches - counts[0],
+                   fa.flash_attention_bwd_dkv.launches - counts[1],
+                   fa.flash_attention_bwd_dq.launches - counts[2]],
+               "mfu": metric("train_mfu", rank=str(ctx.get_world_rank())),
+               "peak_hbm": torch.cuda.max_memory_allocated(),
+               "foreign": foreign_modules(), **me}
+        ck = None
+        if lead and step == TUNE_STEPS:
+            open(gate, "w").close()
+            rep["t_steps"] = time.time()
+            t0 = time.monotonic()
+            named = list(state.params.named_parameters())
+            params = {n: p.detach().float().cpu().numpy() for n, p in named}
+            saver = ckptio.AsyncCheckpointer()
+            saver.save(step, params, block=True)
+            ck = saver.last_committed()
+            saver.close()
+            del params
+            rep.update(save_s=time.monotonic() - t0,
+                       fingerprint=param_fingerprint(
+                           p.float() for _, p in named))
+        train.report(rep, checkpoint=ck)
+
+
+def tune_series(text: str, worker: str) -> dict:
+    """The head's /metrics lines pushed by runtime worker ``worker``:
+    its train_mfu samples and its goodput_seconds_total samples."""
+    out = {"train_mfu": [], "goodput_seconds_total": []}
+    for line in text.splitlines():
+        name = line.split("{", 1)[0].split(" ", 1)[0]
+        if name in out and f'worker="{worker}"' in line:
+            out[name].append(line)
+    return out
+
+
+def tune_watch(root: str, addr: str, maddr, live: dict,
+               done: threading.Event) -> None:
+    """The watcher thread of ``run_tune``, while fit() runs: once the
+    first trial names its worker, profiles it over the control plane
+    (head profile_target, TUNE_PROFILE_S at 100 Hz) and runs
+    ``python -m ray_tpu_torch.scripts stack <pid>`` on it; then scrapes
+    the head's /metrics every 0.25 s until both trials' workers show a
+    train_mfu (rank label) and a goodput series, or fit() returns.
+    Records everything in ``live``; an exception lands in
+    live["error"]."""
+    import urllib.request
+
+    from ray_tpu_torch import scripts
+    try:
+        lead = os.path.join(root, "lead.json")
+        while not os.path.exists(lead):
+            if done.wait(0.05):
+                raise RuntimeError("fit() returned before the first trial "
+                                   "named its worker")
+        with open(lead) as f:
+            who = json.load(f)
+        t0 = time.monotonic()
+        prof = scripts._call_head(
+            addr, "profile_target", timeout=60.0, target=str(who["pid"]),
+            op="profile", duration_s=TUNE_PROFILE_S, hz=100)
+        live["profile"] = dict(
+            wall_s=time.monotonic() - t0, samples=prof.get("samples"),
+            error=prof.get("error"), pid=prof.get("pid"),
+            stacks=len(prof.get("folded") or {}),
+            tune_fn=sum(c for k, c in (prof.get("folded") or {}).items()
+                        if "tune_fn (" in k))
+        t0 = time.monotonic()
+        cli = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch.scripts", "stack",
+             str(who["pid"]), "--address", addr],
+            capture_output=True, text=True, timeout=120)
+        live["stack"] = dict(rc=cli.returncode,
+                             wall_s=time.monotonic() - t0,
+                             lines=len(cli.stdout.splitlines()),
+                             tune_fn="tune_fn" in cli.stdout,
+                             stderr=cli.stderr[-400:])
+        found = {}
+        while True:
+            with urllib.request.urlopen(
+                    f"http://{maddr[0]}:{maddr[1]}/metrics",
+                    timeout=30) as r:
+                text = r.read().decode()
+            for name in ("lead", "other"):
+                path = os.path.join(root, f"{name}.json")
+                if name in found or not os.path.exists(path):
+                    continue
+                with open(path) as f:
+                    w = json.load(f)["worker"]
+                got = tune_series(text, w)
+                if all(got.values()):
+                    found[name] = dict(at_s=time.monotonic() - t0,
+                                       **{k: v[:2] for k, v in
+                                          got.items()})
+            live["series"] = dict(found)
+            if len(found) == 2 or done.wait(0.25):
+                break
+    except Exception as e:          # noqa: BLE001 — re-raised by run_tune
+        live["error"] = f"{type(e).__name__}: {e}"
+
+
+def run_tune(card: str, want: list) -> dict:
+    """The tune phase (see the comment block above). ``want`` is
+    run_trainer's in-process (loss, grad norm) of batch(1..TUNE_STEPS)
+    at lr 3e-4. Checks: the diverging trial STOPPED with fewer than TUNE_STEPS
+    reports, the winner TERMINATED with all of them, K1 (lse)/K2/K3
+    TRAINER_LAYERS times each in every reported step, the winner's
+    losses and grad norms equal to ``want`` within TRAINER_REL_TOL; the
+    watcher's profile holds tune_fn's frame, its CLI stack exits 0, and
+    /metrics carried both workers' train_mfu and goodput series; after
+    fit(), state.list_devices() has an HBM row of each trial's worker
+    and goodput_from_events a row for each trial's steps, the
+    dashboard's /, /goodput, /devices and /profile answer 200, the CLI's
+    status, list actors and goodput exit 0, and no worker loaded jax or
+    ray_tpu. Then serves the winner's checkpoint: serve.llm._load_model
+    restores it on the card (its weights' fingerprint equal to the one
+    the winner took of what it saved), and an LLMEngine over them
+    generates TUNE_NEW greedy tokens for one prompt, K1 once per layer
+    and K4 once per layer per decode step."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import ray_tpu_torch
+    from ray_tpu_torch import api, tune
+    from ray_tpu_torch.serve.llm import LLMConfig, _load_model
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.util import state
+    t_phase = time.monotonic()
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=shm)
+    # the workers read these at start: their metrics reach the head and
+    # their HBM rows the timeline within the short trials
+    env = {"RAY_TPU_METRICS_EXPORT_INTERVAL_S": "0.5",
+           "RAY_TPU_DEVMON_HBM_INTERVAL_S": "0.5"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=6, system_config={"metrics_port": 0})
+    live: dict = {}
+    done = threading.Event()
+    try:
+        addr = "%s:%d" % api._g.ctx.head_addr
+        maddr = api._g.head.metrics_addr
+        watcher = threading.Thread(target=tune_watch, daemon=True,
+                                   args=(root, addr, maddr, live, done))
+        watcher.start()
+        t0 = time.monotonic()
+        fit_at = time.time()
+        grid = tune.Tuner(
+            TorchTrainer(
+                tune_fn, train_loop_config={"dir": root,
+                                            "lead_lr": TUNE_LRS[0]},
+                scaling_config=ScalingConfig(
+                    num_workers=1, resources_per_worker={"CPU": 1}),
+                run_config=RunConfig(name="chip-smoke-tune",
+                                     storage_path=os.path.join(root,
+                                                               "ckpt"))),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=2,
+                scheduler=tune.ASHAScheduler(
+                    metric="loss", mode="min", grace_period=TUNE_GRACE,
+                    reduction_factor=2, max_t=TUNE_STEPS + 1))).fit()
+        fit_s = time.monotonic() - t0
+        done.set()
+        watcher.join(timeout=120)
+        gate_ts = os.path.getmtime(os.path.join(root, "lead-done"))
+        t0 = time.monotonic()
+        with urllib.request.urlopen(
+                f"http://{maddr[0]}:{maddr[1]}/metrics", timeout=30) as r:
+            text = r.read().decode()
+        for name in ("lead", "other"):
+            if name not in live.get("series", {}):
+                with open(os.path.join(root, f"{name}.json")) as f:
+                    got = tune_series(text, json.load(f)["worker"])
+                if all(got.values()):
+                    live.setdefault("series_after_fit", []).append(name)
+        devices = state.list_devices()
+        evs = ray_tpu_torch.timeline(all_nodes=True)
+        steps = [e for e in evs if e.get("cat") == "goodput"
+                 and e.get("name") == "step"]
+        goodput = {"lead": state.goodput_from_events(
+            [e for e in steps if e["ts"] < gate_ts]),
+            "other": state.goodput_from_events(
+                [e for e in steps if e["ts"] > gate_ts])}
+        pages = {}
+        for page in ("/", "/goodput", "/devices", "/profile"):
+            with urllib.request.urlopen(
+                    f"http://{maddr[0]}:{maddr[1]}{page}", timeout=60) as r:
+                pages[page] = (r.status, len(r.read()))
+        clis = {" ".join(a): subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts", *a,
+             "--address", addr], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for a in (("status",), ("list", "actors"), ("goodput",))}
+        cli_rc = {}
+        for k, proc in clis.items():
+            out, err = proc.communicate(timeout=120)
+            cli_rc[k] = (proc.returncode, len(out.splitlines()), err[-300:])
+        views_s = time.monotonic() - t0
+    finally:
+        done.set()
+        ray_tpu_torch.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wait_card_back(free0, "the tune trials")
+    by_lr = {r.config["lr"]: r for r in grid}
+    win, lose = by_lr[TUNE_LRS[0]], by_lr[TUNE_LRS[1]]
+    win_steps = [m for m in win.all_reports if "step" in m][:TUNE_STEPS]
+    lose_steps = [m for m in lose.all_reports if "step" in m]
+    got = [(m["loss"], m["grad_norm"]) for m in win_steps]
+    want = want[:TUNE_STEPS]
+    rel = max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want))
+    rel_n = max(abs(g[1] - w[1]) / abs(w[1]) for g, w in zip(got, want))
+    pids = {"lead": win_steps[0]["pid"], "other": lose_steps[0]["pid"]}
+    hbm_rows = {k: [d for d in devices if d["kind"] == "hbm"
+                    and d["pid"] == pid] for k, pid in pids.items()}
+    print(f"tune [{card}]: Tuner over TorchTrainer trials (llama3_8b "
+          f"widths at {TRAINER_LAYERS} layer(s), 'dots', 2 x 4096 tokens), "
+          f"grid lr {list(TUNE_LRS)}, ASHA grace {TUNE_GRACE} max_t "
+          f"{TUNE_STEPS + 1}, 2 trials at once on the card; fit "
+          f"{fit_s:.1f} s; winner lr {win.config['lr']} {win.status} with "
+          f"{len(win_steps)} step reports, losses {[g[0] for g in got]} vs "
+          f"run_trainer's {[w[0] for w in want]} (max rel {rel:.2e}), grad "
+          f"norms {[g[1] for g in got]} vs {[w[1] for w in want]} (max rel "
+          f"{rel_n:.2e}; tol {TRAINER_REL_TOL} on each; bitwise "
+          f"{got == want}); loser lr {lose.config['lr']} {lose.status} "
+          f"after {len(lose_steps)} step reports, losses "
+          f"{[m['loss'] for m in lose_steps]}")
+    print(f"tune workers [{card}]: peak HBM (max_memory_allocated) winner "
+          f"{win_steps[-1]['peak_hbm'] / 2**30:.2f} GiB, loser "
+          f"{lose_steps[-1]['peak_hbm'] / 2**30:.2f} GiB; launches K1/K2/K3 "
+          f"per step winner {[m['launches'] for m in win_steps]}, loser "
+          f"{[m['launches'] for m in lose_steps]}; train_mfu (last step) "
+          f"winner {win_steps[-1]['mfu']:.4f}, loser "
+          f"{lose_steps[-1]['mfu']:.4f}; the winner's parameter save "
+          f"{win_steps[-1]['save_s']:.2f} s; modules "
+          f"{sorted({x for m in win_steps + lose_steps for x in m['foreign']})}")
+    last = win_steps[-1]
+    print(f"tune wall [{card}]: from fit() to tune_fn in the winner's "
+          f"worker {last['t_start'] - fit_at:.1f} s (loser "
+          f"{lose_steps[0]['t_start'] - fit_at:.1f}), its model built "
+          f"{last['t_built'] - last['t_start']:.1f} s, {TUNE_STEPS} steps "
+          f"{last['t_steps'] - last['t_built']:.1f} s, the save "
+          f"{last['save_s']:.1f} s, then to fit()'s return "
+          f"{fit_at + fit_s - last['t_steps'] - last['save_s']:.1f} s")
+    print(f"tune live [{card}]: profile of the winner's worker "
+          f"{live.get('profile')}; CLI stack {live.get('stack')}; /metrics "
+          f"series found while fit() ran {live.get('series')}, after it "
+          f"{live.get('series_after_fit')}; watcher error "
+          f"{live.get('error')}")
+    print(f"tune views [{card}]: list_devices HBM rows per worker "
+          f"{ {k: len(v) for k, v in hbm_rows.items()} }; goodput rows "
+          f"(split at the winner's last report) "
+          f"{ {k: [(r['rank'], r['steps'], round(r['goodput_fraction'], 4)) for r in v] for k, v in goodput.items()} }; "
+          f"pages {pages}; CLI {cli_rc}; {views_s:.1f} s")
+    bad = []
+    if live.get("error"):
+        bad.append(f"watcher: {live['error']}")
+    if win.status != "TERMINATED" or [m["step"] for m in win_steps] != \
+            list(range(1, TUNE_STEPS + 1)):
+        bad.append(f"winner {win.status}, steps "
+                   f"{[m['step'] for m in win_steps]}")
+    if lose.status != "STOPPED" or not \
+            TUNE_GRACE <= len(lose_steps) < TUNE_STEPS:
+        bad.append(f"loser {lose.status} after {len(lose_steps)} steps")
+    if not lose_steps or lose_steps[TUNE_GRACE - 1]["loss"] <= \
+            win_steps[TUNE_GRACE - 1]["loss"]:
+        bad.append("the diverging trial did not lose at the rung")
+    if any(m["launches"] != [TRAINER_LAYERS] * 3
+           for m in win_steps + lose_steps):
+        bad.append("launches per step")
+    if max(rel, rel_n) > TRAINER_REL_TOL or not np.isfinite(got).all():
+        bad.append("the winner's losses or grad norms differ from "
+                   "run_trainer's")
+    if any(m["foreign"] for m in win_steps + lose_steps):
+        bad.append("a trial worker loaded jax or ray_tpu")
+    prof = live.get("profile") or {}
+    if prof.get("error") or not prof.get("samples") or \
+            not prof.get("tune_fn"):
+        bad.append(f"profile {prof}")
+    if (live.get("stack") or {}).get("rc") != 0:
+        bad.append(f"CLI stack {live.get('stack')}")
+    if len(live.get("series", {})) + len(live.get("series_after_fit",
+                                                  [])) != 2:
+        bad.append("/metrics lacks a trial worker's series")
+    if not all(hbm_rows.values()):
+        bad.append("list_devices lacks a trial worker's HBM row")
+    # the loser's worker goes on stepping until the controller's stop
+    # kills it, past the reports that reached the scheduler
+    if [len(v) for v in goodput.values()] != [1, 1] or \
+            goodput["lead"][0]["steps"] != TUNE_STEPS or not \
+            len(lose_steps) <= goodput["other"][0]["steps"] <= TUNE_STEPS:
+        bad.append(f"goodput rows {goodput}")
+    if any(v[0] != 200 for v in pages.values()) or \
+            any(v[0] != 0 for v in cli_rc.values()):
+        bad.append(f"pages {pages}, CLI {cli_rc}")
+    if bad:
+        shutil.rmtree(root, ignore_errors=True)
+        raise SystemExit("the tune phase failed: " + "; ".join(bad))
+
+    # serve the winner's checkpoint
+    t0 = time.monotonic()
+    cfg, model = _load_model(LLMConfig(
+        model="llama3_8b", model_overrides=dict(n_layers=TRAINER_LAYERS,
+                                                dtype="bfloat16"),
+        checkpoint=win.checkpoint.path, device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    same = param_fingerprint(p.float() for p in model.parameters()) == \
+        win_steps[-1]["fingerprint"]
+    shutil.rmtree(root, ignore_errors=True)
+    prompt = [int(t) for t in np.random.default_rng(7).integers(
+        0, cfg.vocab_size, 200)]
+    reset_serving_counts()
+    reset_obs()
+    (run,), wall, _, stats = serve(model, cfg, [prompt], TUNE_NEW)
+    launches = serving_counts()
+    decode = metric("llm_paged_attn_steps_total", impl="paged_flash")
+    toks = run[0]["tokens"]
+    print(f"tune serve [{card}]: the winner's checkpoint "
+          f"({win.checkpoint.path.rsplit('/', 1)[-1]}) restored onto the "
+          f"card in {load_s:.2f} s, weights bitwise the saved ones {same}; "
+          f"{TUNE_NEW} greedy tokens for a {len(prompt)}-token prompt in "
+          f"{wall:.2f} s: {toks}; launches {launches}, decode steps "
+          f"{decode}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tune [{card}]: phase {time.monotonic() - t_phase:.1f} s")
+    if not same:
+        raise SystemExit("the served weights are not the checkpoint's")
+    if len(toks) != TUNE_NEW or not all(0 <= t < cfg.vocab_size
+                                        for t in toks):
+        raise SystemExit(f"the served winner generated {toks}")
+    if launches["flash_attention_fwd"] != cfg.n_layers or decode <= 0 or \
+            launches["paged_attention"] != decode * cfg.n_layers:
+        raise SystemExit(f"serve launches {launches}, decode steps {decode}")
+    return {"launches": [sum(m["launches"][i] for m in win_steps
+                             + lose_steps) for i in range(3)],
+            "serve": launches, "fit_s": fit_s}
 
 
 # --- data-parallel training through the gradient ring and ZeRO-1 ---------
@@ -4152,6 +4609,7 @@ DP_LAYERS = 1
 def dp_run():
     """(cfg, opt, state) of the data-parallel phase: trainer_run's model
     at DP_LAYERS and its optimizer, on torch.device("cuda") explicitly."""
+    import torch  # in the body: see trainer_run
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import default_optimizer, make_train_step
     cfg = llama.llama3_8b(n_layers=DP_LAYERS, dtype="bfloat16",
@@ -4172,12 +4630,15 @@ def dp_batch(cfg, step: int) -> dict:
 
 
 def param_fingerprint(params) -> list:
-    """Per parameter, two int64 sums of its bits (plain and position-
-    weighted), computed on the card in chunks: equal parameters give
-    equal fingerprints, and one differing element changes them."""
+    """Per parameter (2- or 4-byte elements), two int64 sums of its bits
+    (plain and position-weighted), computed on the card in chunks: equal
+    parameters give equal fingerprints, and one differing element
+    changes them."""
+    import torch  # in the body: see trainer_run
     out = []
     for p in params:
-        bits = p.detach().reshape(-1).view(torch.int16)
+        bits = p.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[p.element_size()])
         s0 = s1 = 0
         for a in range(0, bits.numel(), 1 << 26):
             b = bits[a:a + (1 << 26)].to(torch.int64)
@@ -4196,6 +4657,7 @@ def dp_fn(config):
     reports). The host staging of the ring (dag/ring.py stage_flat and
     stage_leaf off the card, tensor_like back onto it) is timed by
     wrapping them here."""
+    import torch  # in the body: see trainer_run
     import threading
 
     from ray_tpu_torch import train
@@ -4501,8 +4963,9 @@ def run_dp(card: str) -> dict:
 # mirrors each rank's ShardAdamW shard to its ring successor after init
 # and after every step (mirror_interval_steps=1: two f32 moments of the
 # half shard, 5.08 GB, staged once into shared memory). At step 2 rank 1
-# dies (SIGKILL after its backward, before the reduce-scatter, once its
-# step-1 mirror has landed); rank 0, blocked in the reduce-scatter, gets
+# dies (SIGKILL after its backward, before the reduce-scatter, once rank 0
+# has finished its own backward, so both step-1 mirrors have landed and
+# rank 0 is entering the reduce-scatter); rank 0, blocked in it, gets
 # PeerLostError when the controller's rewire aborts the ring,
 # await_regroup()s, reshard()s its moments with rank 1's mirror to the
 # whole space on the card, retries step 2 on the whole batch and runs
@@ -4523,8 +4986,10 @@ def elastic_fn(config):
     rank's slice of dp_batch at the current world size, ZeRO-1 with a
     peer mirror every step. Rank 1 of the first incarnation writes what
     it saw to config["out"]/victim.json and config["marker"] (the wall
-    time) and SIGKILLs itself at ELASTIC_DIE_AT; the survivor writes
+    time) and SIGKILLs itself at ELASTIC_DIE_AT after its backward, once
+    rank 0 has marked its own backward done; the survivor writes
     config["out"]/survivor.json at the end."""
+    import torch  # in the body: see trainer_run
     import signal
     import threading
 
@@ -4534,7 +4999,7 @@ def elastic_fn(config):
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import ShardAdamW
     from ray_tpu_torch.train.zero import ShardedOptimizer
-    from ray_tpu_torch.util import events
+    from ray_tpu_torch.util import events, forensics
 
     def rss():
         with open("/proc/self/status") as f:
@@ -4563,6 +5028,20 @@ def elastic_fn(config):
         return blob
     ShardedOptimizer._snapshot = timed_snapshot
 
+    # the controller's worker_death audit pulls this process's postmortem
+    # dump (TrainWorker.forensics_dump on the actor thread): the card's
+    # allocated bytes just before and after it, for its HBM row
+    dumps = []
+    local_dump = forensics.local_dump
+
+    def measured_dump():
+        before = torch.cuda.memory_allocated()
+        out = local_dump()
+        dumps.append({"before": before, "at": time.time(),
+                      "after": torch.cuda.memory_allocated()})
+        return out
+    forensics.local_dump = measured_dump
+
     ctx = train.get_context()
 
     def landed():
@@ -4582,7 +5061,7 @@ def elastic_fn(config):
     fa.flash_attention_bwd_dq.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = {"steps": [], "mirrors": mirrors}
+    rec = {"steps": [], "mirrors": mirrors, "dumps": dumps}
 
     def counts():
         return [fa.flash_attention_fwd.lse_launches,
@@ -4613,7 +5092,18 @@ def elastic_fn(config):
             p.grad = None
         loss = llama.loss_fn(state.params, mine, cfg)
         loss.backward()
+        entering = os.path.join(config["out"], "rank0_entering")
+        if step == ELASTIC_DIE_AT and rank == 0 and ctx.generation == 0:
+            open(entering, "w").close()
         if step == ELASTIC_DIE_AT and rank == 1 and ctx.generation == 0:
+            # die once rank 0 has its backward too: both step-1 mirrors
+            # have landed, and rank 0 is entering the reduce-scatter the
+            # kill then leaves in flight
+            deadline = time.monotonic() + 300
+            while not os.path.exists(entering):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("rank 0 never reached step 2")
+                time.sleep(0.01)
             rec["moments_fp"] = param_fingerprint([zstate.mu, zstate.nu])
             finish("victim.json")
             with open(config["marker"], "w") as f:
@@ -4691,6 +5181,11 @@ def run_elastic(card: str, want: list) -> dict:
     t_phase = time.monotonic()
     root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     marker = os.path.join(root, "victim_died_at")
+    fx_dir = os.path.join(root, "forensics")
+    # the controller actor's process reads its bundle directory from the
+    # environment it inherits
+    fx_saved = os.environ.get("RAY_TPU_FORENSICS_DIR")
+    os.environ["RAY_TPU_FORENSICS_DIR"] = fx_dir
     free0 = torch.cuda.mem_get_info()[0]
     ray_tpu_torch.init(num_cpus=4)
     try:
@@ -4712,9 +5207,18 @@ def run_elastic(card: str, want: list) -> dict:
             vict = json.load(f)
         with open(marker) as f:
             died_at = float(f.read())
+        bundles = {}
+        for name in sorted(os.listdir(fx_dir)) if os.path.isdir(fx_dir) \
+                else []:
+            with open(os.path.join(fx_dir, name)) as f:
+                bundles[name] = json.load(f)
     finally:
         ray_tpu_torch.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+        if fx_saved is None:
+            os.environ.pop("RAY_TPU_FORENSICS_DIR", None)
+        else:
+            os.environ["RAY_TPU_FORENSICS_DIR"] = fx_saved
     wait_card_back(free0, "the elastic workers")
     phase_s = time.monotonic() - t_phase
     hist_ = [m for m in res.metrics_history if "step" in m]
@@ -4798,6 +5302,34 @@ def run_elastic(card: str, want: list) -> dict:
               f"{r['peak_hbm'] / 2**30:.2f} GiB; peak host RSS "
               f"{r['rss_peak'] / 2**30:.2f} GiB; modules {r['foreign']}, "
               f"nvcc builds {r['compiles']}")
+    deaths = {n: b for n, b in bundles.items()
+              if b.get("trigger") == "worker_death"}
+    (bname, bundle), = deaths.items() if len(deaths) == 1 else \
+        ((None, {}),)
+    dump = (bundle.get("ranks") or {}).get(str(surv["rank"])) or {}
+    # the round the kill caught: still in flight when the controller
+    # pulled the dump, or already aborted by the survivor's PeerLostError
+    inflight = [e for e in (dump.get("ledger") or {}).get("entries", ())
+                if e.get("state") in ("in_flight", "aborted")]
+    rows = [r for r in dump.get("hbm") or () if r["device"] == "cuda:0"]
+    measured = surv["dumps"][0] if surv["dumps"] else {}
+    print(f"elastic postmortem [{card}]: bundles {sorted(bundles)}; "
+          f"worker_death bundle {bname} ({fx_dir}/{bname}, removed with "
+          f"the phase's directory), audit findings "
+          f"{bundle.get('findings')}, ranks {sorted(bundle.get('ranks') or {})}; "
+          f"the survivor's ledger in flight at the kill "
+          f"{[{k: e.get(k) for k in ('group', 'seq', 'kind', 'op', 'state', 'bytes', 'step')} for e in inflight]}; "
+          f"its HBM row {rows} vs torch.cuda.memory_allocated around the "
+          f"dump {measured}; recovery {recovery_s:.3f} s, the audit "
+          f"included")
+    if bname is None:
+        bad.append(f"no single worker_death bundle: {sorted(bundles)}")
+    if not inflight:
+        bad.append("the survivor's ledger holds no round in flight")
+    if len(rows) != 1 or not measured or not (
+            min(measured["before"], measured["after"]) <= rows[0]["used"]
+            <= max(measured["before"], measured["after"])):
+        bad.append(f"the survivor's HBM row {rows} vs {measured}")
     print(f"elastic [{card}]: phase {phase_s:.1f} s")
     if bad:
         raise SystemExit("the elastic phase failed: " + "; ".join(bad))
@@ -5452,10 +5984,32 @@ def run_device_batches(card: str) -> dict:
                 warm_wall_s=warm, loss=loss_it)
 
 
+def share_bytecode() -> str:
+    """Give this process and every process it starts (the cluster's
+    workers, actors and stages, the CLI) one bytecode cache of their own
+    in the temporary directory, removed at exit: the chip host's Python
+    sets PYTHONDONTWRITEBYTECODE and its packages hold no bytecode, so
+    each new process compiled torch's modules from source, at its
+    `import torch` and again at a model's first custom-op registration
+    (which imports torch._dynamo and sympy). The first process to import
+    a module fills the cache."""
+    import atexit
+    import shutil
+    import tempfile
+    path = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+    atexit.register(shutil.rmtree, path, True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = path
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 1
+    share_bytecode()
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
@@ -5552,6 +6106,8 @@ def main() -> int:
     took("run_rllib")
     trainer = run_trainer(card)
     took("run_trainer")
+    tuned = run_tune(card, trainer["want"])
+    took("run_tune")
     dp = run_dp(card)
     took("run_dp")
     elastic = run_elastic(card, dp["want"])
@@ -5575,9 +6131,12 @@ def main() -> int:
             train_k[name]["train_moe_mesh" + ("" if m == "B" else
                                               "_4cards")] = r["launches"][i]
         train_k[name]["train_trainer"] = trainer["launches"][i]
+        train_k[name]["train_tune"] = tuned["launches"][i]
         for path, counts in dict(dp["launches"],
                                  **elastic["launches"]).items():
             train_k[name][path] = counts[i]
+    serve_k1["serve_tune"] = tuned["serve"]["flash_attention_fwd"]
+    serve_k4["serve_tune"] = tuned["serve"]["paged_attention"]
     pipe_k = pipe["launches"]
     train_k["K1"]["train_pipeline_fwd"] = pipe_k["train_pipeline_fwd"]
     train_k["K1"]["train_pipeline_lse"] = pipe_k["train_pipeline_lse"]

@@ -10,11 +10,16 @@ checkpoints, the goodput ledger), compiled actor DAGs over shared-memory
 rings (``dag``) and streaming datasets with batch LLM inference
 (``data``, ``data.llm``), and RLlib's algorithms (``rllib``: PPO,
 IMPALA/APPO, DQN, SAC, BC, multi-agent PPO) with their learners on the
-card behind CPU env runners, with hand-written Hopper kernels in place
-of the Pallas TPU kernels on those paths. It imports torch and numpy, never jax
+card behind CPU env runners, Tune's sweeps over trials (``tune``), and
+the host-only tools around them (the ``ray-tpu-torch`` CLI in
+``scripts``, the ``/metrics`` endpoint and dashboard, live profiling,
+postmortem bundles, job submission, the autoscaler), with hand-written
+Hopper kernels in place of the Pallas TPU kernels on those paths. It imports torch and numpy, never jax
 and never ``ray_tpu``. Submodules load lazily; the runtime's processes
 import torch only when a task does.
 """
+
+from ray_tpu_torch.version import __version__
 
 # the public runtime API, as ``ray_tpu`` exports it at top level
 _API = (
@@ -28,9 +33,9 @@ _API = (
     "WorkerCrashedError", "ObjectLostError", "GetTimeoutError",
 )
 
-_SUBMODULES = ("api", "bridge", "config", "dag", "data", "llm", "models",
-               "ops", "parallel", "rllib", "runtime", "serve", "train",
-               "util")
+_SUBMODULES = ("api", "autoscaler", "bridge", "config", "dag", "data",
+               "job_submission", "llm", "models", "ops", "parallel",
+               "rllib", "runtime", "serve", "train", "tune", "util")
 
 
 def __getattr__(name):

@@ -6,9 +6,8 @@ the reference's ``RAY_CONFIG`` X-macro table (reference:
 src/ray/common/ray_config_def.h) — every tunable has a typed default and
 is overridable from the environment as ``RAY_TPU_<NAME>`` or from the
 ``system_config`` dict handed to :func:`ray_tpu_torch.init`. A field of
-the reference comes here with the port's code that reads it (the
-forensics bundle's knobs have none yet), so no knob is
-accepted and then ignored; a ``system_config`` key that names no field
+the reference comes here with the port's code that reads it, so no
+knob is accepted and then ignored; a ``system_config`` key that names no field
 lands in ``extra``.
 """
 
@@ -369,6 +368,9 @@ class Config:
     # it is off by default (a debugging lever, per PERF_JAX.md's
     # runbook).
     forensics_verify_level: str = "off"
+    # Where postmortem-<step>.json bundles land
+    # ("" = <tmp>/ray_tpu_torch_forensics).
+    forensics_dir: str = ""
 
     # --- durable checkpoint plane (train/ckptio.py) ---
     # How long the rank-0 commit coordinator waits for every rank's

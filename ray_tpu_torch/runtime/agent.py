@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Tuple
 from ray_tpu_torch.config import Config
 from ray_tpu_torch.runtime import rpc
 from ray_tpu_torch.runtime.ids import (ActorID, NodeID, ObjectID,
-                                 PlacementGroupID, WorkerID)
+                                       PlacementGroupID, WorkerID)
 from ray_tpu_torch.runtime.object_store import SharedObjectStore, _attach
 
 IDLE, LEASED, ACTOR, STARTING, DEAD = (
@@ -357,9 +357,45 @@ class NodeAgent:
         knows actors' addresses; agents own the pid -> worker mapping).
         The agent process itself is profilable by its own pid (where a
         stuck lease queue or object pull would show up)."""
-        raise NotImplementedError(
-            "profile_worker: util/profiling.py is not ported to "
-            "ray_tpu_torch yet (ROADMAP Queue 1 item 17)")
+        from ray_tpu_torch.util import profiling
+        if op not in ("profile", "dump_stacks"):
+            # defense in depth with the head's check: op is forwarded
+            # as the worker RPC method name
+            return {"found": False, "error": f"unknown profile op {op!r}"}
+        if pid is not None and int(pid) == os.getpid():
+            if op == "dump_stacks":
+                return {"found": True, "pid": os.getpid(),
+                        "stacks": profiling.dump_stacks()}
+            loop = asyncio.get_running_loop()
+            res = await loop.run_in_executor(
+                None, lambda: profiling.profile(duration_s, hz))
+            return {"found": True, "pid": os.getpid(), **res}
+        w = None
+        for cand in self.workers.values():
+            if cand.state == DEAD or cand.addr is None:
+                continue
+            if pid is not None and cand.proc is not None \
+                    and cand.proc.pid == int(pid):
+                w = cand
+                break
+            if worker_id is not None and \
+                    cand.worker_id.hex().startswith(str(worker_id)):
+                w = cand
+                break
+        if w is None:
+            return {"found": False}
+        kw = {} if op == "dump_stacks" else \
+            {"duration_s": duration_s, "hz": hz}
+        try:
+            r = await self.pool.call(w.addr, op,
+                                     timeout=float(duration_s) + 30.0,
+                                     **kw)
+        except Exception as e:  # noqa: BLE001 — report, don't crash
+            return {"found": True, "error": f"profile RPC failed: {e}"}
+        r["found"] = True
+        r["worker_id"] = w.worker_id.hex()
+        r["node_id"] = self.node_id.hex()
+        return r
 
     async def node_forensics(self, timeout_s: float = 10.0):
         """The autopsy fan-out's node leg: this agent's own forensics
@@ -368,9 +404,24 @@ class NodeAgent:
         serialize the others). Per-worker failures degrade to error
         rows: on a hung node the absence of an answer is itself
         evidence."""
-        raise NotImplementedError(
-            "node_forensics: the postmortem half of util/forensics.py is "
-            "not ported to ray_tpu_torch yet (ROADMAP Queue 1 item 17)")
+        from ray_tpu_torch.util import forensics
+        out = {"node_id": self.node_id.hex(),
+               "agent": forensics.local_dump(), "workers": {}}
+        live = [(wid.hex(), w) for wid, w in self.workers.items()
+                if w.state != DEAD and w.addr is not None]
+
+        async def pull(wid, w):
+            try:
+                r = await self.pool.call(w.addr, "forensics_dump",
+                                         timeout=float(timeout_s))
+            except Exception as e:  # noqa: BLE001 — evidence, not fatal
+                r = {"error": f"{type(e).__name__}: {e}",
+                     "pid": w.proc.pid if w.proc is not None else None}
+            out["workers"][wid] = r
+
+        if live:
+            await asyncio.gather(*(pull(wid, w) for wid, w in live))
+        return out
 
     async def node_stats(self):
         return {"node_id": self.node_id,

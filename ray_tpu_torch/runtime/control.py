@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from ray_tpu_torch.config import Config
 from ray_tpu_torch.runtime import rpc
 from ray_tpu_torch.runtime.ids import (ActorID, JobID, NodeID, ObjectID,
-                                 PlacementGroupID)
+                                       PlacementGroupID)
 
 # Actor lifecycle states (reference: gcs/actor/gcs_actor_manager.h FSM).
 PENDING, ALIVE, RESTARTING, DEAD = "PENDING", "ALIVE", "RESTARTING", "DEAD"
@@ -1195,9 +1195,53 @@ class ControlService:
         silence IS the finding. Returns the bundle path plus the
         audit's findings so the CLI can print a diagnosis without
         re-opening the file."""
-        raise NotImplementedError(
-            "autopsy: the postmortem half of util/forensics.py is not "
-            "ported to ray_tpu_torch yet (ROADMAP Queue 1 item 17)")
+        from ray_tpu_torch.util import events as _ev
+        from ray_tpu_torch.util import forensics
+
+        async def pull(n):
+            try:
+                return n.node_id.hex(), await self.pool.call(
+                    n.addr, "node_forensics", timeout=30.0)
+            except Exception as e:  # noqa: BLE001 — evidence, not fatal
+                return n.node_id.hex(), \
+                    {"error": f"{type(e).__name__}: {e}"}
+
+        alive = [n for n in list(self.nodes.values()) if n.alive]
+        results = await asyncio.gather(*[pull(n) for n in alive])
+        nodes = {nid: dump for nid, dump in results}
+
+        # Cross-rank audit over every worker dump that carries a rank
+        # (train workers stamp one; bare task workers stay rank -1 and
+        # only contribute stacks).
+        ledgers: Dict[int, dict] = {}
+        for dump in nodes.values():
+            if not isinstance(dump, dict):
+                continue
+            for w in (dump.get("workers") or {}).values():
+                r = w.get("rank", -1) if isinstance(w, dict) else -1
+                snap = w.get("ledger") if isinstance(w, dict) else None
+                if isinstance(r, int) and r >= 0 \
+                        and isinstance(snap, dict) and "entries" in snap:
+                    ledgers[r] = snap
+        tmo = float(stall_timeout_s) if stall_timeout_s else \
+            float(self.config.forensics_stall_timeout_s)
+        findings = forensics.audit(ledgers, stall_timeout_s=tmo) \
+            if ledgers else []
+        payload = {
+            "trigger": "autopsy",
+            "findings": [dict(f) for f in findings],
+            "nodes": nodes,
+            "head_events": _ev.dump()[-512:],
+        }
+        try:
+            path = forensics.write_bundle(payload)
+        except Exception as e:  # noqa: BLE001 — diagnosis beats bundle
+            path = None
+            payload["bundle_error"] = f"{type(e).__name__}: {e}"
+        _ev.record("forensics", "bundle", trigger="autopsy", path=path,
+                   findings=len(findings))
+        return {"path": path, "findings": payload["findings"],
+                "nodes": sorted(nodes), "ranks": sorted(ledgers)}
 
     async def report_node_events(self, events: list) -> dict:
         """A stopping node archives its span buffer here so the cluster

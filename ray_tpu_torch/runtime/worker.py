@@ -33,10 +33,6 @@ from ray_tpu_torch.runtime.serialization import dumps_oob, loads_oob, serialize
 from ray_tpu_torch.util import tracing
 
 
-_UNPORTED_PROFILING = ("util/profiling.py is not ported to ray_tpu_torch "
-                       "yet (ROADMAP Queue 1 item 17)")
-
-
 def _task_error_frame(exc: BaseException) -> bytes:
     """Serialized TaskError carrying the remote traceback (cause dropped
     when it doesn't pickle)."""
@@ -108,7 +104,8 @@ class WorkerExecutor:
         """One-shot thread dump of this worker process (the driver
         reaches it via the head's profile_target; reference capability:
         py-spy dump through dashboard/modules/reporter/)."""
-        raise NotImplementedError(_UNPORTED_PROFILING)
+        from ray_tpu_torch.util import profiling
+        return {"pid": os.getpid(), "stacks": profiling.dump_stacks()}
 
     async def forensics_dump(self):
         """This process's postmortem contribution (util/forensics.py):
@@ -116,15 +113,18 @@ class WorkerExecutor:
         registered engine state. Served off the control-plane loop, so
         it answers while hosted actors are wedged in a hung
         collective — the property the autopsy fan-out relies on."""
-        raise NotImplementedError(
-            "forensics_dump: the postmortem half of util/forensics.py is "
-            "not ported to ray_tpu_torch yet (ROADMAP Queue 1 item 17)")
+        from ray_tpu_torch.util import forensics
+        return forensics.local_dump()
 
     async def profile(self, duration_s: float = 2.0, hz: int = 100):
         """Sample this process's stacks for duration_s at hz; returns
         folded stacks. Runs on an executor thread so the event loop
         (and the actors it hosts) keeps serving while being observed."""
-        raise NotImplementedError(_UNPORTED_PROFILING)
+        from ray_tpu_torch.util import profiling
+        loop = asyncio.get_running_loop()
+        res = await loop.run_in_executor(
+            None, lambda: profiling.profile(duration_s, hz))
+        return {"pid": os.getpid(), **res}
 
     # --- common result packaging -----------------------------------------
 

@@ -14,7 +14,10 @@ The port's copy of ``ray_tpu/serve/llm.py``. ``LLMConfig.device`` is the
 one field the JAX package's lacks: ``None`` serves on the CUDA device (and
 a replica raises without one), ``"cpu"`` runs the kernels' plain
 versions. Weights are drawn from ``seed`` on that device
-(``llama.init_params``); a ``checkpoint`` raises until the port has it.
+(``llama.init_params``), or, with ``checkpoint``, restored from a
+directory in the port's own ``train/ckptio.py`` format (what
+``TorchTrainer``'s ``ckptio.AsyncCheckpointer`` writes), where the JAX
+package restores an orbax tree.
 ``tensor_parallel > 1`` serves each replica's engine over a
 ``TensorMesh`` (``_serving_mesh``): the first ``tensor_parallel`` visible
 cards, or on ``device="cpu"`` that many CPU entries, which stand in for
@@ -36,10 +39,11 @@ class LLMConfig:
     """What to serve and how to batch it.
 
     `model` names a config constructor in ray_tpu_torch.models.llama (e.g.
-    "tiny", "llama3_8b") or is a LlamaConfig; `checkpoint` would point at
-    a directory of params (not ported yet: it raises) — absent, params
-    are randomly initialized from `seed` (useful for shape/perf work and
-    tests). `device` is where each replica's engine runs: None is the
+    "tiny", "llama3_8b") or is a LlamaConfig; `checkpoint` points at a
+    committed ``train/ckptio.py`` checkpoint directory (or storage URI)
+    whose parameter space holds the model's parameters, by name, as f32
+    (optimizer state there is ignored) — absent, params are randomly
+    initialized from `seed` (useful for shape/perf work and tests). `device` is where each replica's engine runs: None is the
     CUDA device, "cpu" the plain versions.
     """
     model: object = "tiny"
@@ -97,13 +101,15 @@ def _serving_mesh(tensor_parallel: int, device: Optional[str] = None):
 def _load_model(cfg: LLMConfig):
     """Resolve (model_cfg, params) from an LLMConfig — shared by the
     decode, prefill, and unified servers so every replica holds
-    identical weights. The weights are drawn on ``cfg.device`` from a
-    generator on that device seeded with ``cfg.seed``."""
-    if cfg.checkpoint:
-        raise NotImplementedError(
-            "LLMConfig.checkpoint: restoring served weights from a "
-            "checkpoint directory is not ported to ray_tpu_torch yet "
-            "(ROADMAP Queue 1 item 17)")
+    identical weights. The weights are restored from ``cfg.checkpoint``
+    (``_restore_params``) or drawn on ``cfg.device`` from a generator on
+    that device seeded with ``cfg.seed``."""
+    from ray_tpu_torch.train import ckptio
+    if cfg.checkpoint and ckptio.manifest_of(cfg.checkpoint) is None:
+        raise ValueError(
+            f"LLMConfig.checkpoint {cfg.checkpoint!r} is not a committed "
+            f"{ckptio.FORMAT} checkpoint directory (no manifest there: "
+            "missing, torn, or another format)")
     _serving_mesh(cfg.tensor_parallel, cfg.device)   # before any weights
     import torch
 
@@ -113,9 +119,35 @@ def _load_model(cfg: LLMConfig):
     if isinstance(model_cfg, str):
         model_cfg = getattr(llama, model_cfg)(**cfg.model_overrides)
     dev = resolve_device(cfg.device)
+    if cfg.checkpoint:
+        return model_cfg, _restore_params(cfg.checkpoint, model_cfg, dev)
     params = llama.init_params(
         torch.Generator(device=dev).manual_seed(cfg.seed), model_cfg, dev)
     return model_cfg, params
+
+
+def _restore_params(checkpoint: str, model_cfg, dev):
+    """A Llama on ``dev``, in the model's dtype, whose parameters are the
+    parameter space of the ckptio checkpoint at ``checkpoint``: one f32
+    array per ``named_parameters()`` name, as ``TorchTrainer``'s
+    ``AsyncCheckpointer.save(step, params)`` writes them
+    (``parallel/mesh.state_to_numpy``). A bf16 model's values were widened
+    to f32 exactly, so they come back bit for bit."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import ckptio
+    model = llama.empty_model(model_cfg, dev)
+    named = dict(model.named_parameters())
+    template = {n: np.empty(tuple(p.shape), np.float32)
+                for n, p in named.items()}
+    arrays, _, _ = ckptio.restore(template, None, checkpoint=checkpoint,
+                                  bounds=(0, 0))
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(torch.from_numpy(np.ascontiguousarray(arrays[n])))
+    return llama.finish(model, trainable=False)
 
 
 class _LLMServer:

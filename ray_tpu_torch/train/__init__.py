@@ -10,8 +10,8 @@ host-plane collectives over the controller-wired gradient ring
 (``allreduce_gradients``, ``reduce_scatter_gradients``,
 ``allgather_params``, ZeRO-1's ``ShardedOptimizer``), and pipeline
 parallelism (``Pipeline`` over ``PipelineStageActor`` stages, its
-schedules from ``compile_schedule``). Boosting waits for ROADMAP.md's
-Queue 1 item 17.
+schedules from ``compile_schedule``), and the host-only gradient-boosted
+trees (``BoostingTrainer``, numpy over the object plane).
 """
 
 from ray_tpu_torch.train.api import (Checkpoint, CheckpointConfig,
@@ -19,6 +19,8 @@ from ray_tpu_torch.train.api import (Checkpoint, CheckpointConfig,
                                      ScalingConfig, await_regroup,
                                      ensure_torch_distributed, get_context,
                                      get_dataset_shard, report)
+from ray_tpu_torch.train.boosting import (BoostingConfig, BoostingModel,
+                                          BoostingTrainer)
 from ray_tpu_torch.train.ckptio import (AsyncCheckpointer, CkptError,
                                         preempted,
                                         restore as restore_checkpoint)
@@ -36,6 +38,7 @@ from ray_tpu_torch.train.zero import ShardedOptimizer
 
 __all__ = [
     "AsyncCheckpointer",
+    "BoostingConfig", "BoostingModel", "BoostingTrainer",
     "Checkpoint", "CheckpointConfig", "CkptError",
     "FailureConfig", "PeerLostError",
     "Pipeline", "PipelineStageActor",

@@ -323,6 +323,26 @@ def _hash(data: bytes) -> str:
     return "sha256:" + hashlib.sha256(data).hexdigest()
 
 
+class _Hasher(threading.Thread):
+    """``_hash(data)`` on a thread of its own, started at construction:
+    hashlib releases the GIL over a large buffer, so a shard's hash
+    overlaps its write (``write_shard``) or its parse (``_load_shard``)
+    instead of adding to it. ``result()`` waits for the digest."""
+
+    def __init__(self, data) -> None:
+        super().__init__(daemon=True)
+        self._data = data
+        self._digest: Optional[str] = None
+        self.start()
+
+    def run(self) -> None:
+        self._digest = _hash(self._data)
+
+    def result(self) -> str:
+        self.join()
+        return self._digest
+
+
 def _shard_base(space: str, rank: int, world: int) -> str:
     return f"{space}.shard-{rank:05d}-of-{world:05d}"
 
@@ -388,6 +408,7 @@ def write_shard(storage_path: str, ckpt: str, *, space: str, rank: int,
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     data = buf.getvalue()
+    digest = _Hasher(data)
     act = _chaos_fire("shard")
     if act is not None and act[0] == "torn":
         # simulate a non-atomic writer crashing mid-payload: truncated
@@ -401,7 +422,7 @@ def write_shard(storage_path: str, ckpt: str, *, space: str, rank: int,
             "bounds": [int(bounds[0]), int(bounds[1])],
             "total": int(total), "step": int(step),
             "file": f"{base}.npz", "bytes": len(data),
-            "hash": _hash(data)}
+            "hash": digest.result()}
     if attempt:
         meta["attempt"] = str(attempt)
     st.put_bytes(f"{root}/{ckpt}/{base}.json",
@@ -642,20 +663,26 @@ def _load_shard(st, root: str, srec: dict, verify: bool):
     data = st.get_bytes(f"{root}/{srec['file']}")
     if data is None:
         raise CkptError(f"shard file {srec['file']} is missing")
-    if verify and _hash(data) != srec["hash"]:
-        raise CkptError(
-            f"shard file {srec['file']} content hash mismatch "
-            f"(torn or corrupted payload)")
+    # the hash runs beside the parse; a mismatch wins over whatever the
+    # parse made of the payload, as when the hash was checked first
+    digest = _Hasher(data) if verify else None
     try:
         # eager member read: np.load is lazy, and a torn zip must
         # surface HERE as a typed CkptError the restore fallback
         # understands — not as a BadZipFile at first member access
         with np.load(io.BytesIO(data)) as npz:
-            return {k: npz[k] for k in npz.files}
+            arrays, err = {k: npz[k] for k in npz.files}, None
     except Exception as e:             # noqa: BLE001 — fail closed
+        arrays, err = None, e
+    if digest is not None and digest.result() != srec["hash"]:
+        raise CkptError(
+            f"shard file {srec['file']} content hash mismatch "
+            f"(torn or corrupted payload)")
+    if err is not None:
         raise CkptError(
             f"shard file {srec['file']} is unreadable "
-            f"(corrupted payload): {e}") from e
+            f"(corrupted payload): {err}") from err
+    return arrays
 
 
 def _assemble_space(st, root: str, sp: dict, verify: bool,

@@ -9,8 +9,9 @@ gradient-sync ring spec each worker's TrainContext attaches
 and so is the in-place N-1 reshape on a worker loss (``_plan_reshape``,
 ``_reshape``: the survivors re-form the ring and reshard their ZeRO
 state from the peer mirrors, each rank's ring successor holding its
-mirror). The forensics audit of the survivors and its stall watchdog
-wait for ROADMAP.md's Queue 1 item 17.
+mirror), and so are the forensics stall watchdog and the postmortem
+audit of the survivors of a worker loss (``_note_forensics``,
+``_forensics_audit``).
 
 Reference: v2/_internal/execution/controller/controller.py:105
 (TrainController.run), worker_group/worker_group.py:113 (create on a
@@ -32,7 +33,7 @@ import cloudpickle
 import ray_tpu_torch
 from ray_tpu_torch import api
 from ray_tpu_torch.train.api import (Checkpoint, FailureConfig, Result, RunConfig,
-                               ScalingConfig)
+                                     ScalingConfig)
 from ray_tpu_torch.train.checkpoint import CheckpointManager
 from ray_tpu_torch.train.worker import TrainWorker
 from ray_tpu_torch.util import events
@@ -231,7 +232,7 @@ class TrainController:
         self._workers = [self._workers[i] for i in order]
         self._infos = [infos[i] for i in order]
         ray_tpu_torch.get([w.set_rank.remote(i)
-                     for i, w in enumerate(self._workers)], timeout=60)
+                           for i, w in enumerate(self._workers)], timeout=60)
         return infos
 
     def _bootstrap_distributed(self, num_workers: int):
@@ -482,6 +483,7 @@ class TrainController:
         self._straggler_last = -1
         self._straggler_since = None   # wall-clock start of the
         #                                current straggler episode
+        self._fx_fired = set()         # audited (group, seq) episodes
         self._last_mirrors = {}
         self._last_pipeline = {}
         sync = self._grad_sync_specs(group_id)
@@ -738,6 +740,114 @@ class TrainController:
         except Exception:   # noqa: BLE001 — observability must not
             pass            # break the liveness loop
 
+    def _note_forensics(self, polls: Dict[int, dict]) -> None:
+        """The stall watchdog (util/forensics.py): when any rank's
+        poll summary shows a collective in_flight past
+        forensics_stall_timeout_s — or the straggler signal persists
+        that long — pull every rank's FULL ledger (forensics_dump:
+        answered on the actor thread, so it works while the train_fn
+        thread is parked inside the hung collective), diff them
+        across ranks, and emit the culprit-naming
+        collective_stall/collective_desync event, the
+        forensics_stall_rank health sentinel, and a postmortem
+        bundle. One audit per (group, seq) episode — a hang that
+        outlives many polls must not write a bundle per poll."""
+        try:
+            from ray_tpu_torch.config import get_config
+            tmo = float(getattr(get_config(),
+                                "forensics_stall_timeout_s", 60.0))
+            stalled = []
+            for i, p in polls.items():
+                fxs = p.get("forensics") or {}
+                for e in fxs.get("inflight", ()):
+                    if float(e.get("age_s", 0.0)) >= tmo:
+                        stalled.append((e.get("group", ""),
+                                        int(e.get("seq", -1))))
+            now = time.monotonic()
+            if getattr(self, "_straggler_last", -1) >= 0:
+                if getattr(self, "_straggler_since", None) is None:
+                    self._straggler_since = now
+            else:
+                self._straggler_since = None
+            strag = self._straggler_since is not None and \
+                now - self._straggler_since >= tmo
+            if stalled:
+                episodes, trigger = set(stalled), "stall_watchdog"
+            elif strag:
+                episodes = {("straggler", self._straggler_last)}
+                trigger = "straggler_persist"
+            else:
+                return
+            fired = getattr(self, "_fx_fired", set())
+            if episodes <= fired:
+                return
+            self._fx_fired = fired | episodes
+            self._forensics_audit(trigger=trigger, stall_timeout_s=tmo)
+        except Exception:   # noqa: BLE001 — the watchdog must never
+            pass            # break the liveness loop
+
+    def _forensics_audit(self, trigger: str,
+                         stall_timeout_s: Optional[float] = None,
+                         skip: Optional[set] = None) -> Optional[str]:
+        """One cross-rank forensics fan-out: pull every (live)
+        worker's local dump, run the ledger diff, emit findings, and
+        write the postmortem bundle. Returns the bundle path."""
+        from ray_tpu_torch.config import get_config
+        from ray_tpu_torch.util import forensics
+        tmo = float(stall_timeout_s if stall_timeout_s is not None else
+                    getattr(get_config(), "forensics_stall_timeout_s",
+                            60.0))
+        dumps: Dict[int, dict] = {}
+        refs = [(i, w.forensics_dump.remote())
+                for i, w in enumerate(self._workers)
+                if not (skip and i in skip)]
+        for i, ref in refs:
+            try:
+                d = ray_tpu_torch.get(ref, timeout=15)
+                r = int(d.get("rank", i))
+                dumps[r if r >= 0 else i] = d
+            except Exception as e:   # noqa: BLE001 — a dead worker's
+                dumps[i] = {"rank": i,  # absence is itself evidence
+                            "error": f"{type(e).__name__}: {e}"}
+        ledgers = {r: d["ledger"] for r, d in dumps.items()
+                   if isinstance(d.get("ledger"), dict)}
+        findings = forensics.audit(ledgers, stall_timeout_s=min(
+            tmo, max(0.5, tmo / 2)))
+        try:
+            forensics.forensics_metrics()["audits"].inc()
+        except Exception:   # noqa: BLE001
+            pass
+        culprit, step = -1, None
+        for f in findings:
+            events.record(
+                "forensics", f["kind"], ph="i", ts=time.time(),
+                group=f["group"], seq=f["seq"],
+                culprits=list(f["culprits"]), detail=f["detail"],
+                trigger=trigger, train_group=self._group_id[:12])
+            print(f"[train] forensics {f['kind']}: {f['detail']}")
+            if culprit < 0 and f["culprits"]:
+                culprit = int(f["culprits"][0])
+        if findings:
+            try:
+                forensics.forensics_metrics()["stall_rank"].set(
+                    float(culprit))
+            except Exception:   # noqa: BLE001
+                pass
+        for d in dumps.values():
+            for e in (d.get("ledger") or {}).get("entries", ()):
+                if e.get("state") == "in_flight" and \
+                        e.get("step") is not None:
+                    step = int(e["step"])
+        bundle = {"trigger": trigger, "group_id": self._group_id,
+                  "findings": findings, "ranks": dumps,
+                  "events": events.dump()[-512:]}
+        path = forensics.write_bundle(bundle, step=step)
+        events.record("forensics", "bundle", ph="i", ts=time.time(),
+                      path=path, trigger=trigger,
+                      train_group=self._group_id[:12])
+        print(f"[train] postmortem bundle ({trigger}): {path}")
+        return path
+
     def _poll_until_done(self, poll_s: float = 0.2):
         pending = set(range(len(self._workers)))
         grow_iv = self.scaling.elastic_grow_interval_s
@@ -763,6 +873,7 @@ class TrainController:
             if self._stop_requested:
                 raise TrainGroupError("stop requested")
             self._note_goodput(polls)
+            self._note_forensics(polls)
             for i, p in sorted(polls.items()):
                 for rep in p["reports"]:
                     self._handle_report(p["rank"], rep)
@@ -810,11 +921,17 @@ class TrainController:
                 # without consuming the failure budget
                 preempt_only = all(i in self._preempt_notice
                                    for i, _ in dead)
+                # postmortem bundle from the SURVIVORS now, before the
+                # reshape/teardown destroys the evidence (ledgers show
+                # exactly which collective the group died inside)
+                try:
+                    self._forensics_audit(trigger="worker_death",
+                                          skip={i for i, _ in dead})
+                except Exception:   # noqa: BLE001 — recovery first
+                    pass
                 # worker loss: reshape the surviving ranks in place
                 # when the elastic policy allows it, else fall through
-                # to the restart-from-checkpoint path in run() (the
-                # reference's postmortem audit of the survivors waits
-                # for the forensics plane, ROADMAP.md Queue 1 item 17)
+                # to the restart-from-checkpoint path in run()
                 plan = self._plan_reshape(dead, pending)
                 if plan is not None:
                     pending = self._reshape(plan, dead[0][1],
@@ -934,6 +1051,7 @@ class TrainController:
         self._straggler_det = self._make_straggler_detector()
         self._straggler_last = -1
         self._straggler_since = None
+        self._fx_fired = set()
         n = len(self._workers)
         import uuid
         gid = uuid.uuid4().hex

@@ -5,8 +5,8 @@ torch.distributed world (``init_torch_distributed``) where the JAX
 package's joins jax.distributed, and hands its TrainContext the
 controller's gradient-sync ring spec and its ring successor (the peer
 that stores this rank's ZeRO shard mirrors); the peer-mirror store and
-the in-place rewire of the elastic reshape are the reference's, and the
-forensics dump waits for ROADMAP.md's Queue 1 item 17. Like every
+the in-place rewire of the elastic reshape are the reference's, and so
+are the forensics poll summary and dump. Like every
 runtime worker, it imports no device package until the train_fn does.
 
 Reference: v2/_internal/execution/worker_group/worker.py + thread_runner.py
@@ -34,6 +34,16 @@ def _goodput_anatomy():
     try:
         from ray_tpu_torch.util import goodput
         return goodput.anatomy()
+    except Exception:   # noqa: BLE001
+        return None
+
+
+def _forensics_summary():
+    """In-flight collective rows for poll() — never raises, tiny
+    (full ledgers only move on an explicit forensics_dump pull)."""
+    try:
+        from ray_tpu_torch.util import forensics
+        return forensics.poll_summary()
     except Exception:   # noqa: BLE001
         return None
 
@@ -210,15 +220,23 @@ class TrainWorker:
                 # must NOT re-form a ring around a lost pipeline stage
                 # (its parameters exist nowhere else — restart instead)
                 "pipeline": bool(self.ctx.pipeline_group)
-                if self.ctx else False}
+                if self.ctx else False,
+                # in-flight collective descriptors + per-group issue
+                # counters (util/forensics.py): the stall watchdog's
+                # cheap signal — the controller only pulls full
+                # ledgers (forensics_dump) when one of these ages
+                # past forensics_stall_timeout_s
+                "forensics": _forensics_summary()}
 
     def forensics_dump(self) -> Dict[str, Any]:
-        """The postmortem contribution (collective ledger, stacks,
-        goodput rows, HBM snapshot) comes with the forensics plane
-        (ROADMAP.md, Queue 1 item 17)."""
-        raise NotImplementedError(
-            "forensics_dump (the collective ledger and postmortem "
-            "bundles) is not ported yet (ROADMAP.md, Queue 1 item 17)")
+        """Everything this worker contributes to a postmortem bundle:
+        full collective ledger, thread stacks, goodput rows, HBM
+        snapshot, registered engine state (util/forensics.local_dump).
+        Runs on the actor thread, so it works while the train_fn
+        thread is parked inside a hung collective — that is the whole
+        point."""
+        from ray_tpu_torch.util import forensics
+        return forensics.local_dump()
 
     # --- elastic reshape -------------------------------------------------
 

@@ -1,23 +1,40 @@
-"""Forensics: the per-rank collective ledger and the engine/queue state
-providers.
+"""Hang & desync forensics: the cross-rank collective ledger.
 
-The port's copy of the parts of ``ray_tpu/util/forensics.py`` that the
-port's code calls:
+The framework's worst failure mode is the silent distributed hang:
+ranks disagree on the next collective (seq, kind, codec options) and
+the ring blocks until a wall-clock timeout with zero diagnosis. Every
+other observability plane (ring trace, devmon, goodput) is per-rank;
+this module holds the pieces that compare ledgers ACROSS ranks:
 
   * ``CollectiveLedger`` — a bounded per-rank ring of collective
     descriptors (group, seq, kind, bytes, codec, options-signature
     hash, enter/exit stamps, state enqueued|in_flight|done|aborted),
     fed from dag/ring.py's round lifecycle and train/collective.py's
-    enqueue points; process-global (``ledger()``), namespaced by group.
-  * the typed errors (``CollectiveDesyncError`` /
-    ``CollectiveStallError``) the opt-in pre-flight guard
-    (Config.forensics_verify_level, train/collective.py) raises.
-  * the state-provider registry: components register a zero-argument
-    callable whose value a postmortem bundle would carry under
-    ``state.<name>`` (the ``LLMEngine`` registers its ``stats``).
+    enqueue points. Recording is two dict writes per round — the
+    clock reads piggyback on the ones the round-level trace already
+    pays, so the default-level overhead stays within noise
+    (FORENSICS_BENCH.json).
+  * ``audit`` — the pure cross-rank diff: given every rank's ledger
+    snapshot it names the culprit — "rank 3 never entered seq 141 of
+    group zero/g7", or "seq 141 options-signature mismatch: rank 0
+    int4 vs rank 2 fp32".
+  * ``write_bundle`` — the one-command postmortem: stacks + ledgers +
+    engine state + recent events + HBM + goodput anatomy, atomically
+    written as ``postmortem-<step>.json`` (CLI: ``ray-tpu autopsy``).
+  * typed errors (``CollectiveDesyncError`` / ``CollectiveStallError``)
+    the opt-in pre-flight guard (Config.forensics_verify_level) raises
+    instead of letting the ring hang.
 
-The cross-rank audit, the bundle writer and the postmortem wait for
-ROADMAP.md's Queue 1 item 17.
+The ledger is process-global (one per worker process, like goodput):
+every ring instance in the process appends to it, namespaced by its
+group id, so a single RPC pull sees the whole rank's collective
+history in issue order.
+
+The port's copy of ``ray_tpu/util/forensics.py``, unchanged but for
+import paths; ``local_dump``'s HBM rows come from the port's
+``util/devmon.hbm_snapshot`` (``torch.cuda``), and bundles land under
+``<tmp>/ray_tpu_torch_forensics`` unless ``Config.forensics_dir`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -160,8 +177,8 @@ _meta: Dict[str, Any] = {}
 
 def enabled() -> bool:
     """Ledger on/off (Config.forensics_ledger / RAY_TPU_FORENSICS_LEDGER
-    — the JAX package's FORENSICS_BENCH.json off arm). Checked once
-    per ring construction, not per round."""
+    — the FORENSICS_BENCH off arm). Checked once per ring construction,
+    not per round."""
     try:
         from ray_tpu_torch.config import get_config
         return bool(getattr(get_config(), "forensics_ledger", True))
@@ -199,6 +216,42 @@ def set_meta(**kw) -> None:
     _meta.update(kw)
 
 
+def reset() -> None:
+    global _ledger, _rank
+    with _ledger_lock:
+        _ledger = None
+    _rank = -1
+    _meta.clear()
+
+
+def snapshot() -> dict:
+    """The full per-rank ledger view the cross-rank audit diffs."""
+    led = ledger()
+    return {"rank": _rank, "now": time.time(), "meta": dict(_meta),
+            "entries": led.snapshot(), "max_seq": led.max_seq()}
+
+
+def poll_summary() -> Optional[dict]:
+    """The tiny never-raise summary that rides the train worker's
+    poll() payload: just the in-flight rows (with ages) and per-group
+    issue counters — enough for the controller watchdog to decide
+    whether to pull full ledgers."""
+    try:
+        if not enabled():
+            return None
+        led = ledger()
+        now = time.time()
+        inflight = [{"group": e["group"], "seq": e["seq"],
+                     "kind": e["kind"], "codec": e["codec"],
+                     "step": e["step"], "age_s": now - e["t_enter"]}
+                    for e in led.snapshot()
+                    if e["state"] == "in_flight"]
+        return {"rank": _rank, "inflight": inflight,
+                "max_seq": led.max_seq()}
+    except Exception:   # noqa: BLE001 — poll must never raise
+        return None
+
+
 def record_enqueued(*, group: str, kind: str, step=None,
                     detail: Optional[str] = None) -> None:
     """Train-plane intent row: 'this rank is about to issue a
@@ -213,7 +266,6 @@ def record_enqueued(*, group: str, kind: str, step=None,
                    op=detail, step=step)
     except Exception:   # noqa: BLE001 — bookkeeping must never raise
         pass
-
 
 
 # --- engine/queue state providers ----------------------------------------
@@ -248,3 +300,198 @@ def provider_states() -> Dict[str, Any]:
         except Exception as e:   # noqa: BLE001 — one bad provider
             out[name] = {"error": f"{type(e).__name__}: {e}"}
     return out
+
+
+# --- the cross-rank audit -------------------------------------------------
+
+
+def audit(ledgers: Dict[int, dict],
+          stall_timeout_s: float = 60.0) -> List[dict]:
+    """Diff every rank's ledger snapshot and name the culprit.
+
+    ``ledgers`` maps rank -> ``snapshot()`` dicts. Findings (newest
+    collective first):
+
+      * ``collective_desync`` — two ranks hold the same (group, seq)
+        with different options signatures (a codec or option that one
+        rank changed alone). The culprits are the minority side (or
+        all, on an even split).
+      * ``collective_stall`` — some ranks are in_flight at (group,
+        seq) past the timeout while others never issued that seq
+        ("rank 3 never entered seq 141 of group zero/g7"), or every
+        rank entered and a subset is stuck while peers finished.
+
+    Pure function — no clock reads besides each snapshot's own ``now``
+    stamp, so it is unit-testable with synthetic ledgers."""
+    findings: List[dict] = []
+    ranks = sorted(ledgers)
+    # index: (group, seq) -> {rank: entry}
+    by_cs: Dict[tuple, Dict[int, dict]] = {}
+    for r in ranks:
+        for e in ledgers[r].get("entries", ()):
+            if e.get("kind") is None or e.get("group") is None:
+                continue
+            if e.get("state") == "enqueued":
+                continue             # intent rows have their own seqs
+            by_cs.setdefault((e["group"], e["seq"]), {})[r] = e
+    seen_stall: set = set()
+    for (group, seq) in sorted(by_cs, key=lambda k: (k[0], -k[1])):
+        ents = by_cs[(group, seq)]
+        # -- desync: differing options signature at the same slot
+        sigs = {}
+        for r, e in ents.items():
+            tag = (e.get("sig") or "", e.get("codec"), e.get("op"))
+            sigs.setdefault(tag, []).append(r)
+        if len(sigs) > 1:
+            groups = sorted(sigs.items(),
+                            key=lambda kv: (len(kv[1]), kv[1]))
+            culprits = sorted(groups[0][1]) if \
+                len(groups[0][1]) < len(groups[-1][1]) else \
+                sorted(r for _, rs in groups for r in rs)
+            detail = (f"seq {seq} options-signature mismatch on group "
+                      f"{group}: " + " vs ".join(
+                          f"rank {rs[0]} "
+                          f"{ents[rs[0]].get('codec') or ents[rs[0]].get('sig') or 'fp32'}"
+                          for _, rs in groups))
+            findings.append({"kind": "collective_desync", "group": group,
+                             "seq": seq, "culprits": culprits,
+                             "detail": detail})
+            continue
+        # -- stall: someone is in_flight past the timeout at this slot
+        stuck = [r for r, e in ents.items()
+                 if e.get("state") == "in_flight" and
+                 ledgers[r].get("now", 0) - e.get("t_enter", 0)
+                 >= stall_timeout_s]
+        if not stuck or group in seen_stall:
+            continue
+        seen_stall.add(group)
+        absent = []
+        for r in ranks:
+            if r in ents:
+                continue
+            if ledgers[r].get("max_seq", {}).get(group, 0) < seq:
+                absent.append(r)
+        e0 = ents[stuck[0]]
+        kind = e0.get("kind", "collective")
+        if absent:
+            who = ", ".join(f"rank {r}" for r in absent)
+            detail = (f"{who} never entered seq {seq} of group {group} "
+                      f"({kind}); {len(stuck)} rank(s) blocked in it "
+                      f"for >= {stall_timeout_s:.0f}s")
+            culprits = absent
+        else:
+            done = sorted(r for r, e in ents.items()
+                          if e.get("state") in _TERMINAL)
+            who = ", ".join(f"rank {r}" for r in sorted(stuck))
+            detail = (f"{who} stuck in seq {seq} of group {group} "
+                      f"({kind}) while "
+                      f"{'ranks ' + str(done) if done else 'no peer'} "
+                      f"finished it")
+            culprits = sorted(stuck)
+        findings.append({"kind": "collective_stall", "group": group,
+                         "seq": seq, "culprits": culprits,
+                         "detail": detail})
+    return findings
+
+
+# --- postmortem bundles ---------------------------------------------------
+
+
+def bundle_dir() -> str:
+    """Config.forensics_dir, or <tmp>/ray_tpu_torch_forensics."""
+    import os
+    import tempfile
+    d = ""
+    try:
+        from ray_tpu_torch.config import get_config
+        d = str(getattr(get_config(), "forensics_dir", "") or "")
+    except Exception:   # noqa: BLE001
+        pass
+    return d or os.path.join(tempfile.gettempdir(),
+                             "ray_tpu_torch_forensics")
+
+
+def local_dump() -> dict:
+    """Everything THIS process can contribute to a bundle: its ledger,
+    stacks, goodput anatomy, HBM snapshot, and registered engine
+    state. Never raises — each section degrades to an error string."""
+    import os
+    out: Dict[str, Any] = {"pid": os.getpid(), "rank": _rank,
+                           "meta": dict(_meta), "now": time.time()}
+    try:
+        out["ledger"] = snapshot()
+    except Exception as e:   # noqa: BLE001
+        out["ledger"] = {"error": f"{type(e).__name__}: {e}"}
+    try:
+        from ray_tpu_torch.util import profiling
+        out["stacks"] = profiling.dump_stacks()
+    except Exception as e:   # noqa: BLE001
+        out["stacks"] = {"error": f"{type(e).__name__}: {e}"}
+    try:
+        from ray_tpu_torch.util import goodput
+        rows = goodput.recent_rows()
+        out["goodput"] = rows[-8:] if rows else []
+    except Exception:   # noqa: BLE001
+        out["goodput"] = []
+    try:
+        from ray_tpu_torch.util import devmon
+        out["hbm"] = devmon.hbm_snapshot(record=False)
+    except Exception:   # noqa: BLE001
+        out["hbm"] = None
+    try:
+        out["state"] = provider_states()
+    except Exception:   # noqa: BLE001
+        out["state"] = {}
+    return out
+
+
+def write_bundle(payload: dict, *, step: Optional[int] = None,
+                 directory: Optional[str] = None) -> str:
+    """Atomically write one postmortem bundle; returns the path. The
+    name is ``postmortem-<step>.json`` per the runbook — on-demand
+    autopsies with no step context get a millisecond stamp instead so
+    repeated pulls never clobber each other."""
+    import os
+    from ray_tpu_torch.util import storage
+    d = directory or bundle_dir()
+    os.makedirs(d, exist_ok=True)
+    tag = str(step) if step is not None else f"t{int(time.time() * 1e3)}"
+    path = os.path.join(d, f"postmortem-{tag}.json")
+    payload = dict(payload)
+    payload.setdefault("written_at", time.time())
+    payload.setdefault("step", step)
+    storage.atomic_write_json(path, payload)
+    try:
+        forensics_metrics()["bundles"].inc()
+    except Exception:   # noqa: BLE001
+        pass
+    return path
+
+
+# --- metrics --------------------------------------------------------------
+
+_metrics: Optional[Dict[str, Any]] = None
+
+
+def forensics_metrics() -> Dict[str, Any]:
+    """Lazy singleton registry, mirroring goodput_metrics():
+    ``forensics_stall_rank`` (the health sentinel: -1 healthy, else
+    the culprit rank of the last audit finding),
+    ``forensics_audits_total``, ``forensics_bundles_total``."""
+    global _metrics
+    if _metrics is None:
+        from ray_tpu_torch.util import metrics as m
+        _metrics = {
+            "stall_rank": m.Gauge(
+                "forensics_stall_rank",
+                "Culprit rank named by the last collective audit "
+                "finding (-1 = healthy)"),
+            "audits": m.Counter(
+                "forensics_audits_total",
+                "Cross-rank collective ledger audits run"),
+            "bundles": m.Counter(
+                "forensics_bundles_total",
+                "Postmortem bundles written"),
+        }
+        _metrics["stall_rank"].set(-1.0)
+    return _metrics

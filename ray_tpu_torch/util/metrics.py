@@ -1,16 +1,15 @@
-"""Metrics: user-facing Counter/Gauge/Histogram and the Prometheus text.
+"""Metrics: user-facing Counter/Gauge/Histogram + Prometheus export.
 
-The port's copy of ``ray_tpu/util/metrics.py`` (analog of the reference's
-metrics pipeline: python/ray/util/metrics.py for the user API,
-_private/metrics_agent.py for the scrape path): metrics live in a
-process-global registry, render to the Prometheus text format with
-OpenMetrics exemplar tails, and a head merges a worker's pushed samples
-through ``merge_remote``, fed by each worker's ``push_loop``.
-Components can also register scrape-time collectors. The HTTP endpoint
-(``MetricsServer``) and its dashboard history are not copied: they sit on
-``util/dashboard.py``, which the port has not ported yet (ROADMAP item
-17), so ``acquire_shared_server`` (``Config.metrics_port >= 0``) raises
-and ``reset`` clears the registry alone.
+Analog of the reference's metrics pipeline (reference:
+python/ray/util/metrics.py for the user API, _private/metrics_agent.py +
+OpenCensus export for the scrape path), collapsed to one dependency-free
+layer: metrics live in a process-global registry; an asyncio HTTP
+endpoint renders the Prometheus text format on demand. Components can
+also register scrape-time collectors (e.g. the node agent contributes
+live lease/object-store gauges without bookkeeping on the hot path).
+
+The port's copy of ``ray_tpu/util/metrics.py``, unchanged but for
+import paths.
 """
 
 from __future__ import annotations
@@ -359,11 +358,211 @@ def snapshot() -> Dict[str, float]:
 
 
 def reset() -> None:
-    """Test hook: drop all metrics, collectors and pushed snapshots."""
+    """Test hook: drop all metrics, collectors, and dashboard history."""
     with _LOCK:
         _REGISTRY.clear()
         _COLLECTORS.clear()
         _REMOTE.clear()
+    from ray_tpu_torch.util import dashboard
+    dashboard.clear_history()
+
+
+_DASH_HTML = b"""<!doctype html><html><head><title>ray-tpu</title>
+<style>body{font-family:monospace;margin:2em;background:#111;color:#ddd}
+h1{font-size:1.2em}table{border-collapse:collapse;margin-top:1em}
+td,th{border:1px solid #444;padding:4px 10px;text-align:left}
+th{background:#222}.num{text-align:right}</style></head><body>
+<h1>ray-tpu cluster</h1><div id=t>loading...</div>
+<script>
+async function tick(){
+  const r = await fetch('/metrics'); const text = await r.text();
+  const rows = [];
+  for (const line of text.split('\\n')) {
+    if (!line || line.startsWith('#')) continue;
+    const i = line.lastIndexOf(' ');
+    rows.push([line.slice(0, i), line.slice(i + 1)]);
+  }
+  rows.sort((a, b) => a[0] < b[0] ? -1 : 1);
+  const esc = s => s.replace(/&/g, '&amp;').replace(/</g, '&lt;')
+                    .replace(/>/g, '&gt;');
+  document.getElementById('t').innerHTML =
+    '<table><tr><th>metric</th><th>value</th></tr>' +
+    rows.map(r => `<tr><td>${esc(r[0])}</td>` +
+                  `<td class=num>${esc(r[1])}</td></tr>`)
+        .join('') + '</table>';
+}
+tick(); setInterval(tick, 2000);
+</script></body></html>"""
+
+
+def _wants_param(query: Optional[str], name: str) -> bool:
+    """True for an actually-truthy query parameter (?name=1) —
+    substring matching would misroute ?name=0 or params that merely
+    contain the name (?dropexemplars=1)."""
+    from urllib.parse import parse_qs
+    v = parse_qs(query or "").get(name, [""])[0]
+    return v.lower() not in ("", "0", "false", "no")
+
+
+def _wants_json(query: Optional[str]) -> bool:
+    return _wants_param(query, "json")
+
+
+class MetricsServer:
+    """Minimal asyncio HTTP endpoint serving /metrics, /healthz, and a
+    live dashboard at /."""
+
+    def __init__(self):
+        self._server: Optional[asyncio.AbstractServer] = None
+        self.addr: Optional[Tuple[str, int]] = None
+        self._sampler: Optional[asyncio.Task] = None
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0):
+        self._server = await asyncio.start_server(self._on_conn, host, port)
+        self.addr = self._server.sockets[0].getsockname()[:2]
+        if self._sampler is None:
+            self._sampler = asyncio.ensure_future(self._history_loop())
+        return self.addr
+
+    async def _history_loop(self):
+        """Feed the dashboard's time-series ring: one cluster-state +
+        metric-snapshot sample per export interval (the reference
+        provisions Prometheus/Grafana for history; here a bounded
+        in-process ring serves /history directly)."""
+        from ray_tpu_torch.config import get_config
+        from ray_tpu_torch.util import dashboard
+        interval = max(0.25, get_config().metrics_export_interval_s)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                await dashboard.record_sample(_state_fetchers())
+            except Exception:
+                pass  # sampling must never kill the server
+
+    async def stop(self):
+        if self._sampler is not None:
+            self._sampler.cancel()
+            try:
+                await self._sampler
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._sampler = None
+            # this server's cluster is going away: a later cluster in
+            # the same process must not inherit its history or its
+            # workers' pushed snapshots
+            from ray_tpu_torch.util import dashboard
+            dashboard.clear_history()
+            with _LOCK:
+                _REMOTE.clear()
+        if self._server is not None:
+            self._server.close()
+            try:
+                await asyncio.wait_for(self._server.wait_closed(), 2.0)
+            except Exception:
+                pass
+
+    async def _on_conn(self, reader: asyncio.StreamReader,
+                       writer: asyncio.StreamWriter):
+        try:
+            req = await asyncio.wait_for(reader.readline(), 10.0)
+            path = req.split()[1].decode() if len(req.split()) > 1 else "/"
+            path, _, query = path.partition("?")
+            while True:  # drain headers
+                line = await asyncio.wait_for(reader.readline(), 10.0)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+            if path.startswith("/metrics"):
+                # exemplar tails use OpenMetrics syntax the classic
+                # text format does not permit — a stock Prometheus
+                # scrape would reject EVERY sample over the '#'. The
+                # default scrape is therefore always stripped;
+                # ?exemplars=1 is the explicit human/tooling opt-in
+                # (we deliberately do NOT negotiate on Accept: stock
+                # Prometheus advertises openmetrics-text by default,
+                # and this endpoint's counter naming — family name ==
+                # sample name, lint-suffixed `_total` — is not strict
+                # OpenMetrics, so claiming that content type would
+                # break the scrape we just protected).
+                text = render_all()
+                if not _wants_param(query, "exemplars"):
+                    text = strip_exemplars(text)
+                body = text.encode()
+                ctype = "text/plain; version=0.0.4"
+                code = "200 OK"
+            elif path.startswith("/healthz"):
+                body, ctype, code = b"ok\n", "text/plain", "200 OK"
+            elif path.rstrip("/") == "/health" \
+                    and _wants_json(query):
+                # machine-readable health snapshot (?json=1): the SLO
+                # engine's full state — objectives, burn rates, active
+                # alerts, sentinels, and the per-deployment
+                # ``burn_advice`` map that is the input contract for
+                # SLO-driven replica autoscaling (ROADMAP item 3).
+                # Bare /health (below) renders the human dashboard.
+                import json as _json
+                from ray_tpu_torch.util import health as _health
+                state = None
+                for fetch in _state_fetchers():
+                    try:
+                        state = await fetch("health_state")
+                        break
+                    except Exception:
+                        continue
+                if state is None:    # no agent in this process: local
+                    state = _health.local_state()
+                body = (_json.dumps(state, default=str) + "\n").encode()
+                ctype, code = "application/json", "200 OK"
+            elif path.startswith("/raw"):
+                # the original metric-table page, kept at /raw
+                body, ctype, code = _DASH_HTML, "text/html", "200 OK"
+            else:
+                # server-rendered cluster dashboard (nodes/actors/jobs/
+                # pgs/serve/tasks off the control-plane state API)
+                from ray_tpu_torch.util import dashboard
+                page = await dashboard.render(path, _state_fetchers(),
+                                              query)
+                if page is not None:
+                    body, ctype, code = page, "text/html", "200 OK"
+                else:
+                    body, ctype, code = b"not found\n", "text/plain", \
+                        "404 Not Found"
+            writer.write(
+                f"HTTP/1.1 {code}\r\nContent-Type: {ctype}\r\n"
+                f"Content-Length: {len(body)}\r\n"
+                f"Connection: close\r\n\r\n".encode() + body)
+            await writer.drain()
+        except Exception:
+            pass
+        finally:
+            try:
+                writer.close()
+            except Exception:
+                pass
+
+
+# One MetricsServer per process: render_all() serves the process-global
+# registry, so control service + agent(s) sharing a process share one
+# endpoint (a fixed port would otherwise EADDRINUSE on the head node).
+_SRV: Optional[MetricsServer] = None
+_SRV_REFS = 0
+
+
+async def acquire_shared_server(host: str, port: int) -> Tuple[str, int]:
+    global _SRV, _SRV_REFS
+    if _SRV is None:
+        srv = MetricsServer()
+        await srv.start(host, port)
+        _SRV = srv
+    _SRV_REFS += 1
+    return _SRV.addr
+
+
+async def release_shared_server() -> None:
+    global _SRV, _SRV_REFS
+    _SRV_REFS -= 1
+    if _SRV_REFS <= 0 and _SRV is not None:
+        srv, _SRV, _SRV_REFS = _SRV, None, 0
+        await srv.stop()
 
 
 def core_metric(kind: str, name: str, desc: str) -> Metric:
@@ -375,12 +574,3 @@ def core_metric(kind: str, name: str, desc: str) -> Metric:
                "histogram": Histogram}[kind]
         m = cls(name, desc)
     return m
-
-
-async def acquire_shared_server(host: str, port: int) -> Tuple[str, int]:
-    """The reference's shared ``/metrics`` HTTP endpoint: not ported."""
-    raise NotImplementedError(
-        "the metrics HTTP endpoint (Config.metrics_port >= 0) sits on "
-        "util/dashboard.py, which the port has not copied yet (ROADMAP "
-        "item 17); leave metrics_port at -1")
-

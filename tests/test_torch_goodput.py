@@ -2,14 +2,12 @@
 peak table held to the JAX package's own tests.
 
 ``tests/test_zz_goodput.py`` runs here unedited (``_torch_ported.py``,
-``ray_tpu`` rewritten to ``ray_tpu_torch``, no other rename). Left out,
-each for the ROADMAP.md Queue 1 item it waits for:
-
-- test_step_events_and_state_anatomy_rows: item 17 (``util/state.py``'s
-  goodput view, ``goodput_from_events``);
-- test_cli_goodput_renders_anatomy_and_mfu: item 17 (the ``scripts.py``
-  CLI).
-
+``ray_tpu`` rewritten to ``ray_tpu_torch``, no other rename), with
+``util/state.py``'s goodput view and the ``scripts.py`` CLI. Nothing is
+left out. Each test starts on an empty event buffer (``_fresh_events``):
+the buffer is process-global, and an earlier file in the same test
+worker can leave rank-1 goodput step events there, which
+``test_step_events_and_state_anatomy_rows`` would average with its own.
 Beside them: the ledger's peak on a card (``_peak`` reads the CUDA
 device's name; no card, no MFU gauge), and the device monitor's builds
 booked as the compile category.
@@ -21,16 +19,16 @@ import pytest
 
 from _torch_ported import adopt, ported
 
-from ray_tpu_torch.util import accelerators, devmon, goodput
+from ray_tpu_torch.util import accelerators, devmon, events, goodput
 
-SKIP = {
-    "test_step_events_and_state_anatomy_rows":
-        "Queue 1 item 17: util/state.py's goodput view",
-    "test_cli_goodput_renders_anatomy_and_mfu":
-        "Queue 1 item 17: the scripts.py CLI",
-}
+adopt(ported("test_zz_goodput"), globals())
 
-adopt(ported("test_zz_goodput"), globals(), skip=SKIP)
+
+@pytest.fixture(autouse=True)
+def _fresh_events():
+    events.clear()
+    yield
+    events.clear()
 
 
 def test_peak_from_the_cuda_device_name(monkeypatch):

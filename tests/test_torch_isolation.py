@@ -89,7 +89,15 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.rllib.env", "ray_tpu_torch.rllib.impala",
                 "ray_tpu_torch.rllib.multi_agent",
                 "ray_tpu_torch.rllib.nets", "ray_tpu_torch.rllib.ppo",
-                "ray_tpu_torch.rllib.rollout", "ray_tpu_torch.rllib.sac"]
+                "ray_tpu_torch.rllib.rollout", "ray_tpu_torch.rllib.sac",
+                "ray_tpu_torch.tune", "ray_tpu_torch.tune.schedulers",
+                "ray_tpu_torch.tune.search", "ray_tpu_torch.tune.tuner",
+                "ray_tpu_torch.train.boosting",
+                "ray_tpu_torch.util.dashboard",
+                "ray_tpu_torch.util.profiling",
+                "ray_tpu_torch.util.collective",
+                "ray_tpu_torch.autoscaler", "ray_tpu_torch.job_submission",
+                "ray_tpu_torch.version"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -106,6 +114,54 @@ def test_import_leaves_jax_and_ray_tpu_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_host_libraries_leave_jax_and_ray_tpu_out():
+    """In a fresh process with a cluster serving the metrics endpoint
+    (``metrics_port=0``): a Tune sweep under ASHA, a boosted model, a
+    profile and an autopsy over the control plane, the dashboard's pages
+    and the CLI's ``main`` leave jax, ml_dtypes and every ray_tpu module
+    out of ``sys.modules``."""
+    code = (
+        "import os, sys, tempfile, urllib.request\n"
+        "import numpy as np\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import api, scripts, tune\n"
+        "from ray_tpu_torch.train import BoostingConfig, BoostingTrainer\n"
+        "os.environ['RAY_TPU_FORENSICS_DIR'] = tempfile.mkdtemp()\n"
+        "rt.init(num_cpus=4, system_config={'metrics_port': 0})\n"
+        "def fn(config):\n"
+        "    for i in range(3):\n"
+        "        tune.report({'loss': config['x'] * (i + 1)})\n"
+        "grid = tune.Tuner(fn, param_space={'x': tune.grid_search([1, 9])},\n"
+        "    tune_config=tune.TuneConfig(metric='loss', mode='min',\n"
+        "        max_concurrent_trials=1, scheduler=tune.ASHAScheduler(\n"
+        "            metric='loss', mode='min', grace_period=1, max_t=3,\n"
+        "            reduction_factor=2))).fit()\n"
+        "assert grid.get_best_result().config['x'] == 1\n"
+        "X = np.random.default_rng(0).normal(size=(200, 3))\n"
+        "BoostingTrainer(BoostingConfig(num_boost_round=2, num_workers=1),\n"
+        "                (X, X[:, 0])).fit()\n"
+        "addr = '%s:%d' % api._g.ctx.head_addr\n"
+        "prof = scripts._call_head(addr, 'profile_target', timeout=30,\n"
+        "    target=str(os.getpid()), duration_s=0.2, hz=50)\n"
+        "assert prof.get('samples', 0) > 0, prof\n"
+        "assert scripts._call_head(addr, 'autopsy', timeout=60)['path']\n"
+        "host, port = api._g.head.metrics_addr\n"
+        "for page in ('/', '/metrics', '/goodput', '/devices', '/profile'):\n"
+        "    with urllib.request.urlopen(\n"
+        "            'http://%s:%d%s' % (host, port, page), timeout=30) as r:\n"
+        "        assert r.status == 200, page\n"
+        "assert scripts.main(['status', '--address', addr]) == 0\n"
+        "rt.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes') "
+        "or m.startswith(('jax.', 'ml_dtypes.')) or m == 'ray_tpu' or "
+        "m.startswith('ray_tpu.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_port_modules_list_every_module():

@@ -193,7 +193,35 @@ def test_push_once_and_push_loop_match_jax(clean, monkeypatch):
     assert calls[:3] == ["report_metrics"] * 3
 
 
-def test_metrics_endpoint_is_not_ported():
+def test_metrics_endpoint_is_not_ported(clean, monkeypatch):
+    """The shared ``/metrics`` endpoint (``Config.metrics_port >= 0``):
+    ``acquire_shared_server`` starts one ``MetricsServer`` per process,
+    a second acquire returns its address, and a scrape renders the same
+    Prometheus text as the JAX package's server for the same registry
+    (exemplar tails stripped unless ``?exemplars=1``)."""
     import asyncio
-    with pytest.raises(NotImplementedError, match="item 17"):
-        asyncio.run(tmetrics.acquire_shared_server("127.0.0.1", 0))
+    import urllib.request
+
+    def scrape(addr, path="/metrics"):
+        with urllib.request.urlopen(
+                f"http://{addr[0]}:{addr[1]}{path}", timeout=10) as r:
+            return r.read().decode()
+
+    bodies = {}
+    for mod in (jmetrics, tmetrics):
+        monkeypatch.setattr(mod, "_SRV", None)
+        monkeypatch.setattr(mod, "_SRV_REFS", 0)
+        _mixed(mod)
+
+        async def go():
+            addr = await mod.acquire_shared_server("127.0.0.1", 0)
+            again = await mod.acquire_shared_server("127.0.0.1", 0)
+            loop = asyncio.get_running_loop()
+            out = [await loop.run_in_executor(None, scrape, addr),
+                   await loop.run_in_executor(
+                       None, scrape, addr, "/metrics?exemplars=1")]
+            await mod.release_shared_server()
+            return addr, again, out
+        addr, again, bodies[mod] = asyncio.run(go())
+        assert again == addr
+    assert bodies[tmetrics] == bodies[jmetrics]

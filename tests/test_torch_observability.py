@@ -1,19 +1,11 @@
-"""The port's cluster observability (events, metrics push, state views)
-held to the JAX package's own tests.
+"""The port's cluster observability (events, metrics push, state views,
+the metrics HTTP endpoint) held to the JAX package's own tests.
 
 ``tests/test_observability.py`` runs here unedited
 (``_torch_ported.py``, ``ray_tpu`` rewritten to ``ray_tpu_torch``, no
-other rename). Left out, for the ROADMAP.md Queue 1 item it waits for:
-
-- test_cluster_metrics_endpoint: item 17 (the metrics HTTP endpoint,
-  ``Config.metrics_port >= 0``, on ``util/dashboard.py``).
+other rename). Nothing is left out.
 """
 
 from _torch_ported import adopt, ported
 
-SKIP = {
-    "test_cluster_metrics_endpoint":
-        "Queue 1 item 17: the metrics HTTP endpoint (metrics_port >= 0)",
-}
-
-adopt(ported("test_observability"), globals(), skip=SKIP)
+adopt(ported("test_observability"), globals())

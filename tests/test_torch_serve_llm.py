@@ -191,14 +191,16 @@ def test_llm_config_is_the_jax_config_plus_device():
     pytest.param(dict(tensor_parallel=2, device="cuda"), ValueError,
                  "only 1 local devices", id="kw0-item 11"),
     pytest.param(dict(checkpoint="/nonexistent/params"),
-                 NotImplementedError, "item 17", id="kw1-item 17"),
+                 ValueError, "not a committed ray_tpu_torch.ckpt/1",
+                 id="kw1-item 17"),
 ])
 def test_unported_options_raise_before_drawing_weights(monkeypatch, kw,
                                                        exc, match):
-    """(f) ``checkpoint=`` raises, naming the ROADMAP Queue 1 item it
-    waits for, and ``tensor_parallel`` beyond the visible cards raises as
-    the JAX package's ``_serving_mesh`` does, both before any weights are
-    drawn (one card visible here)."""
+    """(f) A ``checkpoint=`` that is no committed checkpoint of the
+    port's ``train/ckptio.py`` format raises, and ``tensor_parallel``
+    beyond the visible cards raises as the JAX package's
+    ``_serving_mesh`` does, both before any weights are drawn (one card
+    visible here)."""
     from ray_tpu_torch.models import llama
 
     def drawn(*a, **k):

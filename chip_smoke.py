@@ -1,6 +1,6 @@
 """Drive ray_tpu_torch's serving path, training step, train library,
-Tune, compiled DAGs, datasets and RL learners on one CUDA card and check
-them.
+Tune, the cluster launcher, compiled DAGs, datasets and RL learners on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -148,6 +148,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      winner's checkpoint served: serve.llm._load_model restores it on
      the card, weights bitwise the saved ones, and an LLMEngine
      generates 16 greedy tokens with exact K1 and K4 counts;
+     then the cluster launcher (``run_launcher``): launcher.up() on a
+     config dict, a head of 2 CPUs whose resources {GPU: 0} keep the
+     card off it and a worker node of 2 CPUs that detects the card (GPU
+     1, its gpu_model label naming it), a driver joined by address with
+     no resources, a TorchTrainer(use_gpu=True) whose one worker takes 3
+     steps of the trainer phase's model on the launcher's worker node,
+     its losses and grad norms held to run_trainer's, K1 (lse)/K2/K3
+     once per layer a step, no jax or ray_tpu in the worker; then
+     launcher.down(): no error, no node process left, the state file and
+     node records removed, the card's memory back; up, fit and down
+     seconds;
      then data-parallel training through the gradient ring
      (``run_dp``): init(), a TorchTrainer of two workers sharing the
      card, each training the same model at 1 layer from the same seed on
@@ -4567,6 +4578,172 @@ def run_tune(card: str, want: list) -> dict:
             "serve": launches, "fit_s": fit_s}
 
 
+# --- the cluster launcher: the trainer on a launcher-started GPU node ---------
+#
+# launcher.up() on a config dict (the chip host's Python has no PyYAML;
+# the CLI's YAML round trip is held by the CPU tests): a head of 2 CPUs
+# whose resources {GPU: 0} override the card's detection, and one local
+# worker node of 2 CPUs with a label of this phase's own, which detects
+# the card itself (util/accelerators.py NvidiaGPUPlugin: GPU 1 and the
+# label gpu_model). The driver joins by address with no resources of its
+# own, so the use_gpu worker can only land on the launcher's worker node.
+# A TorchTrainer of one worker takes LAUNCHER_STEPS steps of trainer_run's
+# model (Llama-3-8B widths at TRAINER_LAYERS, "dots", 2 x 4096 tokens),
+# no failure and no checkpoint; its losses and grad norms are held to
+# run_trainer's in-process steps at TRAINER_REL_TOL (the same kernels and
+# cuBLAS calls on the same card and values). launcher.down() then stops
+# the nodes: workers first, SIGTERM, a 10 s grace, SIGKILL.
+LAUNCHER_STEPS = 3
+LAUNCHER_LABEL = {"chip_smoke": "launcher"}
+
+
+def launcher_fn():
+    """run_launcher's train_fn, in the train worker: LAUNCHER_STEPS steps
+    of trainer_run's model, each reporting its loss, grad norm, K1 (with
+    lse)/K2/K3 launches, the node it ran on, its CUDA_VISIBLE_DEVICES and
+    the jax or ray_tpu modules it loaded."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import flash_attention as fa
+    _, state, step_fn, batch = trainer_run()
+    for step in range(1, LAUNCHER_STEPS + 1):
+        counts = (fa.flash_attention_fwd.lse_launches,
+                  fa.flash_attention_bwd_dkv.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        state, m = step_fn(state, batch(step))
+        train.report({
+            "step": step, "loss": m["loss"].item(),
+            "grad_norm": m["grad_norm"].item(),
+            "launches": [fa.flash_attention_fwd.lse_launches - counts[0],
+                         fa.flash_attention_bwd_dkv.launches - counts[1],
+                         fa.flash_attention_bwd_dq.launches - counts[2]],
+            "node": os.environ.get("RAY_TPU_NODE_ID"),
+            "cards": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "foreign": foreign_modules()})
+
+
+def run_launcher(card: str, want: list) -> dict:
+    """The training path through a cluster that launcher.up() brought up
+    (see the comment above LAUNCHER_STEPS), its session records in a
+    temporary directory of its own (removed after). Checks that the
+    cluster holds one GPU, on the launcher's worker node, whose gpu_model
+    label names this card; that the trainer's worker ran on that node,
+    saw one card and loaded no jax or ray_tpu; its losses and grad norms
+    against ``want`` (run_trainer's in-process steps); K1 (lse)/K2/K3
+    TRAINER_LAYERS times each a step; that down() returned no error,
+    every recorded node process is gone, the state file and node records
+    are removed and the card's memory is back. Prints up, fit and down
+    seconds."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import launcher
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    try:
+        import yaml  # noqa: F401
+        has_yaml = True
+    except ImportError:
+        has_yaml = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_launcher_")
+    saved = os.environ.get("RAY_TPU_TORCH_SESSION_DIR")
+    os.environ["RAY_TPU_TORCH_SESSION_DIR"] = os.path.join(root, "sessions")
+    cfg = {"cluster_name": "chip-smoke",
+           "head": {"num_cpus": 2, "resources": {"GPU": 0}},
+           "workers": [{"num_cpus": 2, "labels": dict(LAUNCHER_LABEL)}]}
+    free0 = torch.cuda.mem_get_info()[0]
+    try:
+        t0 = time.monotonic()
+        state = launcher.up(cfg)
+        up_s = time.monotonic() - t0
+        try:
+            ray_tpu_torch.init(address=state["address"], num_cpus=0)
+            try:
+                nodes = {n["node_id"].hex(): n
+                         for n in ray_tpu_torch.nodes() if n["alive"]}
+                total = ray_tpu_torch.cluster_resources()
+                t0 = time.monotonic()
+                res = TorchTrainer(
+                    launcher_fn,
+                    scaling_config=ScalingConfig(num_workers=1,
+                                                 use_gpu=True),
+                    run_config=RunConfig(
+                        name="chip-smoke-launcher",
+                        storage_path=os.path.join(root, "runs"))).fit()
+                fit_s = time.monotonic() - t0
+            finally:
+                ray_tpu_torch.shutdown()
+        finally:
+            t0 = time.monotonic()
+            errors = launcher.down(cfg)
+            down_s = time.monotonic() - t0
+        state_left = os.path.exists(launcher._state_path(cfg["cluster_name"]))
+        records_left = [n["info_file"] for n in state["nodes"]
+                        if os.path.exists(n["info_file"])]
+    finally:
+        if saved is None:
+            os.environ.pop("RAY_TPU_TORCH_SESSION_DIR", None)
+        else:
+            os.environ["RAY_TPU_TORCH_SESSION_DIR"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    alive = [n["pid"] for n in state["nodes"] if launcher._pid_alive(n["pid"])]
+    wait_card_back(free0, "launcher.down")
+    head, worker = state["nodes"]
+    gpu_nodes = {i: n["resources_total"].get("GPU", 0)
+                 for i, n in nodes.items()
+                 if n["resources_total"].get("GPU", 0)}
+    wnode = nodes.get(worker["node_id"], {})
+    model = (wnode.get("labels") or {}).get("gpu_model")
+    hist_ = res.metrics_history if res.error is None else []
+    got = [(r["loss"], r["grad_norm"]) for r in hist_]
+    ref = want[:LAUNCHER_STEPS]
+    rel = max((abs(g[i] - w[i]) / abs(w[i]) for g, w in zip(got, ref)
+               for i in (0, 1)), default=float("inf"))
+    launches = [sum(r["launches"][i] for r in hist_) for i in range(3)]
+    print(f"launcher [{card}]: PyYAML importable {has_yaml}; up "
+          f"{up_s:.2f} s ({len(state['nodes'])} nodes, head "
+          f"{head['resources']}, worker {worker['resources']}), fit "
+          f"{fit_s:.2f} s, down {down_s:.2f} s (errors {errors}); cluster "
+          f"GPU {total.get('GPU')}, on nodes {gpu_nodes} (worker "
+          f"{worker['node_id']}), its gpu_model {model!r}; steps "
+          f"{[r['step'] for r in hist_]} on nodes "
+          f"{sorted({r['node'] for r in hist_})}, CUDA_VISIBLE_DEVICES "
+          f"{sorted({r['cards'] for r in hist_})}; losses "
+          f"{[g[0] for g in got]} vs run_trainer's {[w[0] for w in ref]}, "
+          f"grad norms {[g[1] for g in got]} vs {[w[1] for w in ref]} (max "
+          f"rel {rel:.2e}, tol {TRAINER_REL_TOL}; bitwise {got == ref}); "
+          f"launches K1/K2/K3 {launches}; worker's jax/ray_tpu modules "
+          f"{sorted({m for r in hist_ for m in r['foreign']})}; after down: "
+          f"pids alive {alive}, state file left {state_left}, node "
+          f"records left {records_left}")
+    if res.error is not None:
+        raise SystemExit(f"the launcher's trainer failed: {res.error}")
+    if total.get("GPU") != 1 or list(gpu_nodes) != [worker["node_id"]]:
+        raise SystemExit("the launcher's cluster does not hold the one GPU "
+                         "on its worker node")
+    if model != card.split(",")[0].strip() or not \
+            LAUNCHER_LABEL.items() <= (wnode.get("labels") or {}).items():
+        raise SystemExit(f"the worker node's labels {wnode.get('labels')} "
+                         f"do not name the card {card!r}")
+    if [r["step"] for r in hist_] != list(range(1, LAUNCHER_STEPS + 1)) \
+            or {r["node"] for r in hist_} != {worker["node_id"]}:
+        raise SystemExit("the trainer did not run its steps on the "
+                         "launcher's worker node")
+    if rel > TRAINER_REL_TOL or not np.all(np.isfinite(got)):
+        raise SystemExit("the launcher's trainer's losses or grad norms "
+                         "differ from run_trainer's")
+    if any(r["launches"] != [TRAINER_LAYERS] * 3 for r in hist_):
+        raise SystemExit(f"launcher trainer launches per step "
+                         f"{[r['launches'] for r in hist_]}")
+    if any(r["foreign"] for r in hist_):
+        raise SystemExit("the launcher's train worker loaded jax or ray_tpu")
+    if any(r["cards"] is None or "," in r["cards"] for r in hist_):
+        raise SystemExit("the use_gpu worker was not pinned to one card")
+    if errors or alive or state_left or records_left:
+        raise SystemExit("launcher.down left errors, processes or records")
+    return {"launches": launches, "up_s": up_s, "fit_s": fit_s,
+            "down_s": down_s}
+
+
 # --- data-parallel training through the gradient ring and ZeRO-1 ---------
 #
 # Two TorchTrainer workers share the one card (no use_gpu: it would pin
@@ -6108,6 +6285,8 @@ def main() -> int:
     took("run_trainer")
     tuned = run_tune(card, trainer["want"])
     took("run_tune")
+    launched = run_launcher(card, trainer["want"])
+    took("run_launcher")
     dp = run_dp(card)
     took("run_dp")
     elastic = run_elastic(card, dp["want"])
@@ -6132,6 +6311,7 @@ def main() -> int:
                                               "_4cards")] = r["launches"][i]
         train_k[name]["train_trainer"] = trainer["launches"][i]
         train_k[name]["train_tune"] = tuned["launches"][i]
+        train_k[name]["train_launcher"] = launched["launches"][i]
         for path, counts in dict(dp["launches"],
                                  **elastic["launches"]).items():
             train_k[name][path] = counts[i]

@@ -13,7 +13,9 @@ IMPALA/APPO, DQN, SAC, BC, multi-agent PPO) with their learners on the
 card behind CPU env runners, Tune's sweeps over trials (``tune``), and
 the host-only tools around them (the ``ray-tpu-torch`` CLI in
 ``scripts``, the ``/metrics`` endpoint and dashboard, live profiling,
-postmortem bundles, job submission, the autoscaler), with hand-written
+postmortem bundles, job submission, the autoscaler, and the cluster
+launcher with its GCP TPU slice provider in ``launcher`` and
+``providers``), with hand-written
 Hopper kernels in place of the Pallas TPU kernels on those paths. It imports torch and numpy, never jax
 and never ``ray_tpu``. Submodules load lazily; the runtime's processes
 import torch only when a task does.

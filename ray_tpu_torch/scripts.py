@@ -14,9 +14,9 @@ The port keeps its records under a session directory of its own
 (``RAY_TPU_TORCH_SESSION_DIR``, default ``<tmp>/ray_tpu_torch_sessions``),
 so a port driver never attaches to a node of the JAX package on the
 same host, nor the other way round (``init(address=...)`` reads these
-records through ``api._local_cli_node``). ``up``/``down`` (the cluster
-launcher over the GCP TPU provider) are not ported: they raise, naming
-ROADMAP Queue 1 item 16.
+records through ``api._local_cli_node``). ``up``/``down`` run the
+cluster launcher (``ray_tpu_torch.launcher``, with TPU slices through
+``ray_tpu_torch.providers.gcp``).
 """
 
 from __future__ import annotations
@@ -202,20 +202,28 @@ def _resolve_address(args) -> str:
     return addr
 
 
-_UNPORTED_LAUNCHER = (
-    "the cluster launcher (launcher.py over providers/gcp.py) is not "
-    "ported to ray_tpu_torch yet (ROADMAP Queue 1 item 16); start nodes "
-    "with `start --head` / `start --address`")
-
-
 def cmd_up(args) -> int:
     """One-command bring-up (reference: `ray up` —
-    autoscaler/_private/commands.py): not ported."""
-    raise NotImplementedError(_UNPORTED_LAUNCHER)
+    autoscaler/_private/commands.py)."""
+    from ray_tpu_torch import launcher
+    cfg = launcher.load_config(args.config)
+    state = launcher.up(cfg)
+    print(f"cluster {cfg['cluster_name']!r} up: "
+          f"address={state['address']} "
+          f"nodes={len(state['nodes'])} "
+          f"slices={len(state['slice_handles'])}")
+    print(f"connect: ray_tpu_torch.init(address=\"{state['address']}\")")
+    return 0
 
 
 def cmd_down(args) -> int:
-    raise NotImplementedError(_UNPORTED_LAUNCHER)
+    from ray_tpu_torch import launcher
+    cfg = launcher.load_config(args.config)
+    errors = launcher.down(cfg)
+    for e in errors:
+        print(f"warning: {e}", file=sys.stderr)
+    print(f"cluster {cfg['cluster_name']!r} down")
+    return 0
 
 
 def cmd_status(args) -> int:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import glob
 import os
+import subprocess
 from typing import Dict, List, Optional
 
 
@@ -52,10 +53,33 @@ class TPUPlugin(AcceleratorPlugin):
 class NvidiaGPUPlugin(AcceleratorPlugin):
     """NVIDIA detection without vendor libraries: honors
     CUDA_VISIBLE_DEVICES when set (reference:
-    _private/accelerators/nvidia_gpu.py), else counts /dev/nvidia[0-9]*
-    or /proc/driver/nvidia/gpus entries."""
+    _private/accelerators/nvidia_gpu.py), else counts and names the cards
+    that ``nvidia-smi`` lists, else counts /dev/nvidia[0-9]* or
+    /proc/driver/nvidia/gpus entries.
+
+    ``nvidia-smi`` (NVML) lists the cards the driver lets this host's
+    processes use. The device nodes and ``/proc`` need not agree with it:
+    a container may hold the node of a card it cannot open (an H100 host
+    showed /dev/nvidia0 and /dev/nvidia4 with one usable card) and no
+    ``/proc/driver/nvidia`` at all, which left the count wrong and the
+    ``gpu_model`` label out."""
 
     resource_name = "GPU"
+
+    @staticmethod
+    def _smi_names() -> Optional[List[str]]:
+        """The cards' names, one per card as nvidia-smi lists them; None
+        where nvidia-smi is missing or fails."""
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=30)
+        except (OSError, subprocess.SubprocessError):
+            return None
+        if out.returncode != 0:
+            return None
+        return [line.strip() for line in out.stdout.splitlines()
+                if line.strip()]
 
     def count(self) -> int:
         vis = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -71,6 +95,9 @@ class NvidiaGPUPlugin(AcceleratorPlugin):
                     break
                 n += 1
             return n
+        names = self._smi_names()
+        if names is not None:
+            return len(names)
         n = len(glob.glob("/dev/nvidia[0-9]*"))
         if n:
             return n
@@ -80,6 +107,9 @@ class NvidiaGPUPlugin(AcceleratorPlugin):
             return 0
 
     def labels(self) -> Dict[str, str]:
+        names = self._smi_names()
+        if names:
+            return {"gpu_model": names[0]}
         name = None
         try:
             gpus = sorted(os.listdir("/proc/driver/nvidia/gpus"))

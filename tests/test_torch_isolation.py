@@ -97,6 +97,8 @@ PORT_MODULES = ["ray_tpu_torch", "ray_tpu_torch.bridge",
                 "ray_tpu_torch.util.profiling",
                 "ray_tpu_torch.util.collective",
                 "ray_tpu_torch.autoscaler", "ray_tpu_torch.job_submission",
+                "ray_tpu_torch.launcher", "ray_tpu_torch.providers",
+                "ray_tpu_torch.providers.gcp",
                 "ray_tpu_torch.version"]
 
 
@@ -162,6 +164,44 @@ def test_host_libraries_leave_jax_and_ray_tpu_out():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_launcher_leaves_jax_and_ray_tpu_out(tmp_path):
+    """In a fresh process, ``launcher.up`` brings up a head and a worker
+    node from a config dict, a driver joins and runs a task, a slice
+    provider renders its join script, and ``launcher.down`` stops both:
+    jax, ml_dtypes and every ray_tpu module stay out of ``sys.modules``,
+    in the launching process and in the task's worker."""
+    code = (
+        "import asyncio, sys\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import launcher, providers\n"
+        "from ray_tpu_torch.providers import gcp\n"
+        "cfg = {'cluster_name': 'iso', 'head': {'num_cpus': 1},\n"
+        "       'workers': [{'num_cpus': 1, 'labels': {'iso': '1'}}]}\n"
+        "state = launcher.up(cfg)\n"
+        "rt.init(address=state['address'], num_cpus=0)\n"
+        "f = rt.remote(lambda: sorted(m for m in sys.modules if\n"
+        "    m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu')))\n"
+        "assert rt.get(f.remote(), timeout=60) == []\n"
+        "rt.shutdown()\n"
+        "class Api:\n"
+        "    def request(self, method, url, body):\n"
+        "        self.body = body\n"
+        "        return 200, {}\n"
+        "api = Api()\n"
+        "prov = providers.TPUQueuedResourceProvider(\n"
+        "    gcp.GCPClient('p', 'z', request=api.request), state['address'])\n"
+        "asyncio.run(prov.launch({}, {}))\n"
+        "assert 'ray_tpu_torch.node' in str(api.body)\n"
+        "assert launcher.down(cfg) == []\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu')))\n")
+    env = dict(os.environ, RAY_TPU_TORCH_SESSION_DIR=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_port_modules_list_every_module():

@@ -1,0 +1,8 @@
+"""The 95th percentile over the requests completed in the window of a
+traced run of the time from a client's submit to its first token. It is
+a per-layer metric and not an end-to-end one: a tail of this closed loop
+spreads from run to run by more than a bound can hold (PERF.md)."""
+
+
+def read(ctx):
+    return ctx.run.get("ttft_p95_ms")
